@@ -1,0 +1,23 @@
+"""gcn_grabcut_torch — the PyTorch / CUDA port of gcn_grabcut_tpu.
+
+The port grows slice by slice beside the JAX package, which stays the
+reference.  This slice runs the large-graph configuration of
+`GCNGrabCutPipeline.segment_batch` (K > 2048 superpixels): graph build,
+banded-SpMM ResGCNNet forward (hand-written CUDA kernel on the card),
+trimap, GrabCut and clean-up.  Entry points run on the card unless the
+caller passes device="cpu".
+"""
+
+from .core.graph import GraphBatch, make_graph_batch
+from .grabcut import GrabCutConfig
+from .graph_build import SuperpixelGraphConfig, build_graph_batch_arrays
+from .models.convert import resgcn_from_jax
+from .models.large import apply_large
+from .models.resgcn import ResGCNNet
+from .pipeline import GCNGrabCutPipeline, SegmentationResult
+
+__all__ = [
+    "GCNGrabCutPipeline", "GrabCutConfig", "GraphBatch", "ResGCNNet",
+    "SegmentationResult", "SuperpixelGraphConfig", "apply_large",
+    "build_graph_batch_arrays", "make_graph_batch", "resgcn_from_jax",
+]

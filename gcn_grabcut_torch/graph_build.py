@@ -1,0 +1,118 @@
+"""Superpixel graph construction: image -> padded graph arrays.
+
+Counterpart of ``gcn_grabcut_tpu/graph_build.py``: colour conversion,
+gradients, SLIC, region statistics, node features, adjacency and blocked
+non-local edges, and the saliency prior, at static shapes.  The node count
+is the SLIC grid size K (empty clusters are masked nodes); the edge budget
+is 2·(adjacency budget + K·n_nonlocal) directed slots.
+
+This slice covers the large-graph configuration (K > 2048), which the JAX
+package builds with the blocked k-NN and the blocked prior contrast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from .core.device import resolve_device
+from .ops import edges as edge_ops
+from .ops import image as im
+from .ops import prior as prior_ops
+from .ops import region as region_ops
+from .ops import slic as slic_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperpixelGraphConfig:
+    """Same fields and defaults as the JAX package's config."""
+    n_segments: int = 300
+    compactness: float = 10.0
+    sigma: float = 1.0
+    use_lab: bool = True
+    connectivity: int = 4
+    n_nonlocal: int = 4
+    slic_iters: int = 10
+    bg_connectivity: bool = False
+
+
+def num_nodes_for(h: int, w: int, cfg: SuperpixelGraphConfig) -> int:
+    return slic_ops.slic_num_labels(h, w, cfg.n_segments)
+
+
+def edge_budget_for(h: int, w: int, cfg: SuperpixelGraphConfig) -> int:
+    k = num_nodes_for(h, w, cfg)
+    return 2 * (edge_ops.adjacency_budget(k, cfg.connectivity)
+                + edge_ops.nonlocal_budget(k, max(cfg.n_nonlocal, 1)))
+
+
+def _build_graph_arrays(rgb: torch.Tensor, cfg: SuperpixelGraphConfig
+                        ) -> dict:
+    """One image. rgb: (H, W, 3) float32 in 0..255."""
+    H, W, _ = rgb.shape
+    k = slic_ops.slic_num_labels(H, W, cfg.n_segments)
+    if k <= prior_ops.LARGE_K_THRESHOLD:
+        raise NotImplementedError(
+            f"K={k} <= {prior_ops.LARGE_K_THRESHOLD}: the dense k-NN and "
+            "dense prior come with port slice 2 (512 px / 500 superpixels)")
+    if cfg.bg_connectivity:
+        raise NotImplementedError(
+            "bg_connectivity (geodesic prior) comes with port slice 2")
+
+    lab = im.rgb_to_lab(rgb)
+    segments = slic_ops.slic(lab, n_segments=cfg.n_segments,
+                             compactness=cfg.compactness,
+                             n_iter=cfg.slic_iters, smooth_sigma=cfg.sigma)
+    return _graph_arrays(rgb, lab, segments, cfg)
+
+
+def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
+                  segments: torch.Tensor, cfg: SuperpixelGraphConfig) -> dict:
+    """Everything after SLIC: region statistics, features, edges, prior."""
+    H, W, _ = rgb.shape
+    k = slic_ops.slic_num_labels(H, W, cfg.n_segments)
+    hsv = im.rgb_to_hsv(rgb)
+    grad = im.gradient_magnitude(im.rgb_to_gray(rgb))
+    st = region_ops.region_statistics(segments, lab, hsv, grad, k)
+    node_feats = region_ops.assemble_node_features(st)
+
+    adj_pairs, shared, adj_mask = edge_ops.adjacency_pairs(
+        segments, k, cfg.connectivity)
+    adj_attr = edge_ops.pair_features(adj_pairs, adj_mask, st, shared,
+                                      torch.zeros_like(shared))
+    # SLIC grid order bounds adjacent labels to ±(gw + 1).
+    _, gw = slic_ops.grid_shape(H, W, cfg.n_segments)
+    nl_pairs, nl_mask = edge_ops.nonlocal_pairs_banded(
+        st["mean_lab"], st["valid"], k, max(cfg.n_nonlocal, 1),
+        exclude_window=gw + 1)
+    if cfg.n_nonlocal <= 0:
+        nl_mask = torch.zeros_like(nl_mask)
+    nl_attr = edge_ops.pair_features(nl_pairs, nl_mask, st,
+                                     torch.zeros_like(nl_mask),
+                                     torch.ones_like(nl_mask))
+    src, dst, attr, emask = edge_ops.symmetrise(
+        torch.cat([adj_pairs, nl_pairs]), torch.cat([adj_attr, nl_attr]),
+        torch.cat([adj_mask, nl_mask]))
+
+    pr = prior_ops.compute_auto_prior(
+        segments, k, stats=(st["counts"], st["mean_lab"], st["centroids"]))
+    return dict(
+        segments=segments,
+        x=torch.cat([node_feats, pr], dim=1),       # (K, 19)
+        edge_src=src, edge_dst=dst, edge_attr=attr, edge_mask=emask,
+        node_mask=st["valid"], node_area=st["area_ratio"],
+        centroids=st["centroids"], prior=pr, counts=st["counts"],
+    )
+
+
+def build_graph_batch_arrays(rgbs, config: Optional[SuperpixelGraphConfig]
+                             = None, device=None) -> dict:
+    """(B, H, W, 3) RGB (array or tensor, 0..255) -> dict of batched
+    tensors with a leading B axis, on `device` (default: the card)."""
+    cfg = config or SuperpixelGraphConfig()
+    dev = resolve_device(device)
+    rgbs = torch.as_tensor(rgbs, device=dev).float()
+    outs = [_build_graph_arrays(rgb, cfg) for rgb in rgbs]
+    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}

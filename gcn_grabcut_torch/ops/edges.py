@@ -1,0 +1,140 @@
+"""Region-adjacency and non-local edge extraction at static shapes.
+
+Counterpart of ``gcn_grabcut_tpu/ops/edges.py``: adjacency pairs from
+shifted label-map comparisons deduplicated at a static budget, blocked
+k-NN colour edges for the large-graph configuration, 5-d pair features and
+symmetric directed edge lists.  Sorts that feed a dedup are stable, as
+``jnp.sort``/``jnp.argsort`` are.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def unique_counts_static(codes: torch.Tensor, size: int, sentinel: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(codes, size=size, fill_value=sentinel,
+    return_counts=True)``: ascending uniques truncated at `size`, empty
+    slots carry `sentinel` with count 0."""
+    s = torch.sort(codes.reshape(-1), stable=True).values
+    is_new = torch.ones_like(s, dtype=torch.bool)
+    is_new[1:] = s[1:] != s[:-1]
+    rank = torch.cumsum(is_new.long(), dim=0) - 1
+    n = s.shape[0]
+    starts = torch.searchsorted(
+        rank, torch.arange(size + 1, device=s.device, dtype=rank.dtype))
+    counts = torch.diff(starts)
+    uniq = s[starts[:size].clamp_max(n - 1)]
+    uniq = torch.where(counts > 0, uniq, torch.full_like(uniq, sentinel))
+    return uniq, counts
+
+
+def adjacency_budget(k: int, connectivity: int = 4) -> int:
+    return 4 * k if connectivity == 4 else 6 * k
+
+
+def nonlocal_budget(k: int, n_nonlocal: int) -> int:
+    return k * n_nonlocal
+
+
+def _decode(uniq: torch.Tensor, sent: int, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    mask = (uniq != sent).float()
+    uniq = torch.where(uniq == sent, torch.zeros_like(uniq), uniq)
+    return torch.stack([uniq // k, uniq % k], dim=1), mask
+
+
+def adjacency_pairs(segments: torch.Tensor, k: int, connectivity: int = 4):
+    """Unique undirected adjacent-region pairs (P, 2), shared boundary
+    lengths (P,) normalised to [0, 1], and a (P,) mask, at the static
+    budget P = adjacency_budget(k)."""
+    sent = k * k
+    seg = segments.long()
+    shifts = [(seg[:, :-1], seg[:, 1:]), (seg[:-1, :], seg[1:, :])]
+    if connectivity == 8:
+        shifts += [(seg[:-1, :-1], seg[1:, 1:]), (seg[:-1, 1:], seg[1:, :-1])]
+    codes = []
+    for a, b in shifts:
+        a, b = a.reshape(-1), b.reshape(-1)
+        code = torch.minimum(a, b) * k + torch.maximum(a, b)
+        codes.append(torch.where(a == b, torch.full_like(code, sent), code))
+    uniq, counts = unique_counts_static(torch.cat(codes),
+                                        adjacency_budget(k, connectivity),
+                                        sent)
+    pairs, mask = _decode(uniq, sent, k)
+    counts = counts.float() * mask
+    shared = counts / (counts.max() + 1e-6)
+    return pairs, shared, mask
+
+
+def nonlocal_pairs_banded(mean_lab: torch.Tensor, valid: torch.Tensor,
+                          k: int, n_nonlocal: int, exclude_window: int,
+                          block: int = 1024
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked k-NN colour edges for the large-graph configuration: row
+    blocks of distances, spatial neighbours excluded by SLIC-grid index
+    window, (K·n_nonlocal, 2) pairs and mask."""
+    dev = mean_lab.device
+    budget = nonlocal_budget(k, max(n_nonlocal, 1))
+    if n_nonlocal <= 0 or k <= 1:
+        return (torch.zeros((budget, 2), dtype=torch.long, device=dev),
+                torch.zeros(budget, device=dev))
+    n_nonlocal = min(n_nonlocal, k - 1)
+    kp = ((k + block - 1) // block) * block
+    ml = torch.zeros((kp, 3), device=dev)
+    ml[:k] = mean_lab
+    vl = torch.zeros(kp, device=dev)
+    vl[:k] = valid
+    cols = torch.arange(kp, device=dev)
+    sent = k * k
+
+    codes = []
+    for i0 in range(0, kp, block):
+        rows = cols[i0:i0 + block]
+        d = torch.linalg.vector_norm(ml[i0:i0 + block, None, :]
+                                     - ml[None, :, :], dim=2)
+        excl = (rows[:, None] - cols[None, :]).abs() <= exclude_window
+        excl |= (vl[i0:i0 + block, None] <= 0) | (vl[None, :] <= 0)
+        excl |= (rows[:, None] >= k) | (cols[None, :] >= k)
+        d = torch.where(excl, torch.full_like(d, float("inf")), d)
+        neg_d, nbrs = torch.topk(-d, n_nonlocal, dim=1)
+        finite = torch.isfinite(neg_d)
+        lo = torch.minimum(rows[:, None], nbrs)
+        hi = torch.maximum(rows[:, None], nbrs)
+        codes.append(torch.where(finite, lo * k + hi,
+                                 torch.full_like(lo, sent)).reshape(-1))
+    uniq, _ = unique_counts_static(torch.cat(codes), budget, sent)
+    return _decode(uniq, sent, k)
+
+
+def pair_features(pairs: torch.Tensor, mask: torch.Tensor, st: dict,
+                  shared: torch.Tensor, nonlocal_flag: torch.Tensor
+                  ) -> torch.Tensor:
+    """5-d edge features per undirected pair: [ΔE LAB (max-normalised),
+    centroid distance (max-normalised), shared boundary, gradient
+    contrast, non-local flag]."""
+    i, j = pairs[:, 0], pairs[:, 1]
+    delta_e = torch.linalg.vector_norm(st["mean_lab"][i] - st["mean_lab"][j],
+                                       dim=1) * mask
+    delta_e = delta_e / (delta_e.max() + 1e-6)
+    dxy = torch.linalg.vector_norm(st["centroids"][i] - st["centroids"][j],
+                                   dim=1) * mask
+    dxy = dxy / (dxy.max() + 1e-6)
+    grad_contrast = (st["mean_grad_n"][i] - st["mean_grad_n"][j]).abs()
+    attr = torch.stack([delta_e, dxy, shared, grad_contrast, nonlocal_flag],
+                       dim=1)
+    return attr * mask[:, None]
+
+
+def symmetrise(pairs: torch.Tensor, attr: torch.Tensor, mask: torch.Tensor):
+    """Undirected pairs -> symmetric directed (src, dst, attr, mask);
+    padded slots keep src = dst = 0 and mask 0."""
+    mask2 = torch.cat([mask, mask])
+    keep = mask2 > 0
+    zero = torch.zeros_like(pairs[:, 0])
+    src = torch.where(keep, torch.cat([pairs[:, 0], pairs[:, 1]]),
+                      torch.cat([zero, zero]))
+    dst = torch.where(keep, torch.cat([pairs[:, 1], pairs[:, 0]]),
+                      torch.cat([zero, zero]))
+    return src, dst, torch.cat([attr, attr], dim=0), mask2

@@ -1,0 +1,124 @@
+"""Image-plane primitives: colour conversions, Sobel gradients, box and
+guided filters.
+
+Counterpart of ``gcn_grabcut_tpu/ops/image.py``.  Colour functions take
+(..., 3) float32 RGB in 0..255 and keep the channel axis last; filters take
+(..., H, W) planes.  The box filter keeps the cumulative-sum formulation so
+its float32 rounding follows the JAX package's.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_XYZ_FROM_RGB = (
+    (0.412453, 0.357580, 0.180423),
+    (0.212671, 0.715160, 0.072169),
+    (0.019334, 0.119193, 0.950227),
+)
+_WHITE_D65 = (0.95047, 1.0, 1.08883)
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """ITU-R BT.601 luma (cv2 COLOR_RGB2GRAY), 0..255 in and out."""
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
+    """CIELAB (D65, 2° observer) as skimage.color.rgb2lab."""
+    rgb01 = (rgb.float() / 255.0).clamp(0.0, 1.0)
+    lin = srgb_to_linear(rgb01)
+    m = torch.tensor(_XYZ_FROM_RGB, dtype=torch.float32, device=rgb.device)
+    white = torch.tensor(_WHITE_D65, dtype=torch.float32, device=rgb.device)
+    xyz = torch.einsum("...c,kc->...k", lin, m) / white
+    eps = 0.008856
+    kappa = 7.787
+    f = torch.where(xyz > eps, xyz.clamp_min(0.0) ** (1.0 / 3.0),
+                    kappa * xyz + 16.0 / 116.0)
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    return torch.stack([116.0 * fy - 16.0, 500.0 * (fx - fy),
+                        200.0 * (fy - fz)], dim=-1)
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """HSV as skimage.color.rgb2hsv: all channels in [0, 1]."""
+    rgb01 = rgb.float() / 255.0
+    v = rgb01.amax(dim=-1)
+    mn = rgb01.amin(dim=-1)
+    delta = v - mn
+    safe = torch.where(delta == 0, torch.ones_like(delta), delta)
+    r, g, b = rgb01[..., 0], rgb01[..., 1], rgb01[..., 2]
+    h = torch.where(v == r, (g - b) / safe,
+                    torch.where(v == g, 2.0 + (b - r) / safe,
+                                4.0 + (r - g) / safe))
+    h = torch.remainder(h / 6.0, 1.0)
+    h = torch.where(delta == 0, torch.zeros_like(h), h)
+    s = torch.where(v == 0, torch.zeros_like(v),
+                    delta / torch.where(v == 0, torch.ones_like(v), v))
+    return torch.stack([h, s, v], dim=-1)
+
+
+def reflect101_pad(img: torch.Tensor, r: int) -> torch.Tensor:
+    """BORDER_REFLECT_101 padding of the last two axes (cv2 default)."""
+    lead = img.shape[:-2]
+    flat = img.reshape(1, -1, *img.shape[-2:])
+    out = F.pad(flat, (r, r, r, r), mode="reflect")
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+def sobel(gray: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Sobel gx, gy of (..., H, W) planes (cv2.Sobel ksize=3)."""
+    H, W = gray.shape[-2:]
+    p = reflect101_pad(gray, 1)
+
+    def sh(dy, dx):
+        return p[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+    gx = (sh(-1, 1) + 2 * sh(0, 1) + sh(1, 1)
+          - sh(-1, -1) - 2 * sh(0, -1) - sh(1, -1))
+    gy = (sh(1, -1) + 2 * sh(1, 0) + sh(1, 1)
+          - sh(-1, -1) - 2 * sh(-1, 0) - sh(-1, 1))
+    return gx, gy
+
+
+def gradient_magnitude(gray: torch.Tensor) -> torch.Tensor:
+    gx, gy = sobel(gray)
+    return torch.sqrt(gx * gx + gy * gy)
+
+
+def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
+    """(2r+1)^2 mean filter of (..., H, W) planes with REFLECT_101 borders
+    (cv2.blur), as two cumulative-sum window passes."""
+    if radius <= 0:
+        return img
+    k = 2 * radius + 1
+    H, W = img.shape[-2:]
+    x = reflect101_pad(img, radius)
+
+    def window_sum(a, dim, out_len):
+        c = torch.cumsum(a, dim=dim)
+        upper = c.narrow(dim, k - 1, out_len)
+        lower = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)),
+                           c.narrow(dim, 0, out_len - 1)], dim=dim)
+        return upper - lower
+
+    s = window_sum(x, -2, H)
+    s = window_sum(s, -1, W)
+    return s / float(k * k)
+
+
+def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int = 8,
+                  eps: float = 1e-3) -> torch.Tensor:
+    """He et al. 2010 guided filter, the six-box-filter formulation."""
+    mean_g = box_filter(guide, radius)
+    mean_s = box_filter(src, radius)
+    cov_gs = box_filter(guide * src, radius) - mean_g * mean_s
+    var_g = box_filter(guide * guide, radius) - mean_g * mean_g
+    a = cov_gs / (var_g + eps)
+    b = mean_s - a * mean_g
+    return box_filter(a, radius) * guide + box_filter(b, radius)

@@ -1,0 +1,203 @@
+"""Parallel push-relabel min-cut on the pixel lattice.
+
+Counterpart of ``gcn_grabcut_tpu/ops/maxflow.py``.  Terminal arcs fold into
+a signed excess e = cap_src - cap_snk (negative excess is the distributed
+sink); neighbour arcs are per-direction residual pairs (r_fwd, r_bwd).
+Pushes run one direction at a time so writes never conflict, heights are
+refreshed by a global relabel (BFS distance to the nearest deficit pixel),
+and the cut's source side is every pixel that cannot reach the sink after
+the final exact relabel -- the minimal source set, so tied cuts resolve as
+in the JAX package.
+
+Port notes.  The JAX while loops become Python loops that test convergence
+once per block of steps (one host sync each).  Arrays that are read shifted
+(heights, backward residuals, the flow being pushed) live in buffers padded
+by one pixel whose border holds the out-of-image fill value, so a shift is
+a view rather than a copy; updates go to the interiors in place, with the
+same float32 operations in the same order as the JAX stencils.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# Undirected lattice directions: the offset (dy, dx) from p to the
+# neighbour "ahead" of it (cv2.grabCut's left / up / up-left / up-right).
+OFFSETS_4 = ((0, -1), (-1, 0))
+OFFSETS_8 = ((0, -1), (-1, 0), (-1, -1), (-1, 1))
+
+
+def _pad(a: torch.Tensor, fill) -> torch.Tensor:
+    return F.pad(a, (1, 1, 1, 1), value=fill)
+
+
+def _view(ap: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[p] = a[p + (dy, dx)] for a one-pixel padded buffer `ap` whose
+    border holds the fill value: the JAX package's _shift_from(a, dy, dx,
+    fill) as a view, and _shift_to(a, dy, dx) as _view(ap, -dy, -dx)."""
+    H, W = ap.shape[0] - 2, ap.shape[1] - 2
+    return ap[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+
+
+def _zero_border(cap: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Zero the capacity of arcs that would cross the image border."""
+    cap = cap.clone()
+    if dy == -1:
+        cap[0, :] = 0.0
+    if dx == -1:
+        cap[:, 0] = 0.0
+    if dx == 1:
+        cap[:, -1] = 0.0
+    return cap
+
+
+def _fresh_residuals(caps, offsets):
+    r_fwd = tuple(_zero_border(c.float(), dy, dx)
+                  for c, (dy, dx) in zip(caps, offsets))
+    return r_fwd, r_fwd
+
+
+def _resolve_params(H, W, connectivity, relabel_iters):
+    offsets = OFFSETS_8 if connectivity == 8 else OFFSETS_4
+    if relabel_iters is None:
+        # The BFS must reach the full residual-path diameter; it stops at
+        # the fixpoint, so the generous cap only costs on long instances.
+        relabel_iters = 4 * (H + W)
+    return offsets, relabel_iters
+
+
+def _build_solver(H: int, W: int, offsets, max_outer: int,
+                  sweeps_per_round: int, relabel_iters: int,
+                  unroll: int = 4):
+    """solve(e, r_fwd, r_bwd) -> (fg, e', r_fwd', r_bwd').
+
+    Arbitrary starting residuals allow flow recycling across GrabCut
+    iterations (Kohli & Torr): only the terminal capacities move, so the
+    previous flow stays a valid preflow."""
+    INF = H * W + 1
+
+    def global_relabel(e, r_fwd, rbp):
+        """Padded heights: distance to the nearest deficit pixel along
+        residual arcs, by min-plus relaxation to the fixpoint (at most
+        relabel_iters steps).  Each arc's 'plus one' is folded into an
+        addend that is 1 where the arc is usable and INF where not: the
+        candidate is then >= INF and never wins, as the JAX where does."""
+        arcs = []
+        for d, (dy, dx) in enumerate(offsets):
+            arcs.append(((dy, dx), torch.where(r_fwd[d] > 0, 1, INF
+                                               ).to(torch.int32)))
+            arcs.append(((-dy, -dx), torch.where(
+                _view(rbp[d], -dy, -dx) > 0, 1, INF).to(torch.int32)))
+        h0 = torch.where(e < 0, 0, INF).to(torch.int32)
+        bufs = [_pad(h0, INF), torch.full((H + 2, W + 2), INF,
+                                          dtype=torch.int32, device=e.device)]
+        tmp = torch.empty((H, W), dtype=torch.int32, device=e.device)
+        cur, it = 0, 0
+        while it < relabel_iters:
+            for _ in range(unroll):
+                src, dst = bufs[cur], bufs[1 - cur]
+                new = _view(dst, 0, 0)
+                new.copy_(_view(src, 0, 0))
+                for (oy, ox), add in arcs:
+                    torch.add(_view(src, oy, ox), add, out=tmp)
+                    torch.minimum(new, tmp, out=new)
+                cur = 1 - cur
+            it += unroll
+            # Relaxation is monotone: a step that changes nothing is the
+            # fixpoint, so testing the last step ends where the JAX block
+            # test does.
+            if not bool((_view(bufs[cur], 0, 0)
+                         < _view(bufs[1 - cur], 0, 0)).any()):
+                break
+        return bufs[cur]
+
+    def push_sweep(e, hp, r_fwd, rbp, fp):
+        """One lock-step push over all directions, then relabel, in place."""
+        h = _view(hp, 0, 0)
+        f = _view(fp, 0, 0)
+        zero = torch.zeros((), device=e.device)
+        hfin = h < INF
+        for d, (dy, dx) in enumerate(offsets):
+            rf, rb = r_fwd[d], _view(rbp[d], 0, 0)
+            # Push p -> p + off along r_fwd.
+            can = ((e > 0) & hfin & (h == _view(hp, dy, dx) + 1)
+                   & (rf > 0))
+            torch.where(can, torch.minimum(e, rf), zero, out=f)
+            rf.sub_(f)
+            rb.add_(f)
+            e.sub_(f).add_(_view(fp, -dy, -dx))
+            # Push p -> p - off along the neighbour's r_bwd.
+            res = _view(rbp[d], -dy, -dx)
+            can = ((e > 0) & hfin & (h == _view(hp, -dy, -dx) + 1)
+                   & (res > 0))
+            torch.where(can, torch.minimum(e, res), zero, out=f)
+            back = _view(fp, dy, dx)
+            rb.sub_(back)
+            rf.add_(back)
+            e.sub_(f).add_(back)
+        # Relabel: overflowing pixels lift to 1 + min reachable neighbour.
+        new_h = torch.full_like(h, INF)
+        for d, (dy, dx) in enumerate(offsets):
+            new_h = torch.minimum(new_h, torch.where(
+                r_fwd[d] > 0, _view(hp, dy, dx) + 1, INF))
+            new_h = torch.minimum(new_h, torch.where(
+                _view(rbp[d], -dy, -dx) > 0, _view(hp, -dy, -dx) + 1, INF))
+        lift = (e > 0) & hfin
+        h_next = torch.where(lift, torch.maximum(h, new_h), h)
+        h.copy_(torch.where(e < 0, 0, h_next))
+
+    def solve(excess, r_fwd, r_bwd):
+        # Work on copies: the caller's tensors stay unchanged.
+        e = excess.float().clone()
+        r_fwd = [r.float().clone() for r in r_fwd]
+        rbp = [_pad(r.float(), 0.0) for r in r_bwd]
+        fp = torch.zeros((H + 2, W + 2), device=e.device)
+        hp = global_relabel(e, r_fwd, rbp)
+        for _ in range(max_outer):
+            h = _view(hp, 0, 0)
+            if not bool(((e > 1e-6) & (h < INF)).any()):
+                break
+            hp = global_relabel(e, r_fwd, rbp)
+            for _ in range(max(1, sweeps_per_round // unroll) * unroll):
+                push_sweep(e, hp, r_fwd, rbp, fp)
+        hp = global_relabel(e, r_fwd, rbp)
+        return (_view(hp, 0, 0) >= INF, e, tuple(r_fwd),
+                tuple(_view(r, 0, 0) for r in rbp))
+
+    return solve
+
+
+def grid_mincut(excess: torch.Tensor, caps: tuple, connectivity: int = 8,
+                max_outer: int = 400, sweeps_per_round: int = 48,
+                relabel_iters: int | None = None, unroll: int = 4
+                ) -> torch.Tensor:
+    """s-t min-cut on an (H, W) lattice.  `excess` (H, W) = cap_src -
+    cap_snk; `caps` one (H, W) undirected capacity per direction of
+    OFFSETS_4 / OFFSETS_8.  Returns (H, W) bool, True on the source
+    (foreground) side."""
+    H, W = excess.shape
+    offsets, relabel_iters = _resolve_params(H, W, connectivity,
+                                             relabel_iters)
+    if len(caps) != len(offsets):
+        raise ValueError(f"{len(caps)} capacity planes for "
+                         f"{connectivity}-connectivity")
+    solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
+                          relabel_iters, unroll)
+    r_fwd, r_bwd = _fresh_residuals(caps, offsets)
+    return solve(excess, r_fwd, r_bwd)[0]
+
+
+def grid_mincut_stateful(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
+                         connectivity: int = 8, max_outer: int = 400,
+                         sweeps_per_round: int = 48,
+                         relabel_iters: int | None = None, unroll: int = 4):
+    """Warm start from carried residuals (flow recycling): `excess` is the
+    carried excess plus the terminal-capacity delta.  Returns (fg, e',
+    r_fwd', r_bwd')."""
+    H, W = excess.shape
+    offsets, relabel_iters = _resolve_params(H, W, connectivity,
+                                             relabel_iters)
+    solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
+                          relabel_iters, unroll)
+    return solve(excess, r_fwd, r_bwd)
