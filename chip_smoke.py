@@ -10,11 +10,24 @@ Phases, each of which exits non-zero on failure:
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes, with its time, the plain version's time, a one-call
      PyTorch yardstick and the bound the card's peak rates allow;
+     K1 at the banded SpMM's shapes; K2 and K3 (the ring all-gather and
+     reduce-scatter) at the sharded path's shapes (n = 4 ranks of one
+     (rows/4, 128) block) and at n = 2 and 8 over the same rows, in float32
+     and bfloat16, then >= 100 calls for each n with fresh seeded data and
+     seeded timing skew between ranks, every output exact;
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
      launch counts set to 0 just before and read just after; the card's
-     forward is then held against the plain forward on the CPU.
+     forward is then held against the plain forward on the CPU;
+  5. the graph-sharded path on the same graph and model: the forward
+     through mesh_aggregators over 4 ranks with the ring halo (K2) and the
+     gradient of sum(logits * c) for every parameter (K3), after a warm
+     call, with the counts set to 0 just before and read just after; held
+     against apply_large(precision="highest") and the backward with the
+     plain halo.
+Kernel times are device times: the launches run back to back behind a
+device sleep, so the host's launch cost is not counted.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
@@ -44,6 +57,18 @@ HIDDEN, N_LAYERS = 128, 6
 MODEL_SEED = 4
 SPMM_TOL = 1e-4        # kernel vs plain: same products, fp32 sums reordered
 FORWARD_TOL = 2e-2     # card (bf16 kernel) vs CPU plain forward, logits
+RING_SIZES = (2, 4, 8)
+PATH_RANKS = 4
+STRESS_CALLS = 100
+STRESS_MAX_DELAY_NS = 20_000
+# K3's yardstick sums over ranks in another order: fp32 within 1e-5 of the
+# sum's scale, bf16 within 2 ulp at that scale.
+YARDSTICK_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+# Sharded forward vs apply_large(precision="highest"): the same fp32 sums,
+# reordered, and edge weights rounded differently.
+SHARDED_FWD_TOL = 1e-3
+# Sharded backward, ring halo vs plain halo: index_add_ atomics reorder sums.
+SHARDED_GRAD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -59,19 +84,28 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() after a warm-up."""
+    """Device milliseconds per fn() call: `reps` calls run back to back
+    between two CUDA events, queued behind a device sleep long enough for
+    the host to queue them all, so the host's launch cost is not counted."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    slept.record()
+    torch.cuda._sleep(300_000_000)       # ~0.15 s at the H100's clocks
+    start.record()
+    t = time.perf_counter()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    host_ms = (time.perf_counter() - t) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms > slept.elapsed_time(start):
+        print(f"  (timing: queueing {reps} calls took {host_ms:.1f} ms, "
+              f"longer than the sleep; the time includes host gaps)",
+              flush=True)
+    return start.elapsed_time(end) / reps
 
 
 def make_image(hw: int, seed: int = 0) -> np.ndarray:
@@ -168,6 +202,159 @@ def check_banded_spmm(dev) -> dict:
     return record
 
 
+def ring_bound(n: int, chunk: int, elt: int, reduce: bool
+               ) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the least time for K2 (reduce=False)
+    or K3 on n ranks of (chunk, HIDDEN) blocks.  K2 reads n blocks and
+    writes n^2; K3 reads n^2 and writes n, and adds (n - 1) n chunk HIDDEN
+    values, counted at the fp32 rate (bf16 is added in fp32)."""
+    e = chunk * HIDDEN * elt
+    t_bytes = (n + n * n) * e / PEAK_BYTES_S * 1e3
+    n_ops = (n - 1) * n * chunk * HIDDEN if reduce else 0
+    t_ops = n_ops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_ring_collectives(dev, n_nodes: int) -> dict:
+    """K2 and K3 against their plain versions at the sharded path's shapes
+    (PATH_RANKS ranks, chunk = n_nodes / PATH_RANKS rounded up, D = HIDDEN)
+    and at the other RING_SIZES over the same nodes, in float32 and
+    bfloat16.  Both must agree exactly.  Returns the float32 (the path's
+    dtype) records at PATH_RANKS, keyed "K2" and "K3"."""
+    from gcn_grabcut_torch.parallel import ring
+    from gcn_grabcut_torch.parallel.mesh import make_graph_mesh
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records = {}
+    for n in RING_SIZES:
+        chunk = -(-n_nodes // n)
+        rows = n * chunk
+        mesh = make_graph_mesh(n)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((rows, HIDDEN), generator=gen, device=dev
+                            ).to(dtype)
+            blocks = list(x.split(chunk))
+            g = torch.randn((n, rows, HIDDEN), generator=gen, device=dev
+                            ).to(dtype)
+            gs = list(g)
+            elt = x.element_size()
+            tag = f"n={n} chunk={chunk} D={HIDDEN} {str(dtype)[6:]}"
+
+            out = ring.ring_all_gather_cuda(blocks, mesh)
+            torch.cuda.synchronize()
+            err2 = max(float((o.float() - w.float()).abs().max())
+                       for o, w in zip(out, ring.ring_all_gather_plain(blocks)))
+            cat = torch.cat(blocks)
+            rec2 = {"name": "ring_all_gather", "route": "cuda",
+                    "source": "gcn_grabcut_torch/csrc/ring_collectives.cu",
+                    "replaces": "gcn_grabcut_tpu/parallel/ring_pallas.py:109",
+                    "launches": 0, "max_abs_err": err2,
+                    "ms": time_ms(lambda: ring.ring_all_gather_cuda(
+                        blocks, mesh)),
+                    "plain_ms": time_ms(
+                        lambda: ring.ring_all_gather_plain(blocks)),
+                    "library_ms": time_ms(
+                        lambda: cat.expand(n, rows, HIDDEN).contiguous())}
+            rec2["bound_ms"], rec2["bound_by"] = ring_bound(n, chunk, elt,
+                                                            False)
+
+            out = ring.ring_reduce_scatter_cuda(gs, mesh)
+            torch.cuda.synchronize()
+            want = ring.ring_reduce_scatter_plain(gs)
+            err3 = max(float((o.float() - w.float()).abs().max())
+                       for o, w in zip(out, want))
+            rec3 = {"name": "ring_reduce_scatter", "route": "cuda",
+                    "source": "gcn_grabcut_torch/csrc/ring_collectives.cu",
+                    "replaces": "gcn_grabcut_tpu/parallel/ring_pallas.py:194",
+                    "launches": 0, "max_abs_err": err3,
+                    "ms": time_ms(lambda: ring.ring_reduce_scatter_cuda(
+                        gs, mesh)),
+                    "plain_ms": time_ms(
+                        lambda: ring.ring_reduce_scatter_plain(gs)),
+                    "library_ms": time_ms(
+                        lambda: g.view(n, n, chunk, HIDDEN).sum(0))}
+            rec3["bound_ms"], rec3["bound_by"] = ring_bound(n, chunk, elt,
+                                                            True)
+            # The yardstick sums in another order: each sum of n terms is
+            # within (n - 1) u sum|g| of the exact one (u the unit
+            # roundoff), so the two are within 2 n u sum|g|.
+            yard = g.view(n, n, chunk, HIDDEN).sum(0).float()
+            yard_err = float((yard - torch.stack(want).float()).abs().max())
+            u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8
+            yard_tol = 2 * n * u * float(
+                g.float().abs().view(n, n, chunk, HIDDEN).sum(0).max())
+
+            mb = chunk * HIDDEN * elt * (n + n * n) / 1e6
+            for key, rec, extra in (
+                    ("K2", rec2, "expand().contiguous()"),
+                    ("K3", rec3, f"view().sum(0) (err {yard_err:.2e}, "
+                                 f"tol {yard_tol:.2e})")):
+                print(f"{key} {rec['name']} {tag}: max_abs_err="
+                      f"{rec['max_abs_err']:.1e} kernel {rec['ms']:.4f} ms, "
+                      f"plain {rec['plain_ms']:.4f} ms, yardstick {extra} "
+                      f"{rec['library_ms']:.4f} ms, bound "
+                      f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+                      f"{mb:.2f} MB)", flush=True)
+            if err2 != 0.0 or err3 != 0.0:
+                fail(f"ring kernels disagree with their plain versions "
+                     f"({tag}: K2 {err2}, K3 {err3})")
+            if yard_err > yard_tol:
+                fail(f"K3's yardstick disagrees with the ring sum ({tag})")
+            if n == PATH_RANKS and dtype == torch.float32:
+                records = {"K2": rec2, "K3": rec3}
+    return records
+
+
+def stress_ring_collectives(dev, n_nodes: int) -> None:
+    """STRESS_CALLS calls each of K2 and K3 for every ring size, queued
+    back to back with fresh seeded data, alternating float32 and bfloat16,
+    each with a seeded (rank, hop) delay table (half the entries 0, the
+    rest up to STRESS_MAX_DELAY_NS) or none.  Every output must equal its
+    plain version bit for bit."""
+    from gcn_grabcut_torch.parallel import ring
+    from gcn_grabcut_torch.parallel.mesh import make_graph_mesh
+    r = np.random.RandomState(2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for n in RING_SIZES:
+        chunk = -(-n_nodes // n)
+        rows = n * chunk
+        mesh = make_graph_mesh(n)
+        checks = []
+        t = time.perf_counter()
+        for i in range(STRESS_CALLS):
+            dtype = (torch.float32, torch.bfloat16)[i % 2]
+            delays = [None if i % 5 == 0 else
+                      r.randint(0, STRESS_MAX_DELAY_NS, (n, n))
+                      * (r.rand(n, n) < 0.5) for _ in range(2)]
+            x = torch.randn((rows, HIDDEN), generator=gen, device=dev
+                            ).to(dtype)
+            outs = ring.ring_all_gather_cuda(list(x.split(chunk)), mesh,
+                                             delay_ns=delays[0])
+            checks += [(o == x).all() for o in outs]
+            gs = list(torch.randn((n, rows, HIDDEN), generator=gen,
+                                  device=dev).to(dtype))
+            outs = ring.ring_reduce_scatter_cuda(gs, mesh, delay_ns=delays[1])
+            checks += [(o == w).all() for o, w in
+                       zip(outs, ring.ring_reduce_scatter_plain(gs))]
+        bad = int((~torch.stack(checks)).sum())
+        print(f"stress n={n} chunk={chunk}: {STRESS_CALLS} calls each of K2 "
+              f"and K3 with seeded skew, {len(checks)} rank outputs, "
+              f"{bad} inexact ({time.perf_counter() - t:.2f} s)", flush=True)
+        if bad:
+            fail(f"{bad} ring outputs differ from their plain versions under "
+                 f"skew (n={n})")
+
+
+def graph_on_card(img: np.ndarray, cfg, dev):
+    """The port's graph of one image, built on the card."""
+    import gcn_grabcut_torch as gt
+    rgbs = torch.as_tensor(img[None], device=dev).float()
+    out = gt.build_graph_batch_arrays(rgbs, cfg, device=dev)
+    return gt.make_graph_batch(
+        x=out["x"], edge_src=out["edge_src"], edge_dst=out["edge_dst"],
+        edge_attr=out["edge_attr"], node_mask=out["node_mask"],
+        edge_mask=out["edge_mask"], node_area=out["node_area"])
+
+
 def run_main_path(dev, record: dict) -> None:
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.graph_build import num_nodes_for
@@ -211,12 +398,7 @@ def run_main_path(dev, record: dict) -> None:
 
     # The card's forward (bf16 kernel) against the plain forward on the
     # CPU, same graph and weights.
-    rgbs = torch.as_tensor(img[None], device=dev).float()
-    out = gt.build_graph_batch_arrays(rgbs, cfg, device=dev)
-    g = gt.make_graph_batch(
-        x=out["x"], edge_src=out["edge_src"], edge_dst=out["edge_dst"],
-        edge_attr=out["edge_attr"], node_mask=out["node_mask"],
-        edge_mask=out["edge_mask"], node_area=out["node_area"])
+    g = graph_on_card(img, cfg, dev)
     logits = apply_large(pipe.model, g).float().cpu()
     g_cpu = gt.make_graph_batch(
         **{f: getattr(g, f).cpu() for f in ("x", "edge_src", "edge_dst",
@@ -233,11 +415,116 @@ def run_main_path(dev, record: dict) -> None:
         fail("the card's forward disagrees with the plain CPU forward")
 
 
+def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
+    """The graph-sharded forward and its gradient on the main path's graph
+    and model: mesh_aggregators over PATH_RANKS ranks with the ring halo."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+    from gcn_grabcut_torch.parallel import ring
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    g = graph_on_card(make_image(IMAGE_HW), cfg, dev)
+    if g.max_nodes != n_nodes:
+        fail(f"the graph has {g.max_nodes} nodes, the kernel phase used "
+             f"{n_nodes}")
+    model = gt.ResGCNNet(hidden_channels=HIDDEN, n_layers=N_LAYERS,
+                         generator=torch.Generator().manual_seed(MODEL_SEED)
+                         ).to(dev).eval()
+    edges = [a[0].cpu().numpy() for a in (g.edge_src, g.edge_dst,
+                                          g.edge_mask)]
+    mesh = gt.make_graph_mesh(PATH_RANKS)
+    t = time.perf_counter()
+    aggs = gt.mesh_aggregators(mesh, *edges, g.max_nodes,
+                               method="allgather", halo="pallas_ring")
+    setup_s = time.perf_counter() - t
+    c = torch.from_numpy(np.random.RandomState(7).randn(
+        1, g.max_nodes, 3).astype(np.float32)).to(dev)
+
+    def step(aggs) -> tuple:
+        """Forward, then the gradient of sum(logits * c): (logits, grads,
+        forward s, backward s, (K2, K3) launch counts after the forward)."""
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(g, aggregators=aggs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd_counts = (ring.ring_all_gather.kernel_launches,
+                      ring.ring_reduce_scatter.kernel_launches)
+        (logits * c).sum().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (logits.detach(), {k: p.grad.detach().clone()
+                                  for k, p in model.named_parameters()},
+                t1 - t0, t2 - t1, fwd_counts)
+
+    step(aggs)                                                   # warm
+    banded_spmm.kernel_launches = 0
+    ring.ring_all_gather.kernel_launches = 0
+    ring.ring_reduce_scatter.kernel_launches = 0
+    logits, grads, fwd_s, bwd_s, (k2_fwd, k3_fwd) = step(aggs)
+    k2 = ring.ring_all_gather.kernel_launches
+    k3 = ring.ring_reduce_scatter.kernel_launches
+    k1 = banded_spmm.kernel_launches
+    records["K2"]["launches"], records["K3"]["launches"] = k2, k3
+
+    xla_aggs = gt.mesh_aggregators(mesh, *edges, g.max_nodes,
+                                   method="allgather", halo="xla")
+    step(xla_aggs)                                               # warm
+    _, xla_grads, xla_fwd_s, xla_bwd_s, _ = step(xla_aggs)
+    ref = apply_large(model, g, precision="highest")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    apply_large(model, g, precision="highest")
+    torch.cuda.synchronize()
+    k1_fwd_s = time.perf_counter() - t
+
+    valid = g.node_mask[0] > 0
+    err = float((logits[0][valid] - ref[0][valid]).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    # ctx.attn.bias shifts every score of a softmax alike: its exact
+    # gradient is 0, so a parameter's scale is floored at 1e-3 of the
+    # model's largest gradient.
+    floor = 1e-3 * max(float(v.abs().max()) for v in xla_grads.values())
+    grad_err = max(float((grads[k] - v).abs().max())
+                   / max(float(v.abs().max()), floor)
+                   for k, v in xla_grads.items())
+    print(f"sharded path ({PATH_RANKS} ranks of {g.max_nodes // PATH_RANKS}"
+          f" nodes, ResGCNNet D={HIDDEN} n={N_LAYERS}, fp32): forward "
+          f"{fwd_s * 1e3:.2f} ms, backward {bwd_s * 1e3:.2f} ms (plain halo:"
+          f" forward {xla_fwd_s * 1e3:.2f} ms, backward "
+          f"{xla_bwd_s * 1e3:.2f} ms; apply_large highest forward "
+          f"{k1_fwd_s * 1e3:.2f} ms; edge partition {setup_s:.3f} s); "
+          f"ring_all_gather launches={k2} ({k2_fwd} in the forward), "
+          f"ring_reduce_scatter launches={k3} ({k3_fwd} in the forward); "
+          f"max |dlogits| vs apply_large highest={err:.3e} (tol "
+          f"{SHARDED_FWD_TOL * scale:.1e}); worst gradient error vs plain "
+          f"halo={grad_err:.3e} of max|grad| (tol {SHARDED_GRAD_TOL:.0e})",
+          flush=True)
+    if k2_fwd != N_LAYERS + 1 or k2 != k2_fwd:
+        fail(f"ring_all_gather launched {k2_fwd} times in the forward and "
+             f"{k2 - k2_fwd} in the backward, expected {N_LAYERS + 1} and 0")
+    if k3_fwd != 0 or k3 != N_LAYERS + 1:
+        fail(f"ring_reduce_scatter launched {k3} times, {k3_fwd} in the "
+             f"forward; expected {N_LAYERS + 1}, all in the backward")
+    if k1 != 0:
+        fail(f"banded_spmm launched {k1} times on the sharded path")
+    if logits.shape != (1, g.max_nodes, 3) or not bool(
+            torch.isfinite(logits).all()):
+        fail("sharded logits are not finite (1, N, 3)")
+    if err > SHARDED_FWD_TOL * scale:
+        fail("the sharded forward disagrees with apply_large")
+    if not grad_err <= SHARDED_GRAD_TOL:
+        fail("the ring-halo gradient disagrees with the plain-halo one")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    import gcn_grabcut_torch  # noqa: F401  (fails outside the checkout)
+    import gcn_grabcut_torch as gt     # fails outside the checkout
     from gcn_grabcut_torch import kernels
+    from gcn_grabcut_torch.graph_build import num_nodes_for
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -252,10 +539,16 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t:.2f} s "
           f"({', '.join(sorted(libs))})", flush=True)
 
-    record = check_banded_spmm(dev)
-    run_main_path(dev, record)
+    k = num_nodes_for(IMAGE_HW, IMAGE_HW,
+                      gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS))
 
-    print(json.dumps({"kernels": [record]}))
+    record = check_banded_spmm(dev)
+    rings = check_ring_collectives(dev, k)
+    stress_ring_collectives(dev, k)
+    run_main_path(dev, record)
+    run_sharded_path(dev, rings, k)
+
+    print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU and nvcc: the hand-written kernels against
-their plain versions, and the port's pipeline on the card against its CPU
-path.  Each skips without CUDA.  The file imports no JAX, so it also runs
+their plain versions, and the port's pipeline and graph-sharded model on the
+card against their CPU paths.  Each skips without CUDA.  The file imports no JAX, so it also runs
 where JAX is not installed, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,7 @@ import torch
 
 import gcn_grabcut_torch as gt
 from gcn_grabcut_torch.ops import spmm
+from gcn_grabcut_torch.parallel import ring
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +109,127 @@ def test_segment_batch_on_card_matches_cpu(cuda):
     # a value across a bf16 rounding boundary in the forward.
     np.testing.assert_allclose(on_card[1].probs, single.probs, atol=1e-3)
     assert 0.0 < on_card[0].binary_mask.mean() < 1.0
+
+
+def ring_data(n, chunk, d, dtype, device, seed):
+    """Fresh blocks for K2 and per-rank cotangents for K3."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n * chunk, d), generator=gen, device=device).to(dtype)
+    g = torch.randn((n, n * chunk, d), generator=gen, device=device).to(dtype)
+    return list(x.split(chunk)), list(g)
+
+
+def assert_exact(outs, wants):
+    assert len(outs) == len(wants)
+    for o, w in zip(outs, wants):
+        assert o.shape == w.shape and o.dtype == w.dtype
+        assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernels_match_plain(cuda, n, dtype):
+    mesh = gt.make_graph_mesh(n)
+    blocks, gs = ring_data(n, 40, 128, dtype, cuda, seed=n)
+    k2, k3 = (ring.ring_all_gather.kernel_launches,
+              ring.ring_reduce_scatter.kernel_launches)
+    ag = ring.ring_all_gather_cuda(blocks, mesh)
+    rs = ring.ring_reduce_scatter_cuda(gs, mesh)
+    torch.cuda.synchronize()
+    assert ring.ring_all_gather.kernel_launches == k2 + 1
+    assert ring.ring_reduce_scatter.kernel_launches == k3 + 1
+    assert_exact(ag, ring.ring_all_gather_plain(blocks))
+    assert_exact(rs, ring.ring_reduce_scatter_plain(gs))
+
+
+def test_back_to_back_calls_with_different_data(cuda):
+    """Two calls queued with no sync between them: the second call's waits
+    must not be satisfied by the first call's signal words."""
+    mesh = gt.make_graph_mesh(4)
+    first, second = (ring_data(4, 300, 64, torch.float32, cuda, seed=s)
+                     for s in (1, 2))
+    outs = [(ring.ring_all_gather_cuda(b, mesh),
+             ring.ring_reduce_scatter_cuda(g, mesh)) for b, g in
+            (first, second)]
+    torch.cuda.synchronize()
+    for (ag, rs), (b, g) in zip(outs, (first, second)):
+        assert_exact(ag, ring.ring_all_gather_plain(b))
+        assert_exact(rs, ring.ring_reduce_scatter_plain(g))
+    assert not torch.equal(outs[0][0][0], outs[1][0][0])
+
+
+def test_ring_kernels_exact_under_skew(cuda):
+    """A short stress: seeded per-(rank, hop) delays before each hop."""
+    r = np.random.RandomState(0)
+    for n in (2, 4, 8):
+        mesh = gt.make_graph_mesh(n)
+        for i in range(10):
+            blocks, gs = ring_data(n, 64, 128, torch.bfloat16, cuda,
+                                   seed=100 * n + i)
+            delays = r.randint(0, 20_000, (n, n)) * (r.rand(n, n) < 0.5)
+            assert_exact(ring.ring_all_gather_cuda(blocks, mesh, delays),
+                         ring.ring_all_gather_plain(blocks))
+            assert_exact(ring.ring_reduce_scatter_cuda(gs, mesh, delays),
+                         ring.ring_reduce_scatter_plain(gs))
+
+
+def test_ring_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    mesh = gt.make_graph_mesh(4)
+    with pytest.raises(ValueError, match="do not split"):
+        ring.ring_reduce_scatter([torch.zeros(4 * 16 + 2, 128, device=cuda)
+                                  for _ in range(4)], mesh)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ring.ring_all_gather_cuda([torch.zeros(3, 2, device=cuda,
+                                               dtype=torch.bfloat16)] * 4,
+                                  mesh)
+    with pytest.raises(TypeError):
+        ring.ring_all_gather_cuda([torch.zeros(4, 4, device=cuda,
+                                               dtype=torch.float16)] * 4,
+                                  mesh)
+
+
+def test_sharded_forward_and_backward_on_card_match_cpu(cuda):
+    """The graph-sharded ResGCNNet over 4 ranks with the ring halo, on the
+    card and on the CPU, same weights: logits and every parameter's
+    gradient of sum(logits * c), with K2 launched 3 times forward and K3 3
+    times backward (2 GCN + 1 SAGE)."""
+    r = np.random.RandomState(1)
+    n, e = 400, 3000
+    src_l = r.randint(0, n, e)
+    dst_l = np.clip(src_l + r.randint(-30, 30, e), 0, n - 1)
+    src = np.concatenate([src_l, dst_l])
+    dst = np.concatenate([dst_l, src_l])
+    mask = (src != dst).astype(np.float32)
+    arrays = (r.randn(1, n, 19).astype(np.float32), src[None], dst[None],
+              r.rand(1, len(src), 5).astype(np.float32),
+              np.ones((1, n), np.float32), mask[None])
+    c = r.randn(1, n, 3).astype(np.float32)
+
+    def run(device):
+        g = gt.make_graph_batch(*arrays, device=device)
+        model = gt.ResGCNNet(hidden_channels=32, n_layers=2,
+                             generator=torch.Generator().manual_seed(2)
+                             ).to(device)
+        aggs = gt.mesh_aggregators(gt.make_graph_mesh(4, device=device), src,
+                                   dst, mask, n, method="allgather",
+                                   halo="pallas_ring")
+        logits = model(g, aggregators=aggs)
+        k2 = ring.ring_all_gather.kernel_launches
+        (logits * torch.from_numpy(c).to(device)).sum().backward()
+        return (logits.detach().cpu(), k2,
+                {k: p.grad.cpu() for k, p in model.named_parameters()})
+
+    ring.ring_all_gather.kernel_launches = 0
+    ring.ring_reduce_scatter.kernel_launches = 0
+    card, k2, card_grads = run(cuda)
+    assert (k2, ring.ring_all_gather.kernel_launches,
+            ring.ring_reduce_scatter.kernel_launches) == (3, 3, 3)
+    cpu, _, cpu_grads = run("cpu")
+    scale = max(1.0, float(cpu.abs().max()))
+    assert float((card - cpu).abs().max()) <= 1e-4 * scale
+    # index_add_ atomics reorder the card's sums; ctx.attn.bias's exact
+    # gradient is 0 (a softmax ignores a shared shift), hence the floor.
+    floor = 1e-3 * max(float(v.abs().max()) for v in cpu_grads.values())
+    for k, v in cpu_grads.items():
+        tol = 1e-4 * max(float(v.abs().max()), floor)
+        assert float((card_grads[k] - v).abs().max()) <= tol, k
