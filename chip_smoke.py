@@ -10,10 +10,12 @@ Phases, each of which exits non-zero on failure:
   3. each kernel against its plain PyTorch version on the card at the main
      path's shapes, with its time, the plain version's time, a one-call
      PyTorch yardstick and the bound the card's peak rates allow;
-     K1 at the banded SpMM's shapes; K2 and K3 (the ring all-gather and
-     reduce-scatter) at the sharded path's shapes (n = 4 ranks of one
-     (rows/4, 128) block) and at n = 2 and 8 over the same rows, in float32
-     and bfloat16, then >= 100 calls for each n with fresh seeded data and
+     K1 at the banded SpMM's shapes, also timed with the L2 flushed before
+     every call, with the share of its bound it reaches; K2 and K3 (the
+     ring all-gather and the direct reduce-scatter) at the sharded path's
+     shapes (n = 4 ranks of one (rows/4, 128) block) and at n = 2 and 8
+     over the same rows, in float32 and bfloat16, K3's allocations held to
+     its outputs, then >= 100 calls for each n with fresh seeded data and
      seeded timing skew between ranks, every output exact;
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
@@ -56,6 +58,7 @@ HIDDEN, N_LAYERS = 128, 6
 # (seed 0 labels every pixel foreground-side).
 MODEL_SEED = 4
 SPMM_TOL = 1e-4        # kernel vs plain: same products, fp32 sums reordered
+L2_FLUSH_BYTES = 64 << 20   # written between calls for a cold-L2 time
 FORWARD_TOL = 2e-2     # card (bf16 kernel) vs CPU plain forward, logits
 RING_SIZES = (2, 4, 8)
 PATH_RANKS = 4
@@ -106,6 +109,15 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
               f"longer than the sleep; the time includes host gaps)",
               flush=True)
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int = 30) -> float:
+    """Device milliseconds per fn() call with a cold L2: each call follows a
+    write of L2_FLUSH_BYTES, whose own time, measured alone, is
+    subtracted."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    both = time_ms(lambda: (scratch.zero_(), fn()), reps)
+    return both - time_ms(scratch.zero_, reps)
 
 
 def make_image(hw: int, seed: int = 0) -> np.ndarray:
@@ -163,6 +175,7 @@ def check_banded_spmm(dev) -> dict:
         scale = max(1.0, float(ref.abs().max()))
         ok = err <= SPMM_TOL * scale
         ms = time_ms(lambda: banded_spmm_cuda(x, band))
+        cold_ms = time_cold_ms(lambda: banded_spmm_cuda(x, band))
         plain_ms = time_ms(lambda: banded_spmm_plain(x, band))
 
         # Yardstick only: one torch.bmm of the band as (nb, R, K*R)
@@ -191,10 +204,13 @@ def check_banded_spmm(dev) -> dict:
                "library_ms": library_ms}
         print(f"K1 banded_spmm {str(dtype)[6:]} n_pad={n_pad} R={R} K={K} "
               f"D={HIDDEN}: max_abs_err={err:.3e} (tol {SPMM_TOL * scale:.1e})"
-              f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bmm yardstick "
-              f"{library_ms:.4f} ms (err {lib_err:.2e}), bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-              f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP)", flush=True)
+              f" kernel {ms:.4f} ms (L2-warm; {cold_ms:.4f} ms cold), plain "
+              f"{plain_ms:.4f} ms, bmm yardstick {library_ms:.4f} ms (err "
+              f"{lib_err:.2e}), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {n_bytes / 1e6:.2f} MB, "
+              f"{n_ops / 1e9:.3f} GFLOP); bound share "
+              f"{rec['bound_ms'] / ms:.3f} warm, {rec['bound_ms'] / cold_ms:.3f}"
+              f" cold", flush=True)
         if not ok:
             fail(f"banded_spmm {dtype} disagrees with its plain version")
         if dtype == torch.bfloat16:
@@ -257,8 +273,18 @@ def check_ring_collectives(dev, n_nodes: int) -> dict:
             rec2["bound_ms"], rec2["bound_by"] = ring_bound(n, chunk, elt,
                                                             False)
 
+            # K3 allocates its outputs and nothing else (no receive slots).
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             out = ring.ring_reduce_scatter_cuda(gs, mesh)
             torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            out_bytes = sum(-(-o.untyped_storage().nbytes() // 512) * 512
+                            for o in out)
+            if extra > out_bytes:
+                fail(f"ring_reduce_scatter allocated {extra} bytes, its "
+                     f"outputs {out_bytes} ({tag})")
             want = ring.ring_reduce_scatter_plain(gs)
             err3 = max(float((o.float() - w.float()).abs().max())
                        for o, w in zip(out, want))

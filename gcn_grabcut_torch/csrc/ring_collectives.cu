@@ -1,67 +1,85 @@
-// Ring all-gather (K2) and ring reduce-scatter (K3) for Hopper (sm_90a): the
-// halo exchange of the graph-sharded 10k-node aggregation and its gradient.
+// Ring all-gather (K2) and direct reduce-scatter (K3) for Hopper (sm_90a):
+// the halo exchange of the graph-sharded 10k-node aggregation and its
+// gradient.
 //
 // Replaces the TPU kernels of gcn_grabcut_tpu/parallel/ring_pallas.py:
 //   K2  _all_gather_impl (body _ring_kernel): rank r holds one (chunk, D)
 //       block and ends with all n blocks of the ring, concatenated;
 //   K3  _reduce_scatter_impl (body _reduce_scatter_kernel): rank r holds a
-//       (n chunk, D) cotangent g_r and ends with sum_j g_j[block r], partial
-//       sums travelling rightward.  K3 is K2's gradient and K2 is K3's.
+//       (n chunk, D) cotangent g_r and ends with sum_j g_j[block r], summed
+//       in the ring's order.  K3 is K2's gradient and K2 is K3's.
 //
 // Launch.  One cooperative launch per collective call, grid (B, n):
 // blockIdx.y is the rank and blockIdx.x one of the B thread blocks of a
-// rank.  Block b moves the same slice of the chunk (16-byte vectors
-// [b per, (b + 1) per)) at every hop, so it waits only on block b of its
-// left neighbour: one signal word per (rank, hop, block) and no grid-wide
-// barrier.  A cooperative launch makes every block resident at once or
-// fails, so blocks that spin on each other cannot deadlock because one of
-// them was never scheduled.  The kernel reaches every rank's buffers only
-// through the pointer table in its arguments: all ranks live on one card
-// here, and a later launcher can fill the table with peer pointers.
+// rank.  Block b of every rank owns the same slice of the chunk (16-byte
+// vectors [b per, (b + 1) per)), so it waits only on block b of other ranks:
+// one signal word per (rank, row, block) and no grid-wide barrier.  A
+// cooperative launch makes every block resident at once or fails, so blocks
+// that spin on each other cannot deadlock because one of them was never
+// scheduled.  The kernels reach every rank's buffers only through the
+// pointer table in their arguments: all ranks live on one card here, and a
+// later launcher can fill the table with peer pointers.
 //
-// No slot reuse.  The Pallas kernel double-buffers through two comm slots and
-// needs ack credits before it reuses one; ADVICE.md records the race of an
-// ack sent before the slot's outgoing copy had read it.  Here every hop lands
-// in its own place, written exactly once per call:
-//   K2  rank r copies its block into out_r[r] and out_{r+1}[r] (hop 0).  At
-//       hop s >= 1 it waits for its own hop-(s-1) signal and forwards
-//       out_r[(r - s) mod n], already in its final place, to the same offset
-//       of out_{r+1}.  It waits for the hop-(n-2) signal before it ends.
-//   K3  hop 0 writes g_r[(r - 1) mod n] into recv_{r+1}[0].  Hop s >= 1 waits
-//       for recv_r[s-1] and writes g_r[(r - s - 1) mod n] + recv_r[s-1]
-//       straight into recv_{r+1}[s].  Then out_r = g_r[r] + recv_r[n-2].
-//       Sums are taken in the input dtype (float32 adds; bf16 is widened,
-//       added in float32 and rounded to nearest even at every hop), which is
-//       the order and rounding of the plain version in parallel/ring.py.
-// Without reuse no ack credit and no staging buffer is needed.  The TPU
-// kernel's neighbour barrier made the peer's buffers live before the first
-// remote write; here the wrapper allocates every rank's buffers before the
-// single launch, on the stream the launch is ordered on.
+// K2, a ring with no slot reuse.  The Pallas kernel double-buffers through
+// two comm slots and needs ack credits before it reuses one; ADVICE.md
+// records the race of an ack sent before the slot's outgoing copy had read
+// it.  Here every hop lands in its own place, written exactly once per call:
+// rank r copies its block into out_r[r] and out_{r+1}[r] (hop 0).  At hop
+// s >= 1 it waits for its own hop-(s-1) signal and forwards out_r[(r - s)
+// mod n], already in its final place, to the same offset of out_{r+1}.  It
+// waits for the hop-(n-2) signal before it ends.  Its words are (rank, hop):
+// rank r's row s is written by its left neighbour at hop s.
+//
+// K3, one shot.  Block b of rank r reads slice b of block r straight from
+// every rank's g_j and writes the sum into out_r:
+//   acc = g_{r+1}[r];  acc = g_{r+k}[r] + acc for k = 2 .. n-1;
+//   out_r = g_r[r] + acc                                  (indices mod n)
+// in the input dtype (float32 adds; bf16 widened, added in float32 and
+// rounded to nearest even at every add): the order and rounding of the
+// plain version in parallel/ring.py and of the Pallas ring, so the result
+// is the ring's bit for bit.  Each thread issues the n loads of U vectors
+// (U n <= 16) before it adds any of them.  The ring was dropped because its
+// n - 1 hops ran in series, each a signal round trip with little work
+// between, and because the partial sums went through receive slots that
+// were written and read again: n (3n - 1) E bytes moved against the bound's
+// (n^2 + n) E.  One shot moves exactly the bound, n^2 E read and n E
+// written, with no scratch.  Across NVLink each rank would read (n - 1) E
+// from its peers, as many bytes as a ring sends, so the link bound is the
+// same; the H100's NVSwitch joins every pair of cards at full rate, where
+// the TPU's torus links only neighbours, which is what made the ring the
+// TPU's schedule.  Two handshakes keep it right for peer memory, on words
+// (rank, phase): rank r's row 0 word says "block b has entered this call"
+// and row 1 "block b has read all it needs".
+//   entry: block b of rank r reads g_j only once word (j, 0, b) carries this
+//          call's epoch (rank j's g is live: its kernel has started);
+//   exit:  block b of rank r returns only once every (j, 1, b) does (no
+//          peer still reads its g_r).
 //
 // Signals.  The writer's threads store their data, the block synchronises,
 // and one thread issues a system-scope fence and st.release.sys of the
-// call's epoch into the neighbour's word.  The reader's thread 0 spins on
-// ld.acquire.sys with __nanosleep back-off until the word reaches the
-// epoch, then the block synchronises.  Data written by other blocks is read
-// with ld.global.cg, so no stale L1 line of an earlier call is seen.  Every
-// spin is bounded and ends in __trap(): a protocol fault fails the run
-// instead of hanging it.  Epochs rise with every call on a mesh, so the words
-// are never reset and a word left by an earlier call never satisfies a wait;
-// calls on one mesh must therefore be ordered on one stream.  System scope
-// keeps the code right for peer memory.
+// call's epoch into the word.  A waiting thread spins on ld.acquire.sys with
+// __nanosleep back-off until the word reaches the epoch, then the block
+// synchronises; K3 spins on its n - 1 peers with n - 1 threads at once.
+// Data written by other blocks is read with ld.global.cg, so no stale L1
+// line of an earlier call is seen.  Every spin is bounded and ends in
+// __trap(): a protocol fault fails the run instead of hanging it.  Epochs
+// rise with every call on a mesh, so the words are never reset and a word
+// left by an earlier call never satisfies a wait; calls on one mesh must
+// therefore be ordered on one stream.  System scope keeps the code right
+// for peer memory.
 //
 // Bound.  With E = chunk * D * elt bytes per block, K2 must read at least
 // n E and write n^2 E; K3 must read at least n^2 E and write n E (its n^2
 // chunk D adds are far below the card's rate).  On one H100 that is
 // (n + n^2) E / 3.35 TB/s for either.  Across NVLink each rank sends
-// (n - 1) E over one 450 GB/s direction: (n - 1) E / 450 GB/s.  This design
-// moves more: K2 reads n (n - 1) E (forwarding reads what hop s-1 wrote) and
-// writes n^2 E; K3 also reads and writes the n (n - 1) receive slots.
-// Right first: TMA bulk copies and fewer blocks per hop are later work.
+// (n - 1) E over one 450 GB/s direction: (n - 1) E / 450 GB/s.  K2 moves
+// more: it reads n (n - 1) E (forwarding reads what hop s-1 wrote) and
+// writes n^2 E; K3 moves exactly the bound.
 //
-// Optional stress aid: a (rank, hop) table of nanosecond delays, null on the
-// path, that stalls a rank's blocks before each hop to provoke races under
-// timing skew.
+// Optional stress aid: a table of nanosecond delays, null on the path, that
+// stalls a rank's blocks to provoke races under timing skew.  K2 reads it
+// as (rank, hop): before hop s.  K3 reads it as (rank, phase): column 0
+// before the entry signal, column 1 after the reads, before the exit signal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,9 +93,8 @@ constexpr long long MAX_SPINS = 1LL << 22;   // ~4 s at the 1 us back-off cap
 struct RingTable {
   const int4* in[MAX_RANKS];            // K2: block; K3: g (n chunk rows)
   int4* out[MAX_RANKS];                 // K2: n chunk rows; K3: chunk rows
-  int4* recv[MAX_RANKS];                // K3: (n - 1, chunk) receive slots
-  unsigned long long* sig[MAX_RANKS];   // (n - 1, sig_stride) words
-  int delay_ns[MAX_RANKS][MAX_RANKS];   // before hop s of rank r; 0 = none
+  unsigned long long* sig[MAX_RANKS];   // (rows, sig_stride) words
+  int delay_ns[MAX_RANKS][MAX_RANKS];   // K2 (rank, hop), K3 (rank, phase)
 };
 
 __device__ __forceinline__ unsigned long long ld_acquire_sys(
@@ -94,6 +111,12 @@ __device__ __forceinline__ void st_release_sys(unsigned long long* p,
                :: "l"(p), "l"(v) : "memory");
 }
 
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
 // Every thread's stores so far, then the word: the neighbour may read them.
 __device__ __forceinline__ void signal_word(unsigned long long* word,
                                             unsigned long long epoch) {
@@ -104,18 +127,32 @@ __device__ __forceinline__ void signal_word(unsigned long long* word,
   }
 }
 
+// Every thread's accesses so far, then the word.  The barrier orders the
+// block's accesses before thread 0's release, and a release at system scope
+// is cumulative over them: no separate fence.sc.sys (signal_word's, ~4 us a
+// call on an H100) is needed.
+__device__ __forceinline__ void release_word(unsigned long long* word,
+                                             unsigned long long epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release_sys(word, epoch);
+}
+
+// Spin, bounded, until the word carries this call's epoch.
+__device__ __forceinline__ void spin_until(const unsigned long long* word,
+                                           unsigned long long epoch) {
+  unsigned ns = 32;
+  long long spins = 0;
+  while (ld_acquire_sys(word) < epoch) {
+    if (++spins > MAX_SPINS) __trap();
+    __nanosleep(ns);
+    if (ns < 1024) ns *= 2;
+  }
+}
+
 // Until the word carries this call's epoch; then the whole block goes on.
 __device__ __forceinline__ void wait_word(const unsigned long long* word,
                                           unsigned long long epoch) {
-  if (threadIdx.x == 0) {
-    unsigned ns = 32;
-    long long spins = 0;
-    while (ld_acquire_sys(word) < epoch) {
-      if (++spins > MAX_SPINS) __trap();
-      __nanosleep(ns);
-      if (ns < 1024) ns *= 2;
-    }
-  }
+  if (threadIdx.x == 0) spin_until(word, epoch);
   __syncthreads();
 }
 
@@ -150,6 +187,16 @@ struct AddBF16 {
                      add2(a.w, b.w));
   }
 };
+
+// Until word `off` of every rank but r carries the epoch, thread j waiting
+// on rank j; then the whole block goes on.
+__device__ __forceinline__ void wait_peers(const RingTable& t, int n, int r,
+                                           long long off,
+                                           unsigned long long epoch) {
+  const int j = threadIdx.x;
+  if (j < n && j != r) spin_until(t.sig[j] + off, epoch);
+  __syncthreads();
+}
 
 // K2.  vecs = 16-byte vectors per chunk; the signal word of (rank r, hop s,
 // block b) is sig[r][s * sig_stride + b].
@@ -187,58 +234,77 @@ ring_all_gather_kernel(RingTable t, int n, long long vecs, int sig_stride,
   wait_word(my_sig + (long long)(n - 2) * sig_stride, epoch);
 }
 
-// K3, with Op::add the input dtype's elementwise sum of two vectors.
-template <class Op>
+// K3 for n <= NMAX ranks, with Op::add the input dtype's elementwise sum of
+// two vectors.  Block b of rank r signals word (r, 0, b) on entry and (r, 1,
+// b) once its reads are done.
+template <int NMAX, class Op>
 __global__ void __launch_bounds__(THREADS)
-ring_reduce_scatter_kernel(RingTable t, int n, long long vecs,
-                           int sig_stride, unsigned long long epoch) {
+direct_reduce_scatter_kernel(RingTable t, int n, long long vecs,
+                             int sig_stride, unsigned long long epoch) {
+  constexpr int U = NMAX <= 4 ? 4 : 16 / NMAX;   // vectors per batch
   const int r = blockIdx.y;
   const int b = blockIdx.x;
-  const int right = (r + 1) % n;
   const long long per = (vecs + gridDim.x - 1) / gridDim.x;
   const long long v0 = min(vecs, b * per);
   const long long v1 = min(vecs, v0 + per);
-  const int4* g = t.in[r];
-  const int4* mine = t.recv[r];
-  int4* next = t.recv[right];
-  const unsigned long long* my_sig = t.sig[r] + b;
-  unsigned long long* right_sig = t.sig[right] + b;
 
+  // Entry: nothing of this call precedes the word, so it is a relaxed
+  // store; rank r's g was finished by earlier work on its stream.
   stall(t.delay_ns[r][0]);
-  const long long first = (long long)((r - 1 + n) % n) * vecs;
-  for (long long v = v0 + threadIdx.x; v < v1; v += THREADS)
-    __stcg(next + v, __ldcg(g + first + v));
-  signal_word(right_sig, epoch);
+  if (threadIdx.x == 0) st_relaxed_sys(t.sig[r] + b, epoch);
+  wait_peers(t, n, r, b, epoch);
 
-  for (int s = 1; s <= n - 2; ++s) {
-    wait_word(my_sig + (long long)(s - 1) * sig_stride, epoch);
-    stall(t.delay_ns[r][s]);
-    const long long off = (long long)(((r - s - 1) % n + n) % n) * vecs;
-    const int4* part = mine + (long long)(s - 1) * vecs;
-    int4* dst = next + (long long)s * vecs;
-    for (long long v = v0 + threadIdx.x; v < v1; v += THREADS)
-      __stcg(dst + v, Op::add(__ldcg(g + off + v), __ldcg(part + v)));
-    signal_word(right_sig + (long long)s * sig_stride, epoch);
+  // src[k]: block r of g_{r+k}; the sum's order is fixed by k.
+  const int4* src[NMAX];
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k)
+    src[k] = k < n ? t.in[(r + k) % n] + (long long)r * vecs : nullptr;
+  int4* out = t.out[r];
+  for (long long v = v0 + threadIdx.x; v < v1; v += (long long)U * THREADS) {
+    int4 x[U][NMAX];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long w = v + (long long)u * THREADS;
+#pragma unroll
+      for (int k = 0; k < NMAX; ++k)
+        if (k < n && w < v1) x[u][k] = __ldcg(src[k] + w);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long w = v + (long long)u * THREADS;
+      if (w < v1) {
+        int4 acc = x[u][1];
+#pragma unroll
+        for (int k = 2; k < NMAX; ++k)
+          if (k < n) acc = Op::add(x[u][k], acc);
+        __stcg(out + w, Op::add(x[u][0], acc));
+      }
+    }
   }
 
-  wait_word(my_sig + (long long)(n - 2) * sig_stride, epoch);
-  stall(t.delay_ns[r][n - 1]);
-  const long long own = (long long)r * vecs;
-  const int4* part = mine + (long long)(n - 2) * vecs;
-  for (long long v = v0 + threadIdx.x; v < v1; v += THREADS)
-    __stcg(t.out[r] + v, Op::add(__ldcg(g + own + v), __ldcg(part + v)));
+  // Exit: the release orders every read of the peers' g before the word.
+  stall(t.delay_ns[r][1]);
+  release_word(t.sig[r] + sig_stride + b, epoch);
+  wait_peers(t, n, r, (long long)sig_stride + b, epoch);
 }
 
 using Kernel = void (*)(RingTable, int, long long, int, unsigned long long);
 
+template <class Op>
+Kernel reduce_scatter_for(int n) {
+  if (n <= 2) return direct_reduce_scatter_kernel<2, Op>;
+  if (n <= 4) return direct_reduce_scatter_kernel<4, Op>;
+  if (n <= 8) return direct_reduce_scatter_kernel<8, Op>;
+  return direct_reduce_scatter_kernel<16, Op>;
+}
+
 int fill(RingTable& t, const void* const* in, void* const* out,
-         void* const* recv, void* const* sig, int n, const int* delay_ns) {
+         void* const* sig, int n, const int* delay_ns) {
   if (n < 2 || n > MAX_RANKS) return (int)cudaErrorInvalidValue;
   for (int r = 0; r < MAX_RANKS; ++r) {
     const bool on = r < n;
     t.in[r] = on ? static_cast<const int4*>(in[r]) : nullptr;
     t.out[r] = on ? static_cast<int4*>(out[r]) : nullptr;
-    t.recv[r] = on && recv ? static_cast<int4*>(recv[r]) : nullptr;
     t.sig[r] = on ? static_cast<unsigned long long*>(sig[r]) : nullptr;
     for (int s = 0; s < MAX_RANKS; ++s)
       t.delay_ns[r][s] = on && s < n && delay_ns ? delay_ns[r * n + s] : 0;
@@ -246,13 +312,17 @@ int fill(RingTable& t, const void* const* in, void* const* out,
   return 0;
 }
 
-int launch(Kernel kernel, RingTable& t, int n, long long chunk_bytes,
-           int sig_blocks, unsigned long long epoch, void* stream) {
+int launch(Kernel kernel, const void* const* in, void* const* out,
+           void* const* sig, int n, long long chunk_bytes, int sig_blocks,
+           unsigned long long epoch, const int* delay_ns, void* stream) {
+  RingTable t;
+  cudaError_t err = (cudaError_t)fill(t, in, out, sig, n, delay_ns);
+  if (err != cudaSuccess) return (int)err;
   if (chunk_bytes <= 0 || chunk_bytes % 16 || sig_blocks < 1)
     return (int)cudaErrorInvalidValue;
   long long vecs = chunk_bytes / 16;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
@@ -276,55 +346,39 @@ int launch(Kernel kernel, RingTable& t, int n, long long chunk_bytes,
   return (int)cudaGetLastError();
 }
 
-int reduce_scatter(Kernel kernel, const void* const* g, void* const* recv,
-                   void* const* out, void* const* sig, int n,
-                   long long chunk_bytes, int sig_blocks,
-                   unsigned long long epoch, const int* delay_ns,
-                   void* stream) {
-  RingTable t;
-  const int err = fill(t, g, out, recv, sig, n, delay_ns);
-  if (err) return err;
-  return launch(kernel, t, n, chunk_bytes, sig_blocks, epoch, stream);
-}
-
 }  // namespace
 
 // Plain C interface for ctypes.  Every table holds n device pointers, one per
-// rank, 16-byte aligned: in[r] a (chunk, D) block, out[r] (n chunk, D), sig[r]
-// the rank's (n - 1, sig_blocks) signal words.  chunk_bytes = chunk D elt,
-// a multiple of 16.  delay_ns is null or n x n host ints (rank, hop).  The
-// copy moves bytes, so one entry point serves float32 and bfloat16.  Returns
-// the cudaError_t of the launch.
+// rank, 16-byte aligned; sig[r] is the rank's (rows, sig_blocks) signal
+// words, rows >= max(n - 1, 2).  chunk_bytes = chunk D elt, a multiple of 16.
+// delay_ns is null or n x n host ints.  Returns the cudaError_t of the
+// launch.
+//
+// K2: in[r] a (chunk, D) block, out[r] (n chunk, D).  The copy moves bytes,
+// so one entry point serves float32 and bfloat16.
 extern "C" int ring_all_gather(const void* const* in, void* const* out,
                                void* const* sig, int n, long long chunk_bytes,
                                int sig_blocks, unsigned long long epoch,
                                const int* delay_ns, void* stream) {
-  RingTable t;
-  const int err = fill(t, in, out, nullptr, sig, n, delay_ns);
-  if (err) return err;
-  return launch(ring_all_gather_kernel, t, n, chunk_bytes, sig_blocks, epoch,
-                stream);
+  return launch(ring_all_gather_kernel, in, out, sig, n, chunk_bytes,
+                sig_blocks, epoch, delay_ns, stream);
 }
 
-// g[r] (n chunk, D), recv[r] (n - 1, chunk, D) scratch, out[r] (chunk, D);
-// the rest as above.
-extern "C" int ring_reduce_scatter_f32(const void* const* g,
-                                       void* const* recv, void* const* out,
-                                       void* const* sig, int n,
-                                       long long chunk_bytes, int sig_blocks,
-                                       unsigned long long epoch,
-                                       const int* delay_ns, void* stream) {
-  return reduce_scatter(ring_reduce_scatter_kernel<AddF32>, g, recv, out, sig,
-                        n, chunk_bytes, sig_blocks, epoch, delay_ns, stream);
+// K3: g[r] (n chunk, D), out[r] (chunk, D).
+extern "C" int reduce_scatter_f32(const void* const* g, void* const* out,
+                                  void* const* sig, int n,
+                                  long long chunk_bytes, int sig_blocks,
+                                  unsigned long long epoch,
+                                  const int* delay_ns, void* stream) {
+  return launch(reduce_scatter_for<AddF32>(n), g, out, sig, n, chunk_bytes,
+                sig_blocks, epoch, delay_ns, stream);
 }
 
-extern "C" int ring_reduce_scatter_bf16(const void* const* g,
-                                        void* const* recv, void* const* out,
-                                        void* const* sig, int n,
-                                        long long chunk_bytes, int sig_blocks,
-                                        unsigned long long epoch,
-                                        const int* delay_ns, void* stream) {
-  return reduce_scatter(ring_reduce_scatter_kernel<AddBF16>, g, recv, out,
-                        sig, n, chunk_bytes, sig_blocks, epoch, delay_ns,
-                        stream);
+extern "C" int reduce_scatter_bf16(const void* const* g, void* const* out,
+                                   void* const* sig, int n,
+                                   long long chunk_bytes, int sig_blocks,
+                                   unsigned long long epoch,
+                                   const int* delay_ns, void* stream) {
+  return launch(reduce_scatter_for<AddBF16>(n), g, out, sig, n, chunk_bytes,
+                sig_blocks, epoch, delay_ns, stream);
 }

@@ -56,10 +56,12 @@ def _build_graph_arrays(rgb: torch.Tensor, cfg: SuperpixelGraphConfig
     if k <= prior_ops.LARGE_K_THRESHOLD:
         raise NotImplementedError(
             f"K={k} <= {prior_ops.LARGE_K_THRESHOLD}: the dense k-NN and "
-            "dense prior come with port slice 2 (512 px / 500 superpixels)")
+            "dense prior come with ROADMAP queue 1 item 3 (the 512 px / "
+            "500-superpixel dense path)")
     if cfg.bg_connectivity:
         raise NotImplementedError(
-            "bg_connectivity (geodesic prior) comes with port slice 2")
+            "bg_connectivity (geodesic prior) comes with ROADMAP queue 1 "
+            "item 3")
 
     lab = im.rgb_to_lab(rgb)
     segments = slic_ops.slic(lab, n_segments=cfg.n_segments,

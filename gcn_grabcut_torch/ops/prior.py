@@ -59,8 +59,8 @@ def compute_auto_prior(segments: torch.Tensor, k: int, stats: tuple,
     (`bg_connectivity`) come with the 512 px / 500-superpixel slice."""
     if k <= LARGE_K_THRESHOLD:
         raise NotImplementedError(
-            "the dense-contrast prior (K <= 2048) comes with port slice 2 "
-            "(512 px / 500 superpixels)")
+            "the dense-contrast prior (K <= 2048) comes with ROADMAP queue 1 "
+            "item 3 (the 512 px / 500-superpixel dense path)")
     counts, mean_lab, centroids = stats
     counts = counts.float()
     safe = counts.clamp_min(1.0)

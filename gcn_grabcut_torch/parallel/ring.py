@@ -9,16 +9,17 @@ takes one tensor per rank of the mesh and returns one tensor per rank:
   block sum_j g_j[r chunk:(r + 1) chunk].
 
 Each is the other's gradient, as the JAX package's custom VJPs make them,
-so training through the halo runs the reduce-scatter ring backward.
+so training through the halo runs the reduce-scatter (K3) backward.
 
 On CUDA tensors both launch the hand-written kernels of
-``csrc/ring_collectives.cu`` (K2 and K3), one cooperative launch per call,
-float32 or bfloat16; there is no fallback, and a kernel that cannot build
-or launch raises.  On CPU tensors they run the plain versions below.  The
-reduce-scatter sums in ring order in the input dtype on both, so kernel and
-plain version agree exactly.  Unlike the JAX version, which silently drops
-trailing rows, `ring_reduce_scatter` raises ``ValueError`` when the rows are
-not a multiple of the ring size.
+``csrc/ring_collectives.cu`` (K2, a ring; K3, a one-shot direct read of
+every rank's block), one cooperative launch per call, float32 or bfloat16;
+there is no fallback, and a kernel that cannot build or launch raises.  On
+CPU tensors they run the plain versions below.  The reduce-scatter sums in
+ring order in the input dtype on both, so kernel and plain version agree
+exactly.  Unlike the JAX version, which silently drops trailing rows,
+`ring_reduce_scatter` raises ``ValueError`` when the rows are not a
+multiple of the ring size.
 """
 
 from __future__ import annotations
@@ -113,8 +114,7 @@ def _delays(delay_ns, n: int):
 def _kernel(name: str):
     from ..kernels import load
     fn = getattr(load("ring_collectives"), name)
-    tables = 3 if name == "ring_all_gather" else 4
-    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * tables
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3
                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_int),
                       ctypes.c_void_p])
@@ -153,8 +153,10 @@ def ring_all_gather_cuda(blocks: list[torch.Tensor], mesh: GraphMesh,
 
 def ring_reduce_scatter_cuda(gs: list[torch.Tensor], mesh: GraphMesh,
                              delay_ns=None) -> list[torch.Tensor]:
-    """Launch K3 on the current stream; `delay_ns` as for
-    `ring_all_gather_cuda`."""
+    """Launch K3 on the current stream.  It allocates the outputs and
+    nothing else.  `delay_ns`, an optional (n, n) table of nanoseconds, is
+    read as (rank, phase): rank r stalls delay_ns[r][0] before it enters
+    and delay_ns[r][1] after its reads, before it signals them done."""
     _check(gs, mesh, "ring_reduce_scatter")
     n = mesh.size
     _check_rows(gs, n)
@@ -162,13 +164,11 @@ def ring_reduce_scatter_cuda(gs: list[torch.Tensor], mesh: GraphMesh,
     chunk = rows // n
     chunk_bytes = chunk * d * gs[0].element_size()
     _check_cuda(gs, mesh, chunk_bytes, "ring_reduce_scatter")
-    kw = dict(dtype=gs[0].dtype, device=mesh.device)
-    # One landing place per hop, written once: no slot is reused.
-    recv = [torch.empty((n - 1, chunk, d), **kw) for _ in gs]
-    outs = [torch.empty((chunk, d), **kw) for _ in gs]
-    name = ("ring_reduce_scatter_bf16" if gs[0].dtype == torch.bfloat16
-            else "ring_reduce_scatter_f32")
-    _launch(name, [gs, recv, outs, list(mesh.signals)], mesh, chunk_bytes,
+    outs = [torch.empty((chunk, d), dtype=gs[0].dtype, device=mesh.device)
+            for _ in gs]
+    name = ("reduce_scatter_bf16" if gs[0].dtype == torch.bfloat16
+            else "reduce_scatter_f32")
+    _launch(name, [gs, outs, list(mesh.signals)], mesh, chunk_bytes,
             delay_ns)
     ring_reduce_scatter.kernel_launches += 1
     return outs

@@ -30,7 +30,9 @@ from .models.large import apply_large
 from .ops import image as im
 from .ops.connected import _clean_mask
 
-_LATER = "comes with port slice 2 (512 px / 500 superpixels)"
+_DENSE = ("comes with ROADMAP queue 1 item 3 (the 512 px / 500-superpixel "
+          "dense path)")
+_STAGED = "comes with ROADMAP queue 1 item 4 (the staged paths)"
 
 
 @dataclasses.dataclass
@@ -177,7 +179,7 @@ class GCNGrabCutPipeline:
         one banded-SpMM forward per graph."""
         if graph.max_nodes <= self.LARGE_NODE_THRESHOLD:
             raise NotImplementedError(f"the dense forward (K <= "
-                                      f"{self.LARGE_NODE_THRESHOLD}) {_LATER}")
+                                      f"{self.LARGE_NODE_THRESHOLD}) {_DENSE}")
         logits = torch.cat([apply_large(self.model, graph.graph(b),
                                         device=self.device)
                             for b in range(graph.n_graphs)])
@@ -190,7 +192,7 @@ class GCNGrabCutPipeline:
                 ms_scales: tuple | None = None) -> SegmentationResult:
         """Image in -> mask out, through `segment_batch` at B=1."""
         if not edge_aware or refine_iters:
-            raise NotImplementedError(f"the staged scalar path {_LATER}")
+            raise NotImplementedError(f"the staged scalar path {_STAGED}")
         return self.segment_batch(
             [image], threshold_fg=threshold_fg, threshold_bg=threshold_bg,
             min_area_ratio=min_area_ratio, keep_largest=keep_largest,
@@ -222,14 +224,14 @@ class GCNGrabCutPipeline:
         if not images:
             raise ValueError("empty batch")
         if ms_scales is not None and len(ms_scales) > 1:
-            raise NotImplementedError(f"multi-scale inference {_LATER}")
+            raise NotImplementedError(f"multi-scale inference {_DENSE}")
         H, W = images[0].shape[:2]
         if any(x.shape[:2] != (H, W) for x in images):
             raise ValueError("segment_batch requires same-size images "
                              "(resize upstream)")
         if num_nodes_for(H, W, self.sp_config) <= self.LARGE_NODE_THRESHOLD:
             raise NotImplementedError(f"the dense forward (K <= "
-                                      f"{self.LARGE_NODE_THRESHOLD}) {_LATER}")
+                                      f"{self.LARGE_NODE_THRESHOLD}) {_DENSE}")
         dev = self.device
         timing: dict = {}
 

@@ -26,7 +26,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def banded_plan(n, dtype, device, seed=9):
+def banded_plan(n, dtype, device, seed=9, block_rows=128, window=512):
     r = np.random.RandomState(seed)
     src = r.randint(0, n, 6 * n)
     dst = np.clip(src + r.randint(-200, 200, src.size), 0, n - 1)
@@ -35,15 +35,29 @@ def banded_plan(n, dtype, device, seed=9):
     w = r.rand(src.size).astype(np.float32)
     plan = spmm.spmm_plan_device(
         torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device),
-        torch.from_numpy(w).to(device), n, window=512, dtype=dtype)
+        torch.from_numpy(w).to(device), n, block_rows=block_rows,
+        window=window, dtype=dtype)
     return plan, (src, dst, w)
 
 
-@pytest.mark.parametrize("d", [16, 128, 200])
+# (n, R, window): K = window / R rounded up.  n < n_pad exercises the
+# kernel's row guard, odd K the default window's layout.
+SPMM_LAYOUTS = [(1000, 128, 512), (1000, 128, 640), (1024, 64, 256),
+                (1000, 256, 1280), (1024, 256, 1024)]
+
+
+@pytest.mark.parametrize("layout", SPMM_LAYOUTS,
+                         ids=lambda l: "n{}-R{}-w{}".format(*l))
+@pytest.mark.parametrize("d", [16, 19, 128, 200, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_banded_spmm_kernel_matches_plain(cuda, dtype, d):
-    n = 1000                      # < n_pad: the kernel's row guard
-    plan, _ = banded_plan(n, dtype, cuda)
+def test_banded_spmm_kernel_matches_plain(cuda, dtype, d, layout):
+    """Every tile width (64 / 128 / 256 columns), the narrow variant (rows
+    of D = 19 are not 16-byte multiples), ragged D, R = 64 / 128 / 256,
+    even and odd K, n below and at n_pad."""
+    n, block_rows, window = layout
+    plan, _ = banded_plan(n, dtype, cuda, block_rows=block_rows,
+                          window=window)
+    assert plan.n_nodes == 1024
     x = torch.randn(n, d, device=cuda).to(dtype)
     before = spmm.banded_spmm.kernel_launches
     out = spmm.banded_spmm_cuda(x, plan.band)
@@ -58,6 +72,7 @@ def test_banded_spmm_kernel_matches_plain(cuda, dtype, d):
 def test_banded_spmm_on_card_matches_oracle(cuda):
     n = 1000
     plan, (src, dst, w) = banded_plan(n, torch.float32, cuda, seed=3)
+    assert bool((plan.fb_weight != 0).any())    # the fallback has work
     x = torch.randn(n, 64, device=cuda)
     out = spmm.banded_spmm(x, plan)
     ref = spmm.spmm_reference(x, src, dst, w, n)
@@ -126,11 +141,14 @@ def assert_exact(outs, wants):
         assert torch.equal(o, w)
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("chunk", [40, 37])
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ring_kernels_match_plain(cuda, n, dtype):
+def test_ring_kernels_match_plain(cuda, n, dtype, chunk):
+    """chunk = 37 gives a vector count that the blocks per rank do not
+    divide (1 184 fp32 vectors over 5 blocks, 592 bf16 over 3)."""
     mesh = gt.make_graph_mesh(n)
-    blocks, gs = ring_data(n, 40, 128, dtype, cuda, seed=n)
+    blocks, gs = ring_data(n, chunk, 128, dtype, cuda, seed=n)
     k2, k3 = (ring.ring_all_gather.kernel_launches,
               ring.ring_reduce_scatter.kernel_launches)
     ag = ring.ring_all_gather_cuda(blocks, mesh)
@@ -158,8 +176,28 @@ def test_back_to_back_calls_with_different_data(cuda):
     assert not torch.equal(outs[0][0][0], outs[1][0][0])
 
 
+def test_reduce_scatter_allocates_only_its_outputs(cuda):
+    """The direct reduce-scatter has no receive slots: over a call, the
+    peak of allocated memory rises by no more than the outputs."""
+    n = 4
+    mesh = gt.make_graph_mesh(n)
+    _, gs = ring_data(n, 300, 128, torch.float32, cuda, seed=7)
+    ring.ring_reduce_scatter_cuda(gs, mesh)             # build and warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    outs = ring.ring_reduce_scatter_cuda(gs, mesh)
+    torch.cuda.synchronize()
+    # The caching allocator rounds every block up to 512 bytes.
+    out_bytes = sum(-(-o.untyped_storage().nbytes() // 512) * 512
+                    for o in outs)
+    assert torch.cuda.max_memory_allocated(cuda) - base <= out_bytes
+    assert_exact(outs, ring.ring_reduce_scatter_plain(gs))
+
+
 def test_ring_kernels_exact_under_skew(cuda):
-    """A short stress: seeded per-(rank, hop) delays before each hop."""
+    """A short stress: seeded delays, read by K2 as (rank, hop) and by K3
+    as (rank, phase)."""
     r = np.random.RandomState(0)
     for n in (2, 4, 8):
         mesh = gt.make_graph_mesh(n)

@@ -158,8 +158,8 @@ def test_blocked_contrast_matches_jax():
 
 def test_small_k_and_geodesic_prior_raise():
     rgb = torch.zeros(64, 64, 3)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tgb._build_graph_arrays(rgb, tgb.SuperpixelGraphConfig(n_segments=50))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tgb._build_graph_arrays(rgb, tgb.SuperpixelGraphConfig(
             n_segments=2600, bg_connectivity=True))

@@ -127,5 +127,5 @@ def test_small_graphs_are_a_later_slice():
     pipe = gt.GCNGrabCutPipeline(gt.ResGCNNet(hidden_channels=16, n_layers=2),
                                  gt.SuperpixelGraphConfig(n_segments=500),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         pipe.segment_batch([np.zeros((128, 128, 3), np.uint8)])
