@@ -12,11 +12,12 @@ Phases, each of which exits non-zero on failure:
      PyTorch yardstick and the bound the card's peak rates allow;
      K1 at the banded SpMM's shapes, also timed with the L2 flushed before
      every call, with the share of its bound it reaches; K2 and K3 (the
-     ring all-gather and the direct reduce-scatter) at the sharded path's
-     shapes (n = 4 ranks of one (rows/4, 128) block) and at n = 2 and 8
-     over the same rows, in float32 and bfloat16, K3's allocations held to
-     its outputs, then >= 100 calls for each n with fresh seeded data and
-     seeded timing skew between ranks, every output exact;
+     one-shot direct-write all-gather and direct-read reduce-scatter) at
+     the sharded path's shapes (n = 4 ranks of one (rows/4, 128) block)
+     and at n = 2 and 8 over the same rows, in float32 and bfloat16, each
+     one's allocations held to its outputs, then >= 100 calls for each n
+     with fresh seeded data and seeded timing skew between ranks, every
+     output exact;
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
@@ -231,6 +232,21 @@ def ring_bound(n: int, chunk: int, elt: int, reduce: bool
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def allocated_beyond_outputs(call) -> tuple[int, list]:
+    """(bytes, outputs): how far the peak of the bytes requested from the
+    caching allocator over call() rose above the outputs it returned, and
+    those outputs.  Requested bytes, not the allocator's blocks, which it
+    rounds up and may leave unsplit (a 5.12 MB output can hold a 20 MB
+    segment's last 480 KB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    outs = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    return peak - base - sum(o.untyped_storage().nbytes() for o in outs), outs
+
+
 def check_ring_collectives(dev, n_nodes: int) -> dict:
     """K2 and K3 against their plain versions at the sharded path's shapes
     (PATH_RANKS ranks, chunk = n_nodes / PATH_RANKS rounded up, D = HIDDEN)
@@ -255,8 +271,13 @@ def check_ring_collectives(dev, n_nodes: int) -> dict:
             elt = x.element_size()
             tag = f"n={n} chunk={chunk} D={HIDDEN} {str(dtype)[6:]}"
 
-            out = ring.ring_all_gather_cuda(blocks, mesh)
-            torch.cuda.synchronize()
+            # Neither kernel allocates more than its outputs (no receive
+            # slots, no scratch).
+            extra, out = allocated_beyond_outputs(
+                lambda: ring.ring_all_gather_cuda(blocks, mesh))
+            if extra > 0:
+                fail(f"ring_all_gather allocated {extra} bytes beyond its "
+                     f"outputs ({tag})")
             err2 = max(float((o.float() - w.float()).abs().max())
                        for o, w in zip(out, ring.ring_all_gather_plain(blocks)))
             cat = torch.cat(blocks)
@@ -273,18 +294,11 @@ def check_ring_collectives(dev, n_nodes: int) -> dict:
             rec2["bound_ms"], rec2["bound_by"] = ring_bound(n, chunk, elt,
                                                             False)
 
-            # K3 allocates its outputs and nothing else (no receive slots).
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            out = ring.ring_reduce_scatter_cuda(gs, mesh)
-            torch.cuda.synchronize()
-            extra = torch.cuda.max_memory_allocated() - base
-            out_bytes = sum(-(-o.untyped_storage().nbytes() // 512) * 512
-                            for o in out)
-            if extra > out_bytes:
-                fail(f"ring_reduce_scatter allocated {extra} bytes, its "
-                     f"outputs {out_bytes} ({tag})")
+            extra, out = allocated_beyond_outputs(
+                lambda: ring.ring_reduce_scatter_cuda(gs, mesh))
+            if extra > 0:
+                fail(f"ring_reduce_scatter allocated {extra} bytes beyond "
+                     f"its outputs ({tag})")
             want = ring.ring_reduce_scatter_plain(gs)
             err3 = max(float((o.float() - w.float()).abs().max())
                        for o, w in zip(out, want))
@@ -310,14 +324,16 @@ def check_ring_collectives(dev, n_nodes: int) -> dict:
                 g.float().abs().view(n, n, chunk, HIDDEN).sum(0).max())
 
             mb = chunk * HIDDEN * elt * (n + n * n) / 1e6
-            for key, rec, extra in (
-                    ("K2", rec2, "expand().contiguous()"),
-                    ("K3", rec3, f"view().sum(0) (err {yard_err:.2e}, "
-                                 f"tol {yard_tol:.2e})")):
-                print(f"{key} {rec['name']} {tag}: max_abs_err="
+            for key, rec, design, yardstick in (
+                    ("K2", rec2, "one-shot direct write",
+                     "expand().contiguous()"),
+                    ("K3", rec3, "one-shot direct read",
+                     f"view().sum(0) (err {yard_err:.2e}, tol "
+                     f"{yard_tol:.2e})")):
+                print(f"{key} {rec['name']} ({design}) {tag}: max_abs_err="
                       f"{rec['max_abs_err']:.1e} kernel {rec['ms']:.4f} ms, "
-                      f"plain {rec['plain_ms']:.4f} ms, yardstick {extra} "
-                      f"{rec['library_ms']:.4f} ms, bound "
+                      f"plain {rec['plain_ms']:.4f} ms, yardstick "
+                      f"{yardstick} {rec['library_ms']:.4f} ms, bound "
                       f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
                       f"{mb:.2f} MB)", flush=True)
             if err2 != 0.0 or err3 != 0.0:
@@ -333,7 +349,7 @@ def check_ring_collectives(dev, n_nodes: int) -> dict:
 def stress_ring_collectives(dev, n_nodes: int) -> None:
     """STRESS_CALLS calls each of K2 and K3 for every ring size, queued
     back to back with fresh seeded data, alternating float32 and bfloat16,
-    each with a seeded (rank, hop) delay table (half the entries 0, the
+    each with a seeded (rank, phase) delay table (half the entries 0, the
     rest up to STRESS_MAX_DELAY_NS) or none.  Every output must equal its
     plain version bit for bit."""
     from gcn_grabcut_torch.parallel import ring

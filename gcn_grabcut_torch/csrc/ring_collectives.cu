@@ -1,6 +1,6 @@
-// Ring all-gather (K2) and direct reduce-scatter (K3) for Hopper (sm_90a):
+// Direct all-gather (K2) and direct reduce-scatter (K3) for Hopper (sm_90a):
 // the halo exchange of the graph-sharded 10k-node aggregation and its
-// gradient.
+// gradient, each one shot: no hops between ranks.
 //
 // Replaces the TPU kernels of gcn_grabcut_tpu/parallel/ring_pallas.py:
 //   K2  _all_gather_impl (body _ring_kernel): rank r holds one (chunk, D)
@@ -13,22 +13,33 @@
 // blockIdx.y is the rank and blockIdx.x one of the B thread blocks of a
 // rank.  Block b of every rank owns the same slice of the chunk (16-byte
 // vectors [b per, (b + 1) per)), so it waits only on block b of other ranks:
-// one signal word per (rank, row, block) and no grid-wide barrier.  A
+// one signal word per (rank, phase, block) and no grid-wide barrier.  A
 // cooperative launch makes every block resident at once or fails, so blocks
 // that spin on each other cannot deadlock because one of them was never
 // scheduled.  The kernels reach every rank's buffers only through the
 // pointer table in their arguments: all ranks live on one card here, and a
 // later launcher can fill the table with peer pointers.
 //
-// K2, a ring with no slot reuse.  The Pallas kernel double-buffers through
-// two comm slots and needs ack credits before it reuses one; ADVICE.md
-// records the race of an ack sent before the slot's outgoing copy had read
-// it.  Here every hop lands in its own place, written exactly once per call:
-// rank r copies its block into out_r[r] and out_{r+1}[r] (hop 0).  At hop
-// s >= 1 it waits for its own hop-(s-1) signal and forwards out_r[(r - s)
-// mod n], already in its final place, to the same offset of out_{r+1}.  It
-// waits for the hop-(n-2) signal before it ends.  Its words are (rank, hop):
-// rank r's row s is written by its left neighbour at hop s.
+// K2, one shot, push.  Block b of rank r reads slice b of its own block once
+// and writes it to slot r of every rank's output, its own included:
+//   out_j[r][slice b] = in_r[slice b]                      for j = 0 .. n-1.
+// Every byte of out is written exactly once per call and none is read back,
+// so there are no comm slots to reuse: the Pallas kernel double-buffers
+// through two and needs ack credits, and ADVICE.md records the race of an
+// ack sent before the slot's outgoing copy had read it.  Each thread loads
+// up to U = 8 vectors of the slice with ld.global.cg, all in flight at once,
+// and stores each of them n times with st.global.cg; at the sharded path's
+// shapes a block's slice (~1 200 vectors) is one such batch.  Stores to a
+// peer over NVLink are posted writes, where loads are round trips, so a push
+// suits peer memory; it also makes K2 the mirror image of K3, which has to
+// pull because it sums.  The ring that K2 used to be ran n - 1 hops in
+// series, each a signal round trip with a short copy between, and read back
+// what the previous hop had written.
+//   The copy through the TMA unit (one thread per block, 1-D cp.async.bulk
+// loads of 8 KB pieces into a ring of 4 shared-memory buffers counted on
+// mbarriers, n bulk stores per piece) was built and measured first: it is
+// right, but ~2 us slower a call than this vector copy at n = 2, 4 and 8 on
+// an H100 (PERF.md).  profile_port.py keeps it as a variant.
 //
 // K3, one shot.  Block b of rank r reads slice b of block r straight from
 // every rank's g_j and writes the sum into out_r:
@@ -42,44 +53,57 @@
 // n - 1 hops ran in series, each a signal round trip with little work
 // between, and because the partial sums went through receive slots that
 // were written and read again: n (3n - 1) E bytes moved against the bound's
-// (n^2 + n) E.  One shot moves exactly the bound, n^2 E read and n E
-// written, with no scratch.  Across NVLink each rank would read (n - 1) E
-// from its peers, as many bytes as a ring sends, so the link bound is the
-// same; the H100's NVSwitch joins every pair of cards at full rate, where
-// the TPU's torus links only neighbours, which is what made the ring the
-// TPU's schedule.  Two handshakes keep it right for peer memory, on words
-// (rank, phase): rank r's row 0 word says "block b has entered this call"
-// and row 1 "block b has read all it needs".
-//   entry: block b of rank r reads g_j only once word (j, 0, b) carries this
-//          call's epoch (rank j's g is live: its kernel has started);
-//   exit:  block b of rank r returns only once every (j, 1, b) does (no
-//          peer still reads its g_r).
+// (n^2 + n) E.
 //
-// Signals.  The writer's threads store their data, the block synchronises,
-// and one thread issues a system-scope fence and st.release.sys of the
-// call's epoch into the word.  A waiting thread spins on ld.acquire.sys with
-// __nanosleep back-off until the word reaches the epoch, then the block
-// synchronises; K3 spins on its n - 1 peers with n - 1 threads at once.
-// Data written by other blocks is read with ld.global.cg, so no stale L1
-// line of an earlier call is seen.  Every spin is bounded and ends in
+// Why one shot on Hopper.  Across NVLink each rank sends (K2) or fetches
+// (K3) (n - 1) E bytes to or from its peers, as many as a ring sends, so the
+// link bound is the same; the H100's NVSwitch joins every pair of cards at
+// full rate, where the TPU's torus links only neighbours, which is what made
+// the ring the TPU's schedule.
+//
+// Handshakes.  Two per call, on words (rank, phase, block): rank r's row 0
+// word says "block b has entered this call", row 1 "block b is done with
+// the peers' buffers".
+//   entry: block b of rank r stores the epoch, relaxed, into (r, 0, b);
+//          nothing of this call precedes it (rank r's buffers were finished
+//          by earlier work on its stream).  It touches rank j's buffers (K2
+//          writes out_j, K3 reads g_j) only once word (j, 0, b) carries the
+//          epoch: rank j's kernel has started, so its buffers are live.
+//   exit:  block b of rank r releases (r, 1, b) once its accesses to the
+//          peers are complete, and returns only once every (j, 1, b)
+//          carries the epoch: for K2, every peer's slice b has landed in
+//          out_r; for K3, no peer still reads g_r.
+// A release is a barrier, then one st.release.sys by thread 0: the barrier
+// orders the block's accesses (K2's stores, K3's loads) before it and a
+// system-scope release is cumulative over them, so no fence.sc.sys is
+// needed (~4 us a call on an H100).  A peer whose ld.acquire.sys reads the
+// epoch therefore sees K2's data.  That holds because K2's stores are
+// generic-proxy stores.  The TMA variant's bulk stores run in the async
+// proxy, which the release does not cover by itself: its issuing thread
+// must first wait with cp.async.bulk.wait_group 0 (the stores complete, not
+// merely read out of shared memory) and then fence.proxy.async.global, and
+// fence the same way after the entry wait, before its first bulk store.  A
+// waiting thread spins on ld.acquire.sys with __nanosleep back-off until
+// the word reaches the epoch, then the block synchronises; n - 1 threads
+// spin on the n - 1 peers at once.  Every spin is bounded and ends in
 // __trap(): a protocol fault fails the run instead of hanging it.  Epochs
 // rise with every call on a mesh, so the words are never reset and a word
 // left by an earlier call never satisfies a wait; calls on one mesh must
 // therefore be ordered on one stream.  System scope keeps the code right
-// for peer memory.
+// for peer memory.  Data written by other kernels is read with
+// ld.global.cg, so no stale L1 line of an earlier call is seen.
 //
 // Bound.  With E = chunk * D * elt bytes per block, K2 must read at least
 // n E and write n^2 E; K3 must read at least n^2 E and write n E (its n^2
 // chunk D adds are far below the card's rate).  On one H100 that is
-// (n + n^2) E / 3.35 TB/s for either.  Across NVLink each rank sends
-// (n - 1) E over one 450 GB/s direction: (n - 1) E / 450 GB/s.  K2 moves
-// more: it reads n (n - 1) E (forwarding reads what hop s-1 wrote) and
-// writes n^2 E; K3 moves exactly the bound.
+// (n + n^2) E / 3.35 TB/s for either, and both move exactly that.  Across
+// NVLink each rank sends or fetches (n - 1) E over one 450 GB/s direction:
+// (n - 1) E / 450 GB/s, the same as the ring's.
 //
 // Optional stress aid: a table of nanosecond delays, null on the path, that
-// stalls a rank's blocks to provoke races under timing skew.  K2 reads it
-// as (rank, hop): before hop s.  K3 reads it as (rank, phase): column 0
-// before the entry signal, column 1 after the reads, before the exit signal.
+// stalls a rank's blocks to provoke races under timing skew.  Both kernels
+// read it as (rank, phase): column 0 before the entry signal, column 1
+// after the copies or reads, before the exit signal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,8 +117,8 @@ constexpr long long MAX_SPINS = 1LL << 22;   // ~4 s at the 1 us back-off cap
 struct RingTable {
   const int4* in[MAX_RANKS];            // K2: block; K3: g (n chunk rows)
   int4* out[MAX_RANKS];                 // K2: n chunk rows; K3: chunk rows
-  unsigned long long* sig[MAX_RANKS];   // (rows, sig_stride) words
-  int delay_ns[MAX_RANKS][MAX_RANKS];   // K2 (rank, hop), K3 (rank, phase)
+  unsigned long long* sig[MAX_RANKS];   // (2, sig_stride) words
+  int delay_ns[MAX_RANKS][MAX_RANKS];   // (rank, phase)
 };
 
 __device__ __forceinline__ unsigned long long ld_acquire_sys(
@@ -117,20 +141,9 @@ __device__ __forceinline__ void st_relaxed_sys(unsigned long long* p,
                :: "l"(p), "l"(v) : "memory");
 }
 
-// Every thread's stores so far, then the word: the neighbour may read them.
-__device__ __forceinline__ void signal_word(unsigned long long* word,
-                                            unsigned long long epoch) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    st_release_sys(word, epoch);
-  }
-}
-
 // Every thread's accesses so far, then the word.  The barrier orders the
 // block's accesses before thread 0's release, and a release at system scope
-// is cumulative over them: no separate fence.sc.sys (signal_word's, ~4 us a
-// call on an H100) is needed.
+// is cumulative over them: no separate fence.sc.sys is needed.
 __device__ __forceinline__ void release_word(unsigned long long* word,
                                              unsigned long long epoch) {
   __syncthreads();
@@ -147,13 +160,6 @@ __device__ __forceinline__ void spin_until(const unsigned long long* word,
     __nanosleep(ns);
     if (ns < 1024) ns *= 2;
   }
-}
-
-// Until the word carries this call's epoch; then the whole block goes on.
-__device__ __forceinline__ void wait_word(const unsigned long long* word,
-                                          unsigned long long epoch) {
-  if (threadIdx.x == 0) spin_until(word, epoch);
-  __syncthreads();
 }
 
 __device__ __forceinline__ void stall(int ns) {
@@ -198,40 +204,49 @@ __device__ __forceinline__ void wait_peers(const RingTable& t, int n, int r,
   __syncthreads();
 }
 
-// K2.  vecs = 16-byte vectors per chunk; the signal word of (rank r, hop s,
-// block b) is sig[r][s * sig_stride + b].
+// K2.  vecs = 16-byte vectors per chunk; the signal word of (rank r, phase
+// k, block b) is sig[r][k * sig_stride + b].  Each thread loads up to U
+// vectors of its rank's slice, all in flight at once, then stores each of
+// them to every rank.
 __global__ void __launch_bounds__(THREADS)
-ring_all_gather_kernel(RingTable t, int n, long long vecs, int sig_stride,
-                       unsigned long long epoch) {
+direct_all_gather_kernel(RingTable t, int n, long long vecs, int sig_stride,
+                         unsigned long long epoch) {
+  constexpr int U = 8;   // vectors a thread keeps in flight
   const int r = blockIdx.y;
   const int b = blockIdx.x;
-  const int right = (r + 1) % n;
   const long long per = (vecs + gridDim.x - 1) / gridDim.x;
   const long long v0 = min(vecs, b * per);
   const long long v1 = min(vecs, v0 + per);
-  int4* mine = t.out[r];
-  int4* next = t.out[right];
-  const unsigned long long* my_sig = t.sig[r] + b;
-  unsigned long long* right_sig = t.sig[right] + b;
 
+  // Entry: as K3's.
   stall(t.delay_ns[r][0]);
-  const long long own = (long long)r * vecs;
-  for (long long v = v0 + threadIdx.x; v < v1; v += THREADS) {
-    const int4 x = __ldcg(t.in[r] + v);
-    __stcg(mine + own + v, x);
-    __stcg(next + own + v, x);
-  }
-  signal_word(right_sig, epoch);
+  if (threadIdx.x == 0) st_relaxed_sys(t.sig[r] + b, epoch);
+  wait_peers(t, n, r, b, epoch);
 
-  for (int s = 1; s <= n - 2; ++s) {
-    wait_word(my_sig + (long long)(s - 1) * sig_stride, epoch);
-    stall(t.delay_ns[r][s]);
-    const long long off = (long long)(((r - s) % n + n) % n) * vecs;
-    for (long long v = v0 + threadIdx.x; v < v1; v += THREADS)
-      __stcg(next + off + v, __ldcg(mine + off + v));
-    signal_word(right_sig + (long long)s * sig_stride, epoch);
+  const int4* in = t.in[r];
+  const long long own = (long long)r * vecs;
+  for (long long v = v0 + threadIdx.x; v < v1; v += (long long)U * THREADS) {
+    int4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long w = v + (long long)u * THREADS;
+      if (w < v1) x[u] = __ldcg(in + w);
+    }
+    for (int j = 0; j < n; ++j) {
+      int4* out = t.out[j] + own;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long w = v + (long long)u * THREADS;
+        if (w < v1) __stcg(out + w, x[u]);
+      }
+    }
   }
-  wait_word(my_sig + (long long)(n - 2) * sig_stride, epoch);
+
+  // Exit: the release orders every store into the peers' outputs before
+  // the word; a rank returns once every peer's slice b is in its output.
+  stall(t.delay_ns[r][1]);
+  release_word(t.sig[r] + sig_stride + b, epoch);
+  wait_peers(t, n, r, (long long)sig_stride + b, epoch);
 }
 
 // K3 for n <= NMAX ranks, with Op::add the input dtype's elementwise sum of
@@ -349,8 +364,8 @@ int launch(Kernel kernel, const void* const* in, void* const* out,
 }  // namespace
 
 // Plain C interface for ctypes.  Every table holds n device pointers, one per
-// rank, 16-byte aligned; sig[r] is the rank's (rows, sig_blocks) signal
-// words, rows >= max(n - 1, 2).  chunk_bytes = chunk D elt, a multiple of 16.
+// rank, 16-byte aligned; sig[r] is the rank's (2, sig_blocks) signal
+// words.  chunk_bytes = chunk D elt, a multiple of 16.
 // delay_ns is null or n x n host ints.  Returns the cudaError_t of the
 // launch.
 //
@@ -360,7 +375,7 @@ extern "C" int ring_all_gather(const void* const* in, void* const* out,
                                void* const* sig, int n, long long chunk_bytes,
                                int sig_blocks, unsigned long long epoch,
                                const int* delay_ns, void* stream) {
-  return launch(ring_all_gather_kernel, in, out, sig, n, chunk_bytes,
+  return launch(direct_all_gather_kernel, in, out, sig, n, chunk_bytes,
                 sig_blocks, epoch, delay_ns, stream);
 }
 

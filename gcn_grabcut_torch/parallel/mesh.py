@@ -6,14 +6,14 @@ partitioned over the ranks, and the ring collectives of ``parallel/ring.py``
 move node blocks between neighbours.
 
 A `GraphMesh` also owns the collectives' signal words: one 64-bit word per
-(rank, row, thread block), written with the epoch of the call that wrote
-it.  The all-gather ring reads a rank's rows as hops (row s is written by
-the left neighbour at hop s); the direct reduce-scatter as its two phases
-(row 0 on entry, row 1 once its reads are done, written by the rank
-itself), so a mesh has max(n - 1, 2) rows.  The epoch rises with every
-collective call on the mesh, so no call resets the words and a word left
-by an earlier call never satisfies a later wait.  The words are the
-mesh's, so calls on one mesh must be ordered on one CUDA stream.
+(rank, phase, thread block), written with the epoch of the call that wrote
+it.  Both kernels are one shot and read a rank's two rows as their two
+handshakes, each written by the rank itself: row 0 on entry, row 1 once
+its copies (the all-gather) or reads (the reduce-scatter) are done.  So a
+mesh has two rows for every n.  The epoch rises with every collective
+call on the mesh, so no call resets the words and a word left by an
+earlier call never satisfies a later wait.  The words are the mesh's, so
+calls on one mesh must be ordered on one CUDA stream.
 
 Every rank of a mesh lives on one device here: a ring of n logical ranks
 on one card runs the same kernel code and signalling that peer pointers
@@ -30,7 +30,7 @@ import torch
 
 from ..core.device import resolve_device
 
-#: Signal words per (rank, row): the most thread blocks a rank may run.
+#: Signal words per (rank, phase): the most thread blocks a rank may run.
 SIGNAL_BLOCKS = 1024
 
 
@@ -49,10 +49,9 @@ class GraphMesh:
                 "a mesh over several devices needs peer pointers between "
                 "cards (ROADMAP, queue 1, 'Distribution: what is left'); "
                 "every rank lives on one device for now")
-        # (rank, row, block).  Zero is below every epoch a call uses.
-        self.signals = torch.zeros(
-            (self.size, max(self.size - 1, 2), SIGNAL_BLOCKS),
-            dtype=torch.int64, device=self.device)
+        # (rank, phase, block).  Zero is below every epoch a call uses.
+        self.signals = torch.zeros((self.size, 2, SIGNAL_BLOCKS),
+                                   dtype=torch.int64, device=self.device)
 
     @property
     def size(self) -> int:

@@ -12,8 +12,9 @@ Each is the other's gradient, as the JAX package's custom VJPs make them,
 so training through the halo runs the reduce-scatter (K3) backward.
 
 On CUDA tensors both launch the hand-written kernels of
-``csrc/ring_collectives.cu`` (K2, a ring; K3, a one-shot direct read of
-every rank's block), one cooperative launch per call, float32 or bfloat16;
+``csrc/ring_collectives.cu`` (K2, a one-shot direct write of each rank's
+block into every rank's output; K3, a one-shot direct read of every rank's
+block), one cooperative launch per call, float32 or bfloat16;
 there is no fallback, and a kernel that cannot build or launch raises.  On
 CPU tensors they run the plain versions below.  The reduce-scatter sums in
 ring order in the input dtype on both, so kernel and plain version agree
@@ -111,15 +112,19 @@ def _delays(delay_ns, n: int):
     return (ctypes.c_int * (n * n))(*d.flatten().tolist())
 
 
-def _kernel(name: str):
-    from ..kernels import load
-    fn = getattr(load("ring_collectives"), name)
+def _bind(fn):
+    """Set the ctypes signature shared by the library's entry points."""
     fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3
                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_int),
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel(name: str):
+    from ..kernels import load
+    return _bind(getattr(load("ring_collectives"), name))
 
 
 def _launch(name: str, tables: list, mesh: GraphMesh, chunk_bytes: int,
@@ -137,8 +142,10 @@ def _launch(name: str, tables: list, mesh: GraphMesh, chunk_bytes: int,
 
 def ring_all_gather_cuda(blocks: list[torch.Tensor], mesh: GraphMesh,
                          delay_ns=None) -> list[torch.Tensor]:
-    """Launch K2 on the current stream.  `delay_ns`, an optional (n, n)
-    table of nanoseconds that rank r stalls before hop s, is a stress aid."""
+    """Launch K2 on the current stream.  It allocates the outputs and
+    nothing else.  `delay_ns`, an optional (n, n) table of nanoseconds, is
+    read as (rank, phase): rank r stalls delay_ns[r][0] before it enters
+    and delay_ns[r][1] after its copies, before it signals them done."""
     _check(blocks, mesh, "ring_all_gather")
     chunk, d = blocks[0].shape
     chunk_bytes = chunk * d * blocks[0].element_size()

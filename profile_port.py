@@ -2,7 +2,7 @@
 """Where the port's main path spends the card's time.
 
     python3 profile_port.py            # the main path under torch.profiler
-    python3 profile_port.py --kernels  # what holds K1 and K3 back
+    python3 profile_port.py --kernels  # what holds K1, K2 and K3 back
 
 Runs chip_smoke.py's main-path configuration on one GPU (a 1536x1536
 synthetic image, 10 000 SLIC segments, the seeded ResGCNNet at D=128,
@@ -14,13 +14,15 @@ the number of device activities, and the heaviest kernels.  Profiling
 slows the host, not the kernels, so busy time is set against the
 unprofiled wall time.
 
-With --kernels it times K1 (bf16, the path's shapes) and K3 (float32, n =
-2, 4, 8 ranks) as built and in variants that each take one piece out or
-change one choice: each variant is the committed source with one textual
-edit, built by nvcc into gcn_grabcut_torch/_build/variants/ and timed as
-chip_smoke.py times the kernels (device time per call, warm L2).  Variants
-that skip work give wrong outputs and only say what that work costs.  Needs
-CUDA; imports nothing of JAX.
+With --kernels it times K1 (bf16, the path's shapes), K2 and K3 (float32,
+n = 2, 4, 8 ranks over the path's 10 000 rows) as built and in variants
+that each take one piece out or change one choice: each variant is the
+committed source with textual edits (K2's TMA bulk copy, the design
+measured first, is the largest), built by nvcc into
+gcn_grabcut_torch/_build/variants/ and timed as chip_smoke.py times the
+kernels (device time per call, warm L2).  Variants that skip work give
+wrong outputs and only say what that work costs; each K2 line says whether
+the variant's output was exact.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,26 +43,167 @@ K1_VARIANTS = [
     ("launch only", [("  constexpr unsigned TX =",
                       "  if (R > 0) return;\n  constexpr unsigned TX =")]),
 ]
-# K3 variants, edits of csrc/ring_collectives.cu.
+# Edits of csrc/ring_collectives.cu that K2 and K3 share.
+FENCED_EXIT = ("fence.sc.sys before the exit release",
+               [("  if (threadIdx.x == 0) st_release_sys(word, epoch);\n}",
+                 "  if (threadIdx.x == 0) {\n    __threadfence_system();\n"
+                 "    st_release_sys(word, epoch);\n  }\n}")])
+GPU_SCOPE = ("gpu scope (one card only)", [(".sys.global", ".gpu.global")])
+NO_WAITS = ("no waits (unsafe)",
+            [("  wait_peers(t, n, r, b, epoch);\n", ""),
+             ("  wait_peers(t, n, r, (long long)sig_stride + b, epoch);\n",
+              "")])
+# K2's copy through the TMA unit, the design measured first: one thread
+# per block loads 8 KB pieces of its slice into a ring of 4 shared-memory
+# buffers (1-D cp.async.bulk, counted on mbarriers) and issues n bulk
+# stores of each piece; 32 KB of dynamic shared memory per block.
+BULK_HELPERS = """\
+constexpr int PIECE = 8192;   // bytes, a multiple of 16
+constexpr int RING = 4;
+
+// TMA bulk copies for K2.  Addresses and sizes are multiples of 16 bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Until the barrier's phase of this parity has completed, bounded.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  long long spins = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\\n.reg .pred p;\\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+        "selp.u32 %0, 1, 0, p;\\n}\\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (++spins > MAX_SPINS) __trap();
+  }
+}
+
+// Global -> shared; the barrier's phase ends when the bytes have landed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared -> global, in the current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+// Piece p of a slice of `bytes`: PIECE bytes, the last one what is left.
+__device__ __forceinline__ unsigned piece_bytes(long long bytes, int p) {
+  const long long left = bytes - (long long)p * PIECE;
+  return (unsigned)(left < PIECE ? left : PIECE);
+}
+
+// Thread 0's copy of vectors [v0, v1) of rank r's block to slot r of every
+// rank's output, through RING buffers of PIECE bytes: piece p goes through
+// buffer p % RING, whose mbarrier completes phase (p / RING) & 1 when the
+// piece has landed.  Returns once every store is complete and ordered
+// before this thread's later generic accesses.
+__device__ void push_slice(const RingTable& t, int n, int r, long long vecs,
+                           long long v0, long long v1, char* ring,
+                           unsigned long long* full) {
+  const long long bytes = (v1 - v0) * 16;
+  const int pieces = (int)((bytes + PIECE - 1) / PIECE);
+  const char* src = reinterpret_cast<const char*>(t.in[r] + v0);
+  const long long dst = ((long long)r * vecs + v0) * 16;   // in every out_j
+  auto load = [&](int p) {
+    bulk_load(ring + (p % RING) * PIECE, src + (long long)p * PIECE,
+              piece_bytes(bytes, p), &full[p % RING]);
+  };
+  for (int s = 0; s < RING; ++s) mbar_init(&full[s]);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  // The peers' entry words (acquired before the block's barrier), then the
+  // async-proxy stores into their outputs.
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  for (int p = 0; p < pieces && p < RING; ++p) load(p);
+  for (int p = 0; p < pieces; ++p) {
+    const char* buf = ring + (p % RING) * PIECE;
+    mbar_wait(&full[p % RING], (p / RING) & 1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    const unsigned size = piece_bytes(bytes, p);
+    for (int j = 0; j < n; ++j)
+      bulk_store(reinterpret_cast<char*>(t.out[j]) + dst +
+                     (long long)p * PIECE, buf, size);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    // Once piece p - 1's stores have read its buffer, the buffer's next
+    // piece loads while piece p is stored.
+    if (p >= 1 && p - 1 + RING < pieces) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load(p - 1 + RING);
+    }
+  }
+  // Complete, not only read out of shared memory; then the exit release.
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+"""
+BULK_COPY = [
+    ("// K2.  vecs = 16-byte vectors per chunk;",
+     BULK_HELPERS + "// K2.  vecs = 16-byte vectors per chunk;"),
+    ("  const long long own = (long long)r * vecs;\n"
+     "  for (long long v = v0 + threadIdx.x;",
+     "  extern __shared__ __align__(128) char ring[];\n"
+     "  __shared__ unsigned long long full[RING];\n"
+     "  if (threadIdx.x == 0) push_slice(t, n, r, vecs, v0, v1, ring, "
+     "full);\n"
+     "  const long long own = (long long)r * vecs;\n"
+     "  for (long long v = v1;"),                 # the vector copy runs dry
+    ("THREADS, 0);", "THREADS, RING * PIECE);"),
+    ("dim3(THREADS), args, 0,", "dim3(THREADS), args, RING * PIECE,"),
+]
+K2_VARIANTS = [
+    ("as built", []),
+    FENCED_EXIT,
+    GPU_SCOPE,
+    NO_WAITS,
+    ("launch only", [("  constexpr int U = 8;   // vectors a thread keeps in "
+                      "flight\n", "  if (n > 0) return;\n  constexpr int U = "
+                      "8;   // vectors a thread keeps in flight\n")]),
+    ("4 vectors a thread", [("constexpr int U = 8;   // vectors a thread",
+                             "constexpr int U = 4;   // vectors a thread")]),
+    ("4 blocks per SM", [("(per_sm < 2 ? per_sm : 2)",
+                          "(per_sm < 4 ? per_sm : 4)")]),
+    ("TMA bulk copy (8 KB pieces, a 4-buffer ring)", BULK_COPY),
+    ("TMA bulk copy, 4 KB pieces",
+     BULK_COPY + [("constexpr int PIECE = 8192;",
+                   "constexpr int PIECE = 4096;")]),
+    ("TMA bulk copy without its proxy fences (unsafe)",
+     BULK_COPY + [('  asm volatile("fence.proxy.async.global;" ::: '
+                   '"memory");\n', ""),
+                  ('    asm volatile("fence.proxy.async.shared::cta;" ::: '
+                   '"memory");\n', "")]),
+]
 K3_VARIANTS = [
     ("as built", []),
-    ("fence.sc.sys before the exit release",
-     [("  if (threadIdx.x == 0) st_release_sys(word, epoch);\n}",
-       "  if (threadIdx.x == 0) {\n    __threadfence_system();\n"
-       "    st_release_sys(word, epoch);\n  }\n}")]),
+    FENCED_EXIT,
     ("entry word released, not relaxed",
      [("st_relaxed_sys(t.sig[r] + b, epoch);",
        "st_release_sys(t.sig[r] + b, epoch);")]),
-    ("gpu scope (one card only)",
-     [(".sys.global", ".gpu.global"), ("__threadfence_system()",
-                                       "__threadfence()")]),
-    ("no waits (unsafe)",
-     [("  wait_peers(t, n, r, b, epoch);\n", ""),
-      ("  wait_peers(t, n, r, (long long)sig_stride + b, epoch);\n", "")]),
+    GPU_SCOPE,
+    NO_WAITS,
     ("launch only", [("   // vectors per batch\n",
                       "   // vectors per batch\n  if (n > 0) return;\n")]),
 ]
-
 
 def device_profile(fn) -> tuple[float, int, list]:
     """(busy seconds, activity count, [(name, ms, count)] heaviest five)
@@ -95,22 +238,28 @@ def report(label: str, wall: float, fn) -> None:
         print(f"    {ms:9.1f} ms  x{n:<7d} {name[:110]}", flush=True)
 
 
-def build_variants(name: str, variants) -> list:
+def variant_source(name: str, label: str, edits) -> str:
+    """csrc/<name>.cu with the variant's edits; raises if an edit's text
+    is not in the source."""
+    from gcn_grabcut_torch import kernels
+    src = (kernels.CSRC / f"{name}.cu").read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"variant {label!r}: {old!r} not in "
+                               f"{name}.cu")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(name: str, variants, tag: str) -> list:
     """[(variant name, ctypes library)], one nvcc per variant, in parallel."""
     from gcn_grabcut_torch import kernels
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    base = (kernels.CSRC / f"{name}.cu").read_text()
     procs = []
     for i, (label, edits) in enumerate(variants):
-        src = base
-        for old, new in edits:
-            if old not in src:
-                raise RuntimeError(f"variant {label!r}: {old!r} not in "
-                                   f"{name}.cu")
-            src = src.replace(old, new)
-        cu = out_dir / f"{name}_{i}.cu"
-        cu.write_text(src)
+        cu = out_dir / f"{tag}_{i}.cu"
+        cu.write_text(variant_source(name, label, edits))
         procs.append((label, cu.with_suffix(".so"), subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
              str(cu.with_suffix(".so")), str(cu)],
@@ -125,7 +274,8 @@ def build_variants(name: str, variants) -> list:
 
 
 def kernel_variants() -> None:
-    """K1 and K3 as built and in the variants above, device ms per call."""
+    """K1, K2 and K3 as built and in the variants above, device ms per
+    call."""
     import chip_smoke as cs
     from gcn_grabcut_torch.models.large import build_gcn_plans_device
     from gcn_grabcut_torch.parallel import ring
@@ -144,7 +294,7 @@ def kernel_variants() -> None:
     K, n_pad, R = band.shape
     x = torch.randn((n, cs.HIDDEN), device=dev).to(torch.bfloat16)
     out = torch.empty((n_pad, cs.HIDDEN), device=dev)
-    for label, lib in build_variants("banded_spmm", K1_VARIANTS):
+    for label, lib in build_variants("banded_spmm", K1_VARIANTS, "k1"):
         fn = lib.banded_spmm_bf16
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
@@ -154,25 +304,44 @@ def kernel_variants() -> None:
         print(f"K1 bf16 n_pad={n_pad} R={R} K={K} D={cs.HIDDEN}, {label}: "
               f"{ms:.4f} ms", flush=True)
 
-    libs = build_variants("ring_collectives", K3_VARIANTS)
+    def ring_call(fn, tables, n_ranks, chunk_bytes, mesh):
+        def call():
+            err = fn(*tables, n_ranks, chunk_bytes, SIGNAL_BLOCKS,
+                     mesh.next_epoch(), None, stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+        return call
+
+    k2_libs = build_variants("ring_collectives", K2_VARIANTS, "k2")
+    k3_libs = build_variants("ring_collectives", K3_VARIANTS, "k3")
     for n_ranks in cs.RING_SIZES:
         chunk = -(-n // n_ranks)
         mesh = make_graph_mesh(n_ranks)
+        chunk_bytes = chunk * cs.HIDDEN * 4
+        tag = f"f32 n={n_ranks} chunk={chunk} D={cs.HIDDEN}"
+        blocks = list(torch.randn((n_ranks * chunk, cs.HIDDEN),
+                                  device=dev).split(chunk))
+        want = torch.cat(blocks)
+        gathered = [torch.empty_like(want) for _ in blocks]
+        tables = [ring._table(t) for t in (blocks, gathered,
+                                           list(mesh.signals))]
+        for label, lib in k2_libs:
+            for o in gathered:
+                o.zero_()
+            ms = cs.time_ms(ring_call(ring._bind(lib.ring_all_gather),
+                                      tables, n_ranks, chunk_bytes, mesh))
+            exact = all(torch.equal(o, want) for o in gathered)
+            print(f"K2 {tag}, {label}: {ms:.4f} ms (exact: {exact})",
+                  flush=True)
+
         gs = list(torch.randn((n_ranks, n_ranks * chunk, cs.HIDDEN),
                               device=dev))
         outs = [torch.empty((chunk, cs.HIDDEN), device=dev) for _ in gs]
         tables = [ring._table(t) for t in (gs, outs, list(mesh.signals))]
-        for label, lib in libs:
-            fn = lib.reduce_scatter_f32
-            fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] * 3
-                           + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_ulonglong,
-                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-            ms = cs.time_ms(lambda: fn(*tables, n_ranks,
-                                       chunk * cs.HIDDEN * 4, SIGNAL_BLOCKS,
-                                       mesh.next_epoch(), None, stream))
-            print(f"K3 f32 n={n_ranks} chunk={chunk} D={cs.HIDDEN}, {label}: "
-                  f"{ms:.4f} ms", flush=True)
+        for label, lib in k3_libs:
+            ms = cs.time_ms(ring_call(ring._bind(lib.reduce_scatter_f32),
+                                      tables, n_ranks, chunk_bytes, mesh))
+            print(f"K3 {tag}, {label}: {ms:.4f} ms", flush=True)
 
 
 def main() -> None:

@@ -176,28 +176,48 @@ def test_back_to_back_calls_with_different_data(cuda):
     assert not torch.equal(outs[0][0][0], outs[1][0][0])
 
 
-def test_reduce_scatter_allocates_only_its_outputs(cuda):
-    """The direct reduce-scatter has no receive slots: over a call, the
-    peak of allocated memory rises by no more than the outputs."""
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_collectives_allocate_only_their_outputs(cuda, kernel):
+    """Neither kernel has receive slots or device scratch: over a call, the
+    peak of the bytes requested from the allocator rises by no more than
+    the outputs."""
     n = 4
     mesh = gt.make_graph_mesh(n)
-    _, gs = ring_data(n, 300, 128, torch.float32, cuda, seed=7)
-    ring.ring_reduce_scatter_cuda(gs, mesh)             # build and warm
+    blocks, gs = ring_data(n, 300, 128, torch.float32, cuda, seed=7)
+    if kernel == "K2":
+        call, plain, args = (ring.ring_all_gather_cuda,
+                             ring.ring_all_gather_plain, blocks)
+    else:
+        call, plain, args = (ring.ring_reduce_scatter_cuda,
+                             ring.ring_reduce_scatter_plain, gs)
+    call(args, mesh)                                     # build and warm
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated(cuda)
+    # Bytes requested from the caching allocator, not its blocks, which it
+    # rounds up and may leave unsplit.
+    key = "requested_bytes.all."
+    base = torch.cuda.memory_stats(cuda)[key + "current"]
     torch.cuda.reset_peak_memory_stats(cuda)
-    outs = ring.ring_reduce_scatter_cuda(gs, mesh)
+    outs = call(args, mesh)
     torch.cuda.synchronize()
-    # The caching allocator rounds every block up to 512 bytes.
-    out_bytes = sum(-(-o.untyped_storage().nbytes() // 512) * 512
-                    for o in outs)
-    assert torch.cuda.max_memory_allocated(cuda) - base <= out_bytes
-    assert_exact(outs, ring.ring_reduce_scatter_plain(gs))
+    peak = torch.cuda.memory_stats(cuda)[key + "peak"]
+    assert peak - base <= sum(o.untyped_storage().nbytes() for o in outs)
+    assert_exact(outs, plain(args))
+
+
+@pytest.mark.parametrize("chunk", [4096, 16384])
+def test_all_gather_slice_spanning_several_batches(cuda, chunk):
+    """K2's threads copy a block's slice in batches of 8 vectors each
+    (2 048 vectors a block).  At n = 2 on an H100's 132 SMs a slice is
+    ~990 vectors at chunk 4 096 (2 MB) and ~3 970 at chunk 16 384, which
+    takes the copy loop round twice."""
+    mesh = gt.make_graph_mesh(2)
+    blocks, _ = ring_data(2, chunk, 128, torch.float32, cuda, seed=chunk)
+    assert_exact(ring.ring_all_gather_cuda(blocks, mesh),
+                 ring.ring_all_gather_plain(blocks))
 
 
 def test_ring_kernels_exact_under_skew(cuda):
-    """A short stress: seeded delays, read by K2 as (rank, hop) and by K3
-    as (rank, phase)."""
+    """A short stress: seeded delays, read by K2 and K3 as (rank, phase)."""
     r = np.random.RandomState(0)
     for n in (2, 4, 8):
         mesh = gt.make_graph_mesh(n)

@@ -26,7 +26,8 @@ from gcn_grabcut_torch.core.graph import make_graph_batch
 from gcn_grabcut_torch.models import convert
 from gcn_grabcut_torch.models.resgcn import ResGCNNet
 from gcn_grabcut_torch.parallel import partition, ring
-from gcn_grabcut_torch.parallel.mesh import GraphMesh, make_graph_mesh
+from gcn_grabcut_torch.parallel.mesh import (SIGNAL_BLOCKS, GraphMesh,
+                                               make_graph_mesh)
 
 torch.set_num_threads(1)
 
@@ -373,7 +374,7 @@ def test_pallas_halo_parameter_gradients_match_jax():
 def test_make_graph_mesh_needs_cuda_unless_cpu_is_asked():
     mesh = make_graph_mesh(4, device="cpu")
     assert mesh.size == 4 and mesh.device == torch.device("cpu")
-    assert mesh.signals.shape[:2] == (4, 3)
+    assert mesh.signals.shape[:2] == (4, 2)
     if torch.cuda.is_available():
         assert make_graph_mesh(2).device.type == "cuda"
     else:
@@ -381,6 +382,15 @@ def test_make_graph_mesh_needs_cuda_unless_cpu_is_asked():
             make_graph_mesh(4)
     with pytest.raises(ValueError):
         make_graph_mesh(0, device="cpu")
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 16])
+def test_mesh_keeps_two_signal_rows(n):
+    """Both one-shot kernels signal on (rank, phase, block) words: entry
+    and exit, whatever the ring size."""
+    mesh = make_graph_mesh(n, device="cpu")
+    assert mesh.signals.shape == (n, 2, SIGNAL_BLOCKS)
+    assert mesh.signals.dtype == torch.int64 and not mesh.signals.any()
 
 
 def test_mesh_over_two_devices_is_not_implemented():

@@ -1,0 +1,40 @@
+"""profile_port.py's kernel variants are textual edits of the committed CUDA
+sources.  Each edit's text must still be in its source, or the variant
+cannot be built on the card; this holds them to the sources on the CPU."""
+
+import pytest
+
+import profile_port as pp
+from gcn_grabcut_torch import kernels
+
+VARIANTS = ([("banded_spmm", f"k1-{i}", v)
+             for i, v in enumerate(pp.K1_VARIANTS)]
+            + [("ring_collectives", f"k2-{i}", v)
+               for i, v in enumerate(pp.K2_VARIANTS)]
+            + [("ring_collectives", f"k3-{i}", v)
+               for i, v in enumerate(pp.K3_VARIANTS)])
+
+
+@pytest.mark.parametrize("name,variant", [(n, v) for n, _, v in VARIANTS],
+                         ids=[i for _, i, _ in VARIANTS])
+def test_variant_edits_are_in_the_source(name, variant):
+    label, edits = variant
+    base = (kernels.CSRC / f"{name}.cu").read_text()
+    src = pp.variant_source(name, label, edits)
+    assert (src != base) == bool(edits)
+
+
+def test_variant_source_raises_on_a_missing_edit():
+    with pytest.raises(RuntimeError, match="not in ring_collectives.cu"):
+        pp.variant_source("ring_collectives", "stale",
+                          [("no such text", "")])
+
+
+def test_ring_collectives_release_without_sc_fence():
+    """Both collectives signal with st.release.sys alone; the fenced exit
+    is only a variant that measures what a fence.sc.sys would cost."""
+    code = "\n".join(line.split("//")[0] for line in (
+        kernels.CSRC / "ring_collectives.cu").read_text().splitlines())
+    assert "__threadfence_system" not in code and "fence.sc" not in code
+    assert "__threadfence_system" in pp.variant_source(
+        "ring_collectives", *pp.FENCED_EXIT)
