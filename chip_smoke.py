@@ -28,7 +28,18 @@ Phases, each of which exits non-zero on failure:
      gradient of sum(logits * c) for every parameter (K3), after a warm
      call, with the counts set to 0 just before and read just after; held
      against apply_large(precision="highest") and the backward with the
-     plain halo.
+     plain halo;
+  6. the dense path, the configuration the repo recommends: the 3-member
+     bgc ensemble read from examples/ensemble_r5/ by the port's own
+     checkpoint reader, GCNGrabCutPipeline.segment_batch at 512x512 with
+     500 superpixels (K = 484), the geodesic prior, θ 0.65, guided-filter
+     radius 4 and ms_scales (1.0, 0.75), on 8 make_image(512) images --
+     warm runs, a timed B=1 run of each image with stage times, a timed
+     B=8 run (images/s) and a B=8 run with stage times, with the K1
+     count set to 0 just before and read just after (it must stay 0); the card's ensemble posteriors held against
+     the CPU's on the same graphs, and the outputs against the JAX
+     package's (tests/data/torch_dense_jax_ref.npz): SLIC agreement,
+     posteriors where the labels agree, mask IoU.
 Kernel times are device times: the launches run back to back behind a
 device sleep, so the host's launch cost is not counted.
 The last lines are the kernels' JSON record, the card's name and power
@@ -73,6 +84,23 @@ YARDSTICK_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 SHARDED_FWD_TOL = 1e-3
 # Sharded backward, ring halo vs plain halo: index_add_ atomics reorder sums.
 SHARDED_GRAD_TOL = 1e-4
+
+# The dense path: the configuration the repo recommends
+# (examples/ensemble_r5/README.md), on DENSE_IMAGES make_image(DENSE_HW)
+# images; tests/data/torch_dense_jax_ref.npz holds the JAX package's
+# outputs on them (tests/make_torch_dense_jax_ref.py).
+DENSE_CHECKPOINTS = tuple(f"examples/ensemble_r5/bgc_s4{i}.msgpack"
+                          for i in (2, 3, 4))
+DENSE_HW, DENSE_IMAGES, DENSE_SEGMENTS = 512, 8, 500
+DENSE_SETTINGS = dict(threshold_fg=0.65, threshold_bg=0.65, filter_radius=4,
+                      ms_scales=(1.0, 0.75))
+DENSE_REF = "tests/data/torch_dense_jax_ref.npz"
+DENSE_CPU_TOL = 1e-4   # card vs CPU ensemble posteriors: fp32, no TF32
+# Card vs JAX posteriors where SLIC agrees fully.  The std-Lab features of
+# near-uniform regions come from E[x^2] - E[x]^2 in fp32, which cancels,
+# and the card sums them in another order: 1.5e-3 measured on the CPU.
+DENSE_JAX_TOL = 1e-2
+DENSE_MIN_IOU = 0.99   # mean mask IoU against JAX (k-means seeds differ)
 
 
 def fail(msg: str) -> None:
@@ -386,10 +414,10 @@ def stress_ring_collectives(dev, n_nodes: int) -> None:
                  f"skew (n={n})")
 
 
-def graph_on_card(img: np.ndarray, cfg, dev):
-    """The port's graph of one image, built on the card."""
+def graph_on_card(imgs: list, cfg, dev):
+    """The port's graph batch of same-size images, built on the card."""
     import gcn_grabcut_torch as gt
-    rgbs = torch.as_tensor(img[None], device=dev).float()
+    rgbs = torch.as_tensor(np.stack(imgs), device=dev).float()
     out = gt.build_graph_batch_arrays(rgbs, cfg, device=dev)
     return gt.make_graph_batch(
         x=out["x"], edge_src=out["edge_src"], edge_dst=out["edge_dst"],
@@ -440,7 +468,7 @@ def run_main_path(dev, record: dict) -> None:
 
     # The card's forward (bf16 kernel) against the plain forward on the
     # CPU, same graph and weights.
-    g = graph_on_card(img, cfg, dev)
+    g = graph_on_card([img], cfg, dev)
     logits = apply_large(pipe.model, g).float().cpu()
     g_cpu = gt.make_graph_batch(
         **{f: getattr(g, f).cpu() for f in ("x", "edge_src", "edge_dst",
@@ -466,7 +494,7 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
     from gcn_grabcut_torch.parallel import ring
 
     cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
-    g = graph_on_card(make_image(IMAGE_HW), cfg, dev)
+    g = graph_on_card([make_image(IMAGE_HW)], cfg, dev)
     if g.max_nodes != n_nodes:
         fail(f"the graph has {g.max_nodes} nodes, the kernel phase used "
              f"{n_nodes}")
@@ -561,6 +589,113 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
         fail("the ring-halo gradient disagrees with the plain-halo one")
 
 
+def run_dense_path(dev, card: str) -> None:
+    """The recommended configuration: the 3-member bgc ensemble read from
+    the checkout's checkpoints, 500 superpixels with the geodesic prior,
+    multi-scale trimaps, on DENSE_IMAGES make_image(DENSE_HW) images.
+    Held against the port's CPU forward and the JAX package's outputs."""
+    import copy
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+
+    root = Path(__file__).resolve().parent
+    ref = np.load(root / DENSE_REF)
+    model, meta = gt.load_model_auto(
+        ",".join(str(root / p) for p in DENSE_CHECKPOINTS))
+    if meta["ensemble_size"] != len(DENSE_CHECKPOINTS):
+        fail(f"loaded an ensemble of {meta['ensemble_size']}")
+    cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
+                                   bg_connectivity=True)
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    images = [make_image(DENSE_HW, s) for s in range(DENSE_IMAGES)]
+
+    t = time.perf_counter()
+    pipe.segment_batch(images[:1], **DENSE_SETTINGS)
+    pipe.segment_batch(images, **DENSE_SETTINGS)
+    print(f"dense path warm runs (B=1, B={DENSE_IMAGES}): "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+
+    def split(timing):
+        return " ".join(f"{s}={v:.4f}s" for s, v in timing.items())
+
+    banded_spmm.kernel_launches = 0
+    walls1 = []
+    for b, img in enumerate(images):
+        t = time.perf_counter()
+        one = pipe.segment_batch([img], sync_timing=True,
+                                 **DENSE_SETTINGS)[0]
+        walls1.append(time.perf_counter() - t)
+        print(f"  dense B=1 image {b}: {walls1[-1]:.4f} s ({split(one.timing)};"
+              f" FG {one.binary_mask.mean():.4f})", flush=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = pipe.segment_batch(images, **DENSE_SETTINGS)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t
+    split8 = pipe.segment_batch(images, sync_timing=True,
+                                **DENSE_SETTINGS)[0].timing
+    k1 = banded_spmm.kernel_launches
+    k = res[0].probs.shape[0]
+    print(f"dense path timed runs ({DENSE_HW}^2, K={k}, bgc ensemble of "
+          f"{meta['ensemble_size']} x ResGCNNet D={HIDDEN} n={N_LAYERS}, "
+          f"ms_scales={DENSE_SETTINGS['ms_scales']}; {card}): B=1 median "
+          f"{float(np.median(walls1)):.4f} s over {len(walls1)} images; "
+          f"B={DENSE_IMAGES} {wall8:.4f} s = {DENSE_IMAGES / wall8:.2f} "
+          f"images/s (synchronised split: {split(split8)}); banded_spmm "
+          f"launches={k1}", flush=True)
+    if k1 != 0:
+        fail(f"the dense path launched banded_spmm {k1} times")
+    if k > gt.GCNGrabCutPipeline.LARGE_NODE_THRESHOLD:
+        fail(f"K={k} took the large-graph path")
+    for r in res:
+        if r.probs.shape != (k, 3) or not np.isfinite(r.probs).all():
+            fail("dense posteriors are not finite (K, 3)")
+
+    # The card's ensemble forward against the CPU's on the same graphs.
+    g = graph_on_card(images, cfg, dev)
+    probs = pipe.predict_probs(g).cpu()
+    g_cpu = gt.make_graph_batch(
+        **{f: getattr(g, f).cpu() for f in ("x", "edge_src", "edge_dst",
+                                            "edge_attr", "node_mask",
+                                            "edge_mask", "node_area")},
+        device="cpu")
+    ref_cpu = gt.predict_probs(copy.deepcopy(model).cpu(), g_cpu)
+    valid = g_cpu.node_mask > 0
+    err = float((probs - ref_cpu)[valid].abs().max())
+    print(f"dense ensemble posteriors card vs CPU: max |dp|={err:.3e} "
+          f"(tol {DENSE_CPU_TOL:.0e})", flush=True)
+    if err > DENSE_CPU_TOL:
+        fail("the card's ensemble forward disagrees with the CPU's")
+
+    # Against the JAX package (the committed fixture).
+    ious, worst_dp = [], 0.0
+    for b, r in enumerate(res):
+        seg_agree = float((r.segments == ref["segments"][b]).mean())
+        a, m = r.binary_mask > 0, ref["mask"][b] > 0
+        # Two empty masks agree fully.
+        iou = float((a & m).sum() / (a | m).sum()) if (a | m).any() else 1.0
+        tri_agree = float((r.trimap == ref["trimap"][b]).mean())
+        dp = "n/a (labels differ)"
+        if seg_agree == 1.0:
+            d = float(np.abs(r.probs - ref["probs"][b]).max())
+            worst_dp = max(worst_dp, d)
+            dp = f"{d:.2e}"
+        ious.append(iou)
+        print(f"  image {b}: SLIC agreement {seg_agree:.6f}, max |dp| "
+              f"{dp}, trimap agreement {tri_agree:.6f}, mask IoU vs JAX "
+              f"{iou:.6f} (FG {a.mean():.4f} / {m.mean():.4f})", flush=True)
+    mean_iou = float(np.mean(ious))
+    print(f"dense path vs JAX: mean mask IoU {mean_iou:.6f} (min "
+          f"{DENSE_MIN_IOU}), worst posterior difference {worst_dp:.2e} "
+          f"(tol {DENSE_JAX_TOL:.0e})", flush=True)
+    if mean_iou < DENSE_MIN_IOU:
+        fail(f"mean mask IoU against JAX {mean_iou:.4f} < {DENSE_MIN_IOU}")
+    if worst_dp > DENSE_JAX_TOL:
+        fail("posteriors disagree with JAX where the labels agree")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -589,6 +724,7 @@ def main() -> None:
     stress_ring_collectives(dev, k)
     run_main_path(dev, record)
     run_sharded_path(dev, rings, k)
+    run_dense_path(dev, card)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
     print(card)

@@ -154,12 +154,8 @@ def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,
             continue
         pix = preprocess_device(rgb[b].float(), config.color_space)
         if comp0 is None:
-            gens = [torch.Generator(device=pix.device).manual_seed(s)
-                    for s in (0, 1)]
-            fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k,
-                                     generator=gens[0])
-            bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k,
-                                     generator=gens[1])
+            fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
+            bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
             c0 = torch.where(fg_sel, fg_comp, bg_comp)
         else:
             c0 = comp0[b].long()

@@ -4,10 +4,9 @@ Counterpart of ``gcn_grabcut_tpu/graph_build.py``: colour conversion,
 gradients, SLIC, region statistics, node features, adjacency and blocked
 non-local edges, and the saliency prior, at static shapes.  The node count
 is the SLIC grid size K (empty clusters are masked nodes); the edge budget
-is 2·(adjacency budget + K·n_nonlocal) directed slots.
-
-This slice covers the large-graph configuration (K > 2048), which the JAX
-package builds with the blocked k-NN and the blocked prior contrast.
+is 2·(adjacency budget + K·n_nonlocal) directed slots.  Above
+LARGE_K_THRESHOLD (2048) superpixels the k-NN and the prior contrast run
+blocked; below it they are dense K x K.
 """
 
 from __future__ import annotations
@@ -51,18 +50,6 @@ def edge_budget_for(h: int, w: int, cfg: SuperpixelGraphConfig) -> int:
 def _build_graph_arrays(rgb: torch.Tensor, cfg: SuperpixelGraphConfig
                         ) -> dict:
     """One image. rgb: (H, W, 3) float32 in 0..255."""
-    H, W, _ = rgb.shape
-    k = slic_ops.slic_num_labels(H, W, cfg.n_segments)
-    if k <= prior_ops.LARGE_K_THRESHOLD:
-        raise NotImplementedError(
-            f"K={k} <= {prior_ops.LARGE_K_THRESHOLD}: the dense k-NN and "
-            "dense prior come with ROADMAP queue 1 item 3 (the 512 px / "
-            "500-superpixel dense path)")
-    if cfg.bg_connectivity:
-        raise NotImplementedError(
-            "bg_connectivity (geodesic prior) comes with ROADMAP queue 1 "
-            "item 3")
-
     lab = im.rgb_to_lab(rgb)
     segments = slic_ops.slic(lab, n_segments=cfg.n_segments,
                              compactness=cfg.compactness,
@@ -84,11 +71,15 @@ def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
         segments, k, cfg.connectivity)
     adj_attr = edge_ops.pair_features(adj_pairs, adj_mask, st, shared,
                                       torch.zeros_like(shared))
-    # SLIC grid order bounds adjacent labels to ±(gw + 1).
-    _, gw = slic_ops.grid_shape(H, W, cfg.n_segments)
-    nl_pairs, nl_mask = edge_ops.nonlocal_pairs_banded(
-        st["mean_lab"], st["valid"], k, max(cfg.n_nonlocal, 1),
-        exclude_window=gw + 1)
+    nl_k = max(cfg.n_nonlocal, 1)
+    if k > prior_ops.LARGE_K_THRESHOLD:
+        # SLIC grid order bounds adjacent labels to ±(gw + 1).
+        _, gw = slic_ops.grid_shape(H, W, cfg.n_segments)
+        nl_pairs, nl_mask = edge_ops.nonlocal_pairs_banded(
+            st["mean_lab"], st["valid"], k, nl_k, exclude_window=gw + 1)
+    else:
+        nl_pairs, nl_mask = edge_ops.nonlocal_pairs(
+            adj_pairs, adj_mask, st["mean_lab"], st["valid"], k, nl_k)
     if cfg.n_nonlocal <= 0:
         nl_mask = torch.zeros_like(nl_mask)
     nl_attr = edge_ops.pair_features(nl_pairs, nl_mask, st,
@@ -98,8 +89,13 @@ def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
         torch.cat([adj_pairs, nl_pairs]), torch.cat([adj_attr, nl_attr]),
         torch.cat([adj_mask, nl_mask]))
 
+    # The geodesic relaxation covers the region grid's diameter (~2·sqrt(K)
+    # hops).
+    geo_iters = min(int(2 * k ** 0.5) + 8, 96) if cfg.bg_connectivity else 0
     pr = prior_ops.compute_auto_prior(
-        segments, k, stats=(st["counts"], st["mean_lab"], st["centroids"]))
+        segments, k, stats=(st["counts"], st["mean_lab"], st["centroids"]),
+        adjacency=(adj_pairs, adj_mask) if cfg.bg_connectivity else None,
+        geo_iters=geo_iters)
     return dict(
         segments=segments,
         x=torch.cat([node_feats, pr], dim=1),       # (K, 19)

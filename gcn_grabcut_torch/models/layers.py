@@ -5,9 +5,10 @@ flax conventions are kept so that converted weights compute the same
 function: LayerNorm eps is 1e-6 (torch's default is 1e-5), and GELU is the
 tanh approximation (flax ``nn.gelu`` default).
 
-Aggregation is always a caller-supplied callable h -> aggregated h (the
-banded SpMM of ``ops/spmm.py`` on the large-graph path); the dense
-adjacency form comes with the 512 px / 500-superpixel slice.
+Aggregation is a callable h -> aggregated h: the dense (G, N, N)
+normalised adjacencies of `dense_aggregators` (one ``torch.bmm`` per
+propagation, fp32), or the banded SpMM of ``ops/spmm.py`` on the
+large-graph path.
 """
 
 from __future__ import annotations
@@ -29,6 +30,46 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(features: int) -> nn.LayerNorm:
     return nn.LayerNorm(features, eps=LN_EPS)
+
+
+def dense_adjacency(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                    edge_mask: torch.Tensor, n: int) -> torch.Tensor:
+    """(G, E) edge lists -> dense (G, N, N) float32 adjacency,
+    A[g, dst, src] += mask: duplicate edges accumulate, padded edges add 0."""
+    G = edge_src.shape[0]
+    g = torch.arange(G, device=edge_src.device)[:, None]
+    flat = ((g * n + edge_dst.long()) * n + edge_src.long()).reshape(-1)
+    adj = torch.zeros(G * n * n, device=edge_mask.device)
+    adj.index_put_((flat,), edge_mask.reshape(-1).float(), accumulate=True)
+    return adj.reshape(G, n, n)
+
+
+def gcn_norm_adjacency(adj: torch.Tensor) -> torch.Tensor:
+    """D^-1/2 (A + I) D^-1/2 with self-loops (PyG GCNConv)."""
+    a_hat = adj + torch.eye(adj.shape[-1], dtype=adj.dtype,
+                            device=adj.device)
+    dinv = torch.rsqrt(a_hat.sum(dim=-1).clamp_min(1e-12))
+    return a_hat * dinv[..., :, None] * dinv[..., None, :]
+
+
+def mean_adjacency(adj: torch.Tensor) -> torch.Tensor:
+    """Row-normalised adjacency for mean aggregation (SAGE)."""
+    return adj / adj.sum(dim=-1, keepdim=True).clamp_min(1.0)
+
+
+def _as_aggregate(adj: torch.Tensor):
+    """A dense (G, N, N) matrix as an aggregation callable, fp32."""
+    def agg(h):
+        return torch.bmm(adj, h.float()).to(h.dtype)
+    return agg
+
+
+def dense_aggregators(g) -> tuple:
+    """(gcn_propagate, mean_propagate) of a GraphBatch through its dense
+    adjacency, built once and shared by every layer."""
+    adj = dense_adjacency(g.edge_src, g.edge_dst, g.edge_mask, g.max_nodes)
+    return (_as_aggregate(gcn_norm_adjacency(adj)),
+            _as_aggregate(mean_adjacency(adj)))
 
 
 def kaiming_(weight: torch.Tensor, generator: torch.Generator) -> None:

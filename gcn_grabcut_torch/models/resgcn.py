@@ -5,9 +5,9 @@ Counterpart of ``gcn_grabcut_tpu/models/resgcn.py`` (eval forward):
     InputNorm -> InputProj -> PriorBooster -> [pre-norm ResBlock x n] ->
     SAGE branch -> JK softmax fusion -> GlobalContext -> fuse -> head
 
-Aggregation comes from caller-supplied (gcn_propagate, mean_propagate)
-callables; on the large-graph path they are the banded SpMM
-(``models/large.py``).
+Aggregation comes from (gcn_propagate, mean_propagate) callables: the
+dense adjacencies built once per forward by default, the banded SpMM on
+the large-graph path (``models/large.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from torch import nn
 
 from ..core.graph import GraphBatch, N_PRIOR_FEATS
 from .layers import (EdgeContext, GCNConv, GlobalContext, InputNorm,
-                     SAGEConv, gelu, layer_norm, reset_parameters)
+                     SAGEConv, dense_aggregators, gelu, layer_norm,
+                     reset_parameters)
 
 
 class ResGCNNet(nn.Module):
@@ -49,10 +50,11 @@ class ResGCNNet(nn.Module):
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
-    def forward(self, g: GraphBatch, aggregators) -> torch.Tensor:
+    def forward(self, g: GraphBatch, aggregators=None) -> torch.Tensor:
         """(G, N, n_classes) logits.  `aggregators` = (gcn_propagate,
-        mean_propagate) callables over (G, N, D) tensors."""
-        adj_gcn, adj_mean = aggregators
+        mean_propagate) callables over (G, N, D) tensors; None builds the
+        dense ones from `g`."""
+        adj_gcn, adj_mean = aggregators or dense_aggregators(g)
         x = g.x
         prior = x[..., -N_PRIOR_FEATS:]
 

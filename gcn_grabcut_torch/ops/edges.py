@@ -1,8 +1,9 @@
 """Region-adjacency and non-local edge extraction at static shapes.
 
 Counterpart of ``gcn_grabcut_tpu/ops/edges.py``: adjacency pairs from
-shifted label-map comparisons deduplicated at a static budget, blocked
-k-NN colour edges for the large-graph configuration, 5-d pair features and
+shifted label-map comparisons deduplicated at a static budget, dense
+k-NN colour edges (blocked for the large-graph configuration), 5-d pair
+features and
 symmetric directed edge lists.  Sorts that feed a dedup are stable, as
 ``jnp.sort``/``jnp.argsort`` are.
 """
@@ -66,6 +67,41 @@ def adjacency_pairs(segments: torch.Tensor, k: int, connectivity: int = 4):
     counts = counts.float() * mask
     shared = counts / (counts.max() + 1e-6)
     return pairs, shared, mask
+
+
+def nonlocal_pairs(adj_pairs: torch.Tensor, adj_mask: torch.Tensor,
+                   mean_lab: torch.Tensor, valid: torch.Tensor, k: int,
+                   n_nonlocal: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k-NN colour edges in mean-Lab space, spatial neighbours excluded:
+    dense K x K distances with the adjacency, the diagonal and empty
+    clusters masked to +inf, each node's n_nonlocal nearest, deduplicated.
+    (K·n_nonlocal, 2) pairs and mask.  Neighbours come from a stable sort,
+    so equal distances pick the lower index as ``jax.lax.top_k`` does."""
+    dev = mean_lab.device
+    budget = nonlocal_budget(k, max(n_nonlocal, 1))
+    if n_nonlocal <= 0 or k <= 1:
+        return (torch.zeros((budget, 2), dtype=torch.long, device=dev),
+                torch.zeros(budget, device=dev))
+    n_nonlocal = min(n_nonlocal, k - 1)
+    d = torch.linalg.vector_norm(mean_lab[:, None, :] - mean_lab[None, :, :],
+                                 dim=2)
+    excl = torch.eye(k, dtype=torch.bool, device=dev)
+    m = adj_mask > 0
+    p0, p1 = adj_pairs[m, 0].long(), adj_pairs[m, 1].long()
+    excl[p0, p1] = True
+    excl[p1, p0] = True
+    excl |= (valid[:, None] <= 0) | (valid[None, :] <= 0)
+    d = torch.where(excl, torch.full_like(d, float("inf")), d)
+    dist, nbrs = torch.sort(d, dim=1, stable=True)
+    dist, nbrs = dist[:, :n_nonlocal], nbrs[:, :n_nonlocal]
+    rows = torch.arange(k, device=dev)[:, None]
+    lo = torch.minimum(rows, nbrs)
+    hi = torch.maximum(rows, nbrs)
+    sent = k * k
+    codes = torch.where(torch.isfinite(dist), lo * k + hi,
+                        torch.full_like(lo, sent)).reshape(-1)
+    uniq, _ = unique_counts_static(codes, budget, sent)
+    return _decode(uniq, sent, k)
 
 
 def nonlocal_pairs_banded(mean_lab: torch.Tensor, valid: torch.Tensor,

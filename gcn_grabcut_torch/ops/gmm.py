@@ -4,14 +4,16 @@ Counterpart of ``gcn_grabcut_tpu/ops/gmm.py``: weighted k-means seeding,
 moment re-estimation with OpenCV-style covariance regularisation, component
 assignment and the mixture log-likelihood, as masked dense reductions.
 
-k-means++ draws its seeds with Gumbel noise from a ``torch.Generator``; it
-cannot reproduce the JAX package's ``jax.random`` bits, so parity tests hand
-both packages the same initial components instead.
+k-means++ draws its seeds with the JAX package's own Gumbel noise
+(``ops/threefry.py`` reproduces its ``jax.random`` bits), so both packages
+start GrabCut from the same components.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .threefry import kmeans_pp_noise
 
 COV_REG = 0.01
 DET_EPS = 1e-6
@@ -23,13 +25,13 @@ def _sq_dist(flat: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 
 
 def kmeans(pixels: torch.Tensor, weight: torch.Tensor, k: int,
-           n_iter: int = 10, generator: torch.Generator | None = None
-           ) -> torch.Tensor:
+           n_iter: int = 10, seed: int = 0) -> torch.Tensor:
     """Weighted Lloyd k-means over (H, W, 3) pixels -> (H, W) labels.
 
     k-means++ initialisation: the first centre is the max-weight pixel,
     each next one a Gumbel-max draw proportional to weight x squared
-    distance to the nearest chosen centre."""
+    distance to the nearest chosen centre, with the JAX package's noise
+    under ``PRNGKey(seed)``."""
     H, W, C = pixels.shape
     flat = pixels.reshape(-1, C).float()
     w = weight.reshape(-1).float()
@@ -37,12 +39,12 @@ def kmeans(pixels: torch.Tensor, weight: torch.Tensor, k: int,
     centers = torch.zeros((k, C), device=dev)
     centers[0] = flat[torch.argmax(w)]
     arange_k = torch.arange(k, device=dev)
+    noise = kmeans_pp_noise(seed, H * W, k - 1)
     for i in range(k - 1):
         inactive = torch.where(arange_k <= i, 0.0, float("inf"))
         d2 = (_sq_dist(flat, centers) + inactive[None, :]).amin(dim=1)
         logits = torch.log((w * d2).clamp_min(1e-30))
-        u = torch.rand(logits.shape, generator=generator, device=dev)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        gumbel = torch.tensor(noise[i], device=dev)
         centers[i + 1] = flat[torch.argmax(logits + gumbel)]
 
     for _ in range(n_iter):

@@ -1,5 +1,5 @@
 """Image-plane primitives: colour conversions, Sobel gradients, box and
-guided filters.
+guided filters, bilinear resize.
 
 Counterpart of ``gcn_grabcut_tpu/ops/image.py``.  Colour functions take
 (..., 3) float32 RGB in 0..255 and keep the channel axis last; filters take
@@ -9,6 +9,7 @@ its float32 rounding follows the JAX package's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -110,6 +111,44 @@ def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     s = window_sum(x, -2, H)
     s = window_sum(s, -1, W)
     return s / float(k * k)
+
+
+def _linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of ``jax.image.resize(...,
+    "linear")`` along one axis, as its ``compute_weight_mat`` builds them:
+    a triangle kernel at the output samples' centres, widened by
+    1 / scale when downsampling (antialiasing), normalised over the taps
+    inside the image."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = np.float32(max(inv_scale, 1.0))
+    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+              * np.float32(inv_scale) - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]
+               ) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1.0)),
+                 np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H', W', C) bilinear resize with
+    ``jax.image.resize(..., "linear")``'s weights (antialiased when
+    downsampling): two small fp32 matmuls with host-built weights."""
+    H, W = x.shape[1:3]
+    out = x.float()
+    if out_hw[0] != H:
+        wh = torch.from_numpy(_linear_resize_weights(H, out_hw[0])).to(
+            x.device)
+        out = torch.einsum("bhwc,hi->biwc", out, wh)
+    if out_hw[1] != W:
+        ww = torch.from_numpy(_linear_resize_weights(W, out_hw[1])).to(
+            x.device)
+        out = torch.einsum("bhwc,wj->bhjc", out, ww)
+    return out
 
 
 def guided_filter(guide: torch.Tensor, src: torch.Tensor, radius: int = 8,

@@ -1,9 +1,12 @@
 """End-to-end automatic segmentation: image -> binary mask.
 
-Counterpart of ``gcn_grabcut_tpu/pipeline.py`` for the large-graph
-configuration (K > LARGE_NODE_THRESHOLD superpixels):
-  1. superpixel graph build with the blocked k-NN and prior;
-  2. the banded-SpMM ResGCNNet forward (models/large.py) -> posteriors;
+Counterpart of ``gcn_grabcut_tpu/pipeline.py``'s `segment_batch`:
+  1. superpixel graph build with its prior;
+  2. the ResGCNNet forward (a model or an ensemble) -> posteriors: one
+     stacked (B, N, N) dense forward up to LARGE_NODE_THRESHOLD nodes,
+     above it the banded-SpMM forward per graph (models/large.py);
+     optionally again on the image rescaled (`ms_scales`, dense graphs
+     only), the pixel posteriors averaged over the scales;
   3. edge-aware trimap (guided filter) with prior seeding;
   4. GrabCut (GMMs + push-relabel min-cut);
   5. connected-component clean-up and bit-packed output.
@@ -26,12 +29,11 @@ from .core.graph import (CLASS_BG, CLASS_FG, TRIMAP_BG, TRIMAP_FG,
 from .grabcut import GrabCutConfig, grabcut_batch_device
 from .graph_build import (SuperpixelGraphConfig, build_graph_batch_arrays,
                           num_nodes_for)
+from .models.factory import apply_model
 from .models.large import apply_large
 from .ops import image as im
 from .ops.connected import _clean_mask
 
-_DENSE = ("comes with ROADMAP queue 1 item 3 (the 512 px / 500-superpixel "
-          "dense path)")
 _STAGED = "comes with ROADMAP queue 1 item 4 (the staged paths)"
 
 
@@ -69,30 +71,46 @@ def _threshold_and_seed(px1, gray, thr_fg, thr_bg, filter_radius: int):
     return tri
 
 
-def _trimap_stage_device(probs, segments, grays, priors, node_masks,
-                         thr_fg: float, thr_bg: float, filter_radius: int,
-                         seed_frac: float = 0.1) -> torch.Tensor:
-    """(B, K, 3) probs -> (B, H, W) uint8 trimaps.  The four per-node
-    planes [P(BG), P(FG), seed_fg, seed_bg] are projected to pixels by a
-    gather; the seed masks mark the ~seed_frac highest-prior valid
-    regions."""
+def _seed_planes(prior, nm, seed_frac: float = 0.1) -> torch.Tensor:
+    """(K, 2) [seed_fg, seed_bg]: masks of the ~seed_frac highest-prior
+    valid regions on each side."""
+    n_valid = nm.sum().clamp_min(1.0)
+    n_seed = int(torch.round(seed_frac * n_valid).clamp_min(1).item())
+
+    def seed_mask(score):
+        s = torch.where(nm > 0, score, -1.0)
+        kth = torch.sort(s, descending=True).values[
+            min(n_seed - 1, s.shape[0] - 1)]
+        return (s >= kth).float()
+
+    return torch.stack([seed_mask(prior[:, 0]), seed_mask(prior[:, 1])],
+                       dim=-1)
+
+
+def _project_probs_device(probs, segments, out_hw: tuple) -> torch.Tensor:
+    """(B, K, 3) probs + (B, h, w) segments -> (B, H, W, 2) pixel planes
+    [P(BG), P(FG)], bilinearly resized to `out_hw` when the graph was
+    built at another scale (the multi-scale path)."""
+    px = torch.stack([torch.stack([p[:, CLASS_BG], p[:, CLASS_FG]],
+                                  dim=-1).float()[s.long()]
+                      for p, s in zip(probs, segments)])
+    if tuple(px.shape[1:3]) != tuple(out_hw):
+        px = im.resize_bilinear(px, out_hw)
+    return px
+
+
+def _trimap_stage_device(px_probs, segments, grays, priors, node_masks,
+                         thr_fg: float, thr_bg: float,
+                         filter_radius: int) -> torch.Tensor:
+    """(B, H, W, 2) pixel posteriors [P(BG), P(FG)] -> (B, H, W) uint8
+    trimaps, the prior seed planes projected from the full-resolution
+    graph."""
     out = []
-    for p, seg, gray, prior, nm in zip(probs, segments, grays, priors,
-                                       node_masks):
-        n_valid = nm.sum().clamp_min(1.0)
-        n_seed = int(torch.round(seed_frac * n_valid).clamp_min(1).item())
-
-        def seed_mask(score):
-            s = torch.where(nm > 0, score, -1.0)
-            kth = torch.sort(s, descending=True).values[
-                min(n_seed - 1, s.shape[0] - 1)]
-            return (s >= kth).float()
-
-        packed = torch.stack([p[:, CLASS_BG].float(), p[:, CLASS_FG].float(),
-                              seed_mask(prior[:, 0]),
-                              seed_mask(prior[:, 1])], dim=-1)    # (K, 4)
-        out.append(_threshold_and_seed(packed[seg.long()], gray, thr_fg,
-                                       thr_bg, filter_radius))
+    for px, seg, gray, prior, nm in zip(px_probs, segments, grays, priors,
+                                        node_masks):
+        seeds = _seed_planes(prior, nm)[seg.long()]
+        out.append(_threshold_and_seed(torch.cat([px, seeds], dim=-1), gray,
+                                       thr_fg, thr_bg, filter_radius))
     return torch.stack(out)
 
 
@@ -155,8 +173,8 @@ def _unpack_post_host(packed: np.ndarray, H: int, W: int,
 class GCNGrabCutPipeline:
     """Full GCN-GrabCut segmentation pipeline.
 
-    model     : a ResGCNNet holding its weights (e.g. from
-                models.convert.resgcn_from_jax, or seeded)
+    model     : a ResGCNNet or ResGCNEnsemble holding its weights (e.g.
+                from train.checkpoints.load_model_auto, or seeded)
     sp_config : SuperpixelGraphConfig
     gc_config : GrabCutConfig
     device    : where every stage runs; default the card (raises without
@@ -175,15 +193,24 @@ class GCNGrabCutPipeline:
         self.gc_config = gc_config or GrabCutConfig()
 
     def predict_probs(self, graph: GraphBatch) -> torch.Tensor:
-        """(G, N, 3) softmax class probabilities of a large graph batch,
-        one banded-SpMM forward per graph."""
-        if graph.max_nodes <= self.LARGE_NODE_THRESHOLD:
-            raise NotImplementedError(f"the dense forward (K <= "
-                                      f"{self.LARGE_NODE_THRESHOLD}) {_DENSE}")
-        logits = torch.cat([apply_large(self.model, graph.graph(b),
-                                        device=self.device)
-                            for b in range(graph.n_graphs)])
+        """(G, N, 3) softmax class probabilities: one stacked dense forward,
+        or above LARGE_NODE_THRESHOLD one banded-SpMM forward per graph."""
+        if graph.max_nodes > self.LARGE_NODE_THRESHOLD:
+            logits = torch.cat([apply_large(self.model, graph.graph(b),
+                                            device=self.device)
+                                for b in range(graph.n_graphs)])
+        else:
+            logits = apply_model(self.model, graph)
         return torch.softmax(logits.float(), dim=-1)
+
+    def _graph(self, rgbs):
+        """(graph-build outputs, GraphBatch) of a (B, H, W, 3) batch."""
+        out = build_graph_batch_arrays(rgbs, self.sp_config,
+                                       device=self.device)
+        return out, make_graph_batch(
+            x=out["x"], edge_src=out["edge_src"], edge_dst=out["edge_dst"],
+            edge_attr=out["edge_attr"], node_mask=out["node_mask"],
+            edge_mask=out["edge_mask"], node_area=out["node_area"])
 
     def segment(self, image: np.ndarray, threshold_fg: float = 0.55,
                 threshold_bg: float = 0.55, refine_iters: int = 0,
@@ -223,15 +250,17 @@ class GCNGrabCutPipeline:
         """Run every device stage; the packed output stays on the device."""
         if not images:
             raise ValueError("empty batch")
-        if ms_scales is not None and len(ms_scales) > 1:
-            raise NotImplementedError(f"multi-scale inference {_DENSE}")
         H, W = images[0].shape[:2]
         if any(x.shape[:2] != (H, W) for x in images):
             raise ValueError("segment_batch requires same-size images "
                              "(resize upstream)")
-        if num_nodes_for(H, W, self.sp_config) <= self.LARGE_NODE_THRESHOLD:
-            raise NotImplementedError(f"the dense forward (K <= "
-                                      f"{self.LARGE_NODE_THRESHOLD}) {_DENSE}")
+        large = num_nodes_for(H, W, self.sp_config) > self.LARGE_NODE_THRESHOLD
+        # Multi-scale inference reruns the dense forward only; on a large
+        # graph ms_scales is ignored, as in the JAX package.
+        multi_scale = ms_scales is not None and len(ms_scales) > 1 and (
+            not large)
+        if multi_scale and ms_scales[0] != 1.0:
+            raise ValueError("ms_scales[0] must be 1.0")
         dev = self.device
         timing: dict = {}
 
@@ -242,24 +271,29 @@ class GCNGrabCutPipeline:
 
         t = time.perf_counter()
         rgbs = torch.as_tensor(np.stack(images), device=dev).float()
-        out = build_graph_batch_arrays(rgbs, self.sp_config, device=dev)
-        batch = make_graph_batch(
-            x=out["x"], edge_src=out["edge_src"], edge_dst=out["edge_dst"],
-            edge_attr=out["edge_attr"], node_mask=out["node_mask"],
-            edge_mask=out["edge_mask"], node_area=out["node_area"])
+        out, batch = self._graph(rgbs)
         stage_done("graph_build", t)
 
         t = time.perf_counter()
         probs = self.predict_probs(batch)
         segments = out["segments"]
+        px = _project_probs_device(probs, segments, (H, W))
+        if multi_scale:
+            # Rebuild the graph and rerun the forward at each reduced
+            # scale, resize its pixel posteriors back, and average.
+            px_list = [px]
+            for sc in ms_scales[1:]:
+                hw = (max(int(round(H * sc)), 64), max(int(round(W * sc)), 64))
+                out_s, batch_s = self._graph(im.resize_bilinear(rgbs, hw))
+                px_list.append(_project_probs_device(
+                    self.predict_probs(batch_s), out_s["segments"], (H, W)))
+            px = torch.stack(px_list).mean(dim=0)
         grays = im.rgb_to_gray(rgbs) / 255.0
         trimaps = _trimap_stage_device(
-            probs, segments, grays, out["prior"], out["node_mask"],
+            px, segments, grays, out["prior"], out["node_mask"],
             threshold_fg, threshold_bg, filter_radius)
-        pfg_px = None
-        if keep_largest:
-            pfg_px = torch.stack([p[:, CLASS_FG][s.long()]
-                                  for p, s in zip(probs, segments)])
+        # keep_largest reads the same plane the thresholds see.
+        pfg_px = px[..., 1] if keep_largest else None
         stage_done("gcn_inference", t)
 
         t = time.perf_counter()

@@ -126,6 +126,43 @@ def test_segment_batch_on_card_matches_cpu(cuda):
     assert 0.0 < on_card[0].binary_mask.mean() < 1.0
 
 
+def test_dense_ensemble_path_on_card_matches_cpu(cuda):
+    """The recommended configuration (3-seed bgc ensemble, 500 superpixels,
+    geodesic prior, ms_scales (1.0, 0.75)) at 128 px (K = 484) on the card
+    and on the CPU: no SpMM launch, fp32 posteriors within 1e-4, trimaps
+    equal but for near-threshold pixels."""
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = ",".join(str(root / f"examples/ensemble_r5/bgc_s4{i}.msgpack")
+                    for i in (2, 3, 4))
+    # Textured everywhere: a flat-colour region's std-Lab feature is
+    # E[x^2] - E[x]^2 cancelling to rounding noise, which the card's sums
+    # round differently (the JAX package has the same fragility).
+    r = np.random.RandomState(3)
+    yy, xx = np.mgrid[0:128, 0:128]
+    img = 60 + r.rand(128, 128, 3) * 40
+    disc = ((yy - 64) ** 2 + (xx - 60) ** 2) < 35 ** 2
+    img[disc] = (190, 70, 50) + r.rand(int(disc.sum()), 3) * 30
+    img = img.astype(np.uint8)
+    cfg = gt.SuperpixelGraphConfig(n_segments=500, bg_connectivity=True)
+    kw = dict(threshold_fg=0.65, threshold_bg=0.65, filter_radius=4,
+              ms_scales=(1.0, 0.75))
+    runs = []
+    for dev in (cuda, "cpu"):
+        model, meta = gt.load_model_auto(spec, device=dev)
+        assert meta["ensemble_size"] == 3
+        spmm.banded_spmm.kernel_launches = 0
+        runs.append(gt.GCNGrabCutPipeline(model, cfg, device=dev)
+                    .segment_batch([img, img], **kw))
+        assert spmm.banded_spmm.kernel_launches == 0
+    on_card, on_cpu = runs
+    np.testing.assert_array_equal(on_card[0].segments, on_cpu[0].segments)
+    np.testing.assert_allclose(on_card[0].probs, on_cpu[0].probs, atol=1e-4)
+    np.testing.assert_allclose(on_card[1].probs, on_card[0].probs, atol=1e-4)
+    assert float((on_card[0].trimap == on_cpu[0].trimap).mean()) >= 0.999
+    assert 0.0 < on_card[0].binary_mask.mean() < 1.0
+
+
 def ring_data(n, chunk, d, dtype, device, seed):
     """Fresh blocks for K2 and per-rank cotangents for K3."""
     gen = torch.Generator(device=device).manual_seed(seed)

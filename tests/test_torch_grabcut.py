@@ -1,9 +1,9 @@
 """Port parity: GrabCut, min-cut, GMMs, connected components, the trimap
 stage and the output packing of gcn_grabcut_torch against the JAX package.
 
-k-means++ seeding draws from jax.random in the JAX package and from a
-torch.Generator in the port, so GrabCut is compared from the same initial
-components (JAX's comp0).
+The port's k-means++ seeding reproduces the JAX package's jax.random
+noise (ops/threefry.py), tested here bit for bit; the GrabCut solves are
+also compared from the same initial components (JAX's comp0).
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ from gcn_grabcut_torch import pipeline as tpipe
 from gcn_grabcut_torch.ops import connected as tcc
 from gcn_grabcut_torch.ops import gmm as tgmm
 from gcn_grabcut_torch.ops import maxflow as tmf
+from gcn_grabcut_torch.ops import threefry as ttf
 
 torch.set_num_threads(1)
 
@@ -173,12 +174,44 @@ def test_kmeans_is_seeded_and_valid():
     w = torch.from_numpy(((tri == 1) | (tri == 3)).astype(np.float32))
 
     def run(seed):
-        return tgmm.kmeans(torch.from_numpy(img), w, 5,
-                           generator=torch.Generator().manual_seed(seed))
+        return tgmm.kmeans(torch.from_numpy(img), w, 5, seed=seed)
 
     a, b = run(0), run(0)
     assert torch.equal(a, b)
     assert a.shape == tri.shape and int(a.min()) >= 0 and int(a.max()) < 5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+def test_threefry_reproduces_jax_random(seed):
+    import jax
+    key = jax.random.PRNGKey(seed)
+    tkey = (np.uint32(seed >> 32), np.uint32(seed & 0xFFFFFFFF))
+    assert np.array_equal(np.asarray(key), np.array(tkey))
+    tiny = np.finfo(np.float32).tiny
+    for n in (1, 7, 3000):
+        key, sub = jax.random.split(key)
+        tkey, tsub = ttf.split(tkey)
+        assert np.array_equal(np.asarray(sub), np.array(tsub))
+        assert np.array_equal(np.asarray(key), np.array(tkey))
+        np.testing.assert_array_equal(
+            ttf.uniform(tsub, n, minval=tiny),
+            np.asarray(jax.random.uniform(sub, (n,), minval=tiny)))
+        np.testing.assert_allclose(ttf.gumbel(tsub, n),
+                                   np.asarray(jax.random.gumbel(sub, (n,))),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_kmeans_matches_jax():
+    """Same noise, same centres: the labels equal JAX's."""
+    for seed_img in (0, 1):
+        img, tri = blob_scene(seed=seed_img)
+        fg = ((tri == 1) | (tri == 3)).astype(np.float32)
+        for w, seed in ((fg, 0), (1.0 - fg, 1)):
+            want = np.asarray(jgmm.kmeans(jnp.asarray(img), jnp.asarray(w),
+                                          5, seed=seed))
+            got = tgmm.kmeans(torch.from_numpy(img), torch.from_numpy(w), 5,
+                              seed=seed).numpy()
+            np.testing.assert_array_equal(got, want)
 
 
 def random_masks():
@@ -269,8 +302,10 @@ def test_trimap_stage_matches_jax(seeded):
         jnp.asarray(probs), jnp.asarray(segments), jnp.asarray(grays),
         jnp.asarray(priors), jnp.asarray(nm), jnp.float32(0.55),
         jnp.float32(0.55), 4))
+    px = tpipe._project_probs_device(torch.from_numpy(probs),
+                                     torch.from_numpy(segments), (H, W))
     t = tpipe._trimap_stage_device(
-        torch.from_numpy(probs), torch.from_numpy(segments),
+        px, torch.from_numpy(segments),
         torch.from_numpy(grays), torch.from_numpy(priors),
         torch.from_numpy(nm), 0.55, 0.55, 4).numpy()
     # Pixels near a threshold may flip under another summation order.
@@ -284,3 +319,41 @@ def test_trimap_stage_matches_jax(seeded):
     assert (t != j)[~near].sum() == 0
     if seeded:
         assert (t == 2).any()       # the background side was seeded
+
+
+def test_multiscale_trimap_stage_matches_jax():
+    """Scale-averaged pixel posteriors (two scales) through the trimap
+    stage, against `_trimap_stage_ms_device`; prior seeds from the
+    full-resolution graph."""
+    r = np.random.RandomState(8)
+    B, H, W, K = 2, 40, 48, 60
+    segments = np.repeat(np.repeat(np.arange(K).reshape(6, 10), 7, 0), 5,
+                         1)[:H, :W][None].repeat(B, 0).astype(np.int32)
+    logits = 3.0 * r.randn(2, B, K, 3)
+    node = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True))[..., ::2]
+    px_stack = np.stack([np.stack([node[s, b][segments[b]] for b in range(B)])
+                         for s in range(2)]).astype(np.float32)
+    grays = r.rand(B, H, W).astype(np.float32)
+    priors = r.rand(B, K, 3).astype(np.float32)
+    nm = np.ones((B, K), np.float32)
+    nm[:, :5] = 0.0
+    j = np.asarray(jpipe._trimap_stage_ms_device(
+        jnp.asarray(px_stack), jnp.asarray(grays), jnp.asarray(priors),
+        jnp.asarray(nm), jnp.asarray(segments), jnp.float32(0.65),
+        jnp.float32(0.65), 4))
+    t = tpipe._trimap_stage_device(
+        torch.from_numpy(px_stack).mean(dim=0), torch.from_numpy(segments),
+        torch.from_numpy(grays), torch.from_numpy(priors),
+        torch.from_numpy(nm), 0.65, 0.65, 4).numpy()
+    from gcn_grabcut_tpu.ops import image as jim
+    near = np.zeros_like(t, bool)
+    mean = px_stack.mean(0)
+    for b in range(B):
+        filt = [np.clip(np.asarray(jim.guided_filter(
+            jnp.asarray(grays[b]), jnp.asarray(mean[b, ..., c]), 4, 1e-3)),
+            0, 1) for c in (0, 1)]
+        near[b] = ((np.abs(filt[0] - np.float32(0.65)) < 1e-5)
+                   | (np.abs(filt[1] - np.float32(0.65)) < 1e-5)
+                   | (np.abs(filt[0] - filt[1]) < 1e-5))
+    assert (t != j)[~near].sum() == 0
+    assert len(np.unique(t)) >= 3

@@ -155,11 +155,3 @@ def test_blocked_contrast_matches_jax():
                                  torch.from_numpy(aw), k, 0.4).numpy()
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
 
-
-def test_small_k_and_geodesic_prior_raise():
-    rgb = torch.zeros(64, 64, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tgb._build_graph_arrays(rgb, tgb.SuperpixelGraphConfig(n_segments=50))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tgb._build_graph_arrays(rgb, tgb.SuperpixelGraphConfig(
-            n_segments=2600, bg_connectivity=True))

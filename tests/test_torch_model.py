@@ -72,6 +72,32 @@ def test_apply_large_matches_jax(seed):
     np.testing.assert_allclose(tout[valid], jout[valid], atol=ATOL)
 
 
+def test_ensemble_on_the_large_path_matches_jax(monkeypatch):
+    """Two members through the large path: the JAX pipeline's
+    `_apply_large_any` (one apply_large per member, mean probability,
+    log'd; its Pallas SpMM interpreted) against the port's ensemble,
+    whose members share one pair of SpMM plans."""
+    import functools
+    from gcn_grabcut_tpu import pipeline as jpipeline
+    from gcn_grabcut_tpu.models import large as jlarge
+    from gcn_grabcut_tpu.models.factory import stack_variables
+    from gcn_grabcut_torch.models.factory import ResGCNEnsemble
+    monkeypatch.setattr(jlarge, "apply_large",
+                        functools.partial(japply_large, interpret=True))
+    g = banded_graph(seed=3)
+    members = [jax_variables(g, seed=s) for s in (3, 4)]
+    jout = jpipeline._apply_large_any(
+        members[0][0], stack_variables([v for _, v in members]), g)
+    ensemble = ResGCNEnsemble([convert.resgcn_from_jax(v)
+                               for _, v in members])
+    tout = apply_large(ensemble, to_port(g), precision="highest",
+                       device="cpu")
+    valid = np.asarray(g.node_mask[0]) > 0
+    np.testing.assert_allclose(torch.softmax(tout, -1).numpy()[0][valid],
+                               np.asarray(jax.nn.softmax(jout, -1))[0][valid],
+                               atol=1e-5)
+
+
 def test_bf16_forward_stays_near_fp32():
     g = banded_graph(seed=2)
     _, vs = jax_variables(g, seed=2)
