@@ -39,9 +39,25 @@ Phases, each of which exits non-zero on failure:
      count set to 0 just before and read just after (it must stay 0); the card's ensemble posteriors held against
      the CPU's on the same graphs, and the outputs against the JAX
      package's (tests/data/torch_dense_jax_ref.npz): SLIC agreement,
-     posteriors where the labels agree, mask IoU.
-Kernel times are device times: the launches run back to back behind a
-device sleep, so the host's launch cost is not counted.
+     posteriors where the labels agree, mask IoU;
+  7. the staged paths at the same configuration, on make_image(512) seeds
+     1 and 3 with seeded pixel noise: segment(edge_aware=False), segment(refine_iters=2),
+     segment() with the native C++ min-cut (built here with g++),
+     segment_bbox, and the GrabCut class from a box then refine(2) in HSV
+     and Lab, each held against the JAX package's outputs
+     (tests/data/torch_staged_jax_ref.npz) by mask IoU, segment_bbox's
+     trimap exactly; the native solver's time beside the device solver's
+     on the same trimap; segment_stream over four images in chunks of
+     three against segment_batch on the same chunks, beside two
+     segment_batch runs against each other; predict_probs on the main
+     path's 1536x1536 graph (7 K1 launches) against segment_batch's
+     posteriors; K1 launched 0 times on the 512 px items.  Before them,
+     keep-largest's fixed-order sums (20 repeats on one 512x512 mask, bit
+     for bit), and a flat-colour image through the dense path on the card
+     and on the CPU (the std-Lab feature's cancellation, reported).
+Phase 1 also reports whether cv2, PIL and networkx import (information
+only).  Kernel times are device times: the launches run back to back
+behind a device sleep, so the host's launch cost is not counted.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
@@ -49,6 +65,7 @@ JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -101,6 +118,42 @@ DENSE_CPU_TOL = 1e-4   # card vs CPU ensemble posteriors: fp32, no TF32
 # and the card sums them in another order: 1.5e-3 measured on the CPU.
 DENSE_JAX_TOL = 1e-2
 DENSE_MIN_IOU = 0.99   # mean mask IoU against JAX (k-means seeds differ)
+
+# The staged paths, at the dense path's configuration (ms_scales aside:
+# the staged branch ignores it) on staged_image(seed) for these seeds;
+# tests/data/torch_staged_jax_ref.npz holds the JAX package's outputs
+# (tests/make_torch_staged_jax_ref.py).
+STAGED_SEEDS = (1, 3)
+# make_image's 8x8 blocks are flat: a GMM component holding a few dozen
+# pixels of one block has a covariance E[xx^T] - mm^T that is float32
+# noise, and a box-initialised GrabCut in HSV then parts between the two
+# packages (seed 3: mask IoU 0.958 on the CPU).  Seeded pixel noise of
+# this amplitude keeps every component well-conditioned.
+STAGED_NOISE = 12
+STAGED_SETTINGS = dict(threshold_fg=0.65, threshold_bg=0.65, filter_radius=4)
+STAGED_BBOX = (96, 112, 288, 288)      # (x, y, w, h) around the disc
+STAGED_REFINE = 2
+STAGED_COLOUR_SPACES = ("hsv", "lab")
+STAGED_REF = "tests/data/torch_staged_jax_ref.npz"
+STREAM_SEEDS, STREAM_BATCH = (1, 3, 4, 6), 3
+# predict_probs(RegionGraph) vs segment_batch's posteriors on the main
+# path's image: two builds of one graph, whose float sums the card may
+# order differently.
+PREDICT_TOL = 1e-3
+KEEP_LARGEST_REPEATS = 20
+
+
+def optional_packages() -> str:
+    """Which optional packages import here, with their versions."""
+    parts = []
+    for name in ("cv2", "PIL", "networkx"):
+        try:
+            mod = importlib.import_module(name)
+        except Exception as e:   # ImportError, or a broken native library
+            parts.append(f"{name} no ({type(e).__name__}: {e})")
+        else:
+            parts.append(f"{name} {getattr(mod, '__version__', '?')}")
+    return "optional packages: " + ", ".join(parts)
 
 
 def fail(msg: str) -> None:
@@ -158,6 +211,15 @@ def make_image(hw: int, seed: int = 0) -> np.ndarray:
     blob = ((yy - cy) ** 2 + (xx - cx) ** 2) < (hw // 4) ** 2
     img[blob] = img[blob] * 0.25 + r.rand(3) * 0.75
     return (img * 255).astype(np.uint8)
+
+
+def staged_image(seed: int) -> np.ndarray:
+    """make_image(DENSE_HW, seed) with seeded uniform noise of
+    +-STAGED_NOISE on every channel."""
+    noise = np.random.RandomState(1000 + seed).randint(
+        -STAGED_NOISE, STAGED_NOISE + 1, (DENSE_HW, DENSE_HW, 3))
+    return np.clip(make_image(DENSE_HW, seed) + noise, 0, 255).astype(
+        np.uint8)
 
 
 def slic_like_edges(side: int, n_nonlocal: int, seed: int):
@@ -589,6 +651,17 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
         fail("the ring-halo gradient disagrees with the plain-halo one")
 
 
+def load_ensemble():
+    """(model, meta) of the recommended bgc ensemble, from the checkout's
+    checkpoints, on the card."""
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    root = Path(__file__).resolve().parent
+    return gt.load_model_auto(
+        ",".join(str(root / p) for p in DENSE_CHECKPOINTS))
+
+
 def run_dense_path(dev, card: str) -> None:
     """The recommended configuration: the 3-member bgc ensemble read from
     the checkout's checkpoints, 500 superpixels with the geodesic prior,
@@ -602,8 +675,7 @@ def run_dense_path(dev, card: str) -> None:
 
     root = Path(__file__).resolve().parent
     ref = np.load(root / DENSE_REF)
-    model, meta = gt.load_model_auto(
-        ",".join(str(root / p) for p in DENSE_CHECKPOINTS))
+    model, meta = load_ensemble()
     if meta["ensemble_size"] != len(DENSE_CHECKPOINTS):
         fail(f"loaded an ensemble of {meta['ensemble_size']}")
     cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
@@ -616,9 +688,6 @@ def run_dense_path(dev, card: str) -> None:
     pipe.segment_batch(images, **DENSE_SETTINGS)
     print(f"dense path warm runs (B=1, B={DENSE_IMAGES}): "
           f"{time.perf_counter() - t:.3f} s", flush=True)
-
-    def split(timing):
-        return " ".join(f"{s}={v:.4f}s" for s, v in timing.items())
 
     banded_spmm.kernel_launches = 0
     walls1 = []
@@ -655,7 +724,7 @@ def run_dense_path(dev, card: str) -> None:
 
     # The card's ensemble forward against the CPU's on the same graphs.
     g = graph_on_card(images, cfg, dev)
-    probs = pipe.predict_probs(g).cpu()
+    probs = pipe._predict_probs_batch(g).cpu()
     g_cpu = gt.make_graph_batch(
         **{f: getattr(g, f).cpu() for f in ("x", "edge_src", "edge_dst",
                                             "edge_attr", "node_mask",
@@ -674,18 +743,17 @@ def run_dense_path(dev, card: str) -> None:
     for b, r in enumerate(res):
         seg_agree = float((r.segments == ref["segments"][b]).mean())
         a, m = r.binary_mask > 0, ref["mask"][b] > 0
-        # Two empty masks agree fully.
-        iou = float((a & m).sum() / (a | m).sum()) if (a | m).any() else 1.0
+        ious.append(iou(a, m))
         tri_agree = float((r.trimap == ref["trimap"][b]).mean())
         dp = "n/a (labels differ)"
         if seg_agree == 1.0:
             d = float(np.abs(r.probs - ref["probs"][b]).max())
             worst_dp = max(worst_dp, d)
             dp = f"{d:.2e}"
-        ious.append(iou)
         print(f"  image {b}: SLIC agreement {seg_agree:.6f}, max |dp| "
               f"{dp}, trimap agreement {tri_agree:.6f}, mask IoU vs JAX "
-              f"{iou:.6f} (FG {a.mean():.4f} / {m.mean():.4f})", flush=True)
+              f"{ious[-1]:.6f} (FG {a.mean():.4f} / {m.mean():.4f})",
+              flush=True)
     mean_iou = float(np.mean(ious))
     print(f"dense path vs JAX: mean mask IoU {mean_iou:.6f} (min "
           f"{DENSE_MIN_IOU}), worst posterior difference {worst_dp:.2e} "
@@ -694,6 +762,328 @@ def run_dense_path(dev, card: str) -> None:
         fail(f"mean mask IoU against JAX {mean_iou:.4f} < {DENSE_MIN_IOU}")
     if worst_dp > DENSE_JAX_TOL:
         fail("posteriors disagree with JAX where the labels agree")
+
+
+def unpack_mask(packed: np.ndarray, hw: int) -> np.ndarray:
+    return np.unpackbits(packed, count=hw * hw).reshape(hw, hw)
+
+
+def unpack_trimap(planes: np.ndarray, hw: int) -> np.ndarray:
+    return unpack_mask(planes[0], hw) | (unpack_mask(planes[1], hw) << 1)
+
+
+def iou(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = a > 0, b > 0
+    return float((a & b).sum() / (a | b).sum()) if (a | b).any() else 1.0
+
+
+def split(timing: dict) -> str:
+    return " ".join(f"{s}={v:.4f}s" for s, v in timing.items())
+
+
+def run_staged_paths(card: str) -> None:
+    """Items 1-5: the staged options, segment_bbox and the GrabCut class
+    at the recommended configuration, held against the JAX fixture; the
+    native solver against the device solver on the same trimaps."""
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch import native
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+
+    root = Path(__file__).resolve().parent
+    ref = np.load(root / STAGED_REF)
+    if tuple(ref["seeds"]) != STAGED_SEEDS:
+        fail(f"{STAGED_REF} holds seeds {ref['seeds']}, not {STAGED_SEEDS}")
+    model, _ = load_ensemble()
+    cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
+                                   bg_connectivity=True)
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    native_pipe = gt.GCNGrabCutPipeline(
+        model, cfg, gt.GrabCutConfig(backend="native"))
+    t = time.perf_counter()
+    native.load()
+    print(f"native min-cut build and load: {time.perf_counter() - t:.2f} s",
+          flush=True)
+    images = [staged_image(s) for s in STAGED_SEEDS]
+    pipe.segment(images[0], edge_aware=False, **STAGED_SETTINGS)    # warm
+
+    banded_spmm.kernel_launches = 0
+    ious: dict = {}
+    for i, (seed, img) in enumerate(zip(STAGED_SEEDS, images)):
+        runs = {
+            "edge_off": (lambda: pipe.segment(img, edge_aware=False,
+                                              **STAGED_SETTINGS), "device"),
+            "refine": (lambda: pipe.segment(img, refine_iters=STAGED_REFINE,
+                                            **STAGED_SETTINGS), "device"),
+            "native": (lambda: native_pipe.segment(img, **STAGED_SETTINGS),
+                       "native"),
+            "bbox": (lambda: pipe.segment_bbox(img, STAGED_BBOX), "device")}
+        for name, (run, backend) in runs.items():
+            t = time.perf_counter()
+            res = run()
+            wall = time.perf_counter() - t
+            want = unpack_mask(ref[f"{name}_mask"][i], DENSE_HW)
+            want_tri = unpack_trimap(ref[f"{name}_trimap"][i], DENSE_HW)
+            ious.setdefault(name, []).append(iou(res.binary_mask, want))
+            tri_agree = float((res.trimap == want_tri).mean())
+            print(f"  staged {name} seed {seed} ({backend}): {wall:.4f} s "
+                  f"({split(res.timing)}); FG {res.binary_mask.mean():.4f} "
+                  f"(JAX {want.mean():.4f}); mask IoU vs JAX "
+                  f"{ious[name][-1]:.6f}; trimap agreement {tri_agree:.6f}",
+                  flush=True)
+            if name == "bbox" and tri_agree != 1.0:
+                fail(f"segment_bbox's trimap differs from JAX's (seed "
+                     f"{seed})")
+            if name == "native":
+                compare_solvers(img, res.trimap, card)
+        for cs in STAGED_COLOUR_SPACES:
+            gc = gt.GrabCut(img, gt.GrabCutConfig(color_space=cs))
+            t = time.perf_counter()
+            first = gc.run_with_bbox(STAGED_BBOX)
+            t_box = time.perf_counter() - t
+            refined = gc.refine(STAGED_REFINE)
+            t_refine = time.perf_counter() - t - t_box
+            for step, mask, secs in (("bbox", first, t_box),
+                                     ("refine", refined, t_refine)):
+                key = f"{cs}_{step}"
+                want = unpack_mask(ref[f"{key}_mask"][i], DENSE_HW)
+                ious.setdefault(key, []).append(iou(mask, want))
+                print(f"  GrabCut {cs} {step} seed {seed} "
+                      f"({gc._backend}): {secs:.4f} s; FG {mask.mean():.4f} "
+                      f"(JAX {want.mean():.4f}); mask IoU vs JAX "
+                      f"{ious[key][-1]:.6f}", flush=True)
+            if [h.tag for h in gc.history] != ["bbox_init", "refinement"]:
+                fail(f"GrabCut history {[h.tag for h in gc.history]}")
+    k1 = banded_spmm.kernel_launches
+    worst = min((float(np.mean(v)), k) for k, v in ious.items())
+    print(f"staged paths vs JAX ({DENSE_HW}^2, K=484, bgc ensemble; "
+          f"{card}): mean mask IoU per item "
+          f"{', '.join(f'{k} {np.mean(v):.6f}' for k, v in ious.items())}; "
+          f"banded_spmm launches={k1}", flush=True)
+    if worst[0] < DENSE_MIN_IOU:
+        fail(f"staged item {worst[1]}: mean mask IoU against JAX "
+             f"{worst[0]:.4f} < {DENSE_MIN_IOU}")
+    if k1 != 0:
+        fail(f"the 512 px staged paths launched banded_spmm {k1} times")
+
+
+def compare_solvers(img: np.ndarray, trimap: np.ndarray, card: str) -> None:
+    """The GrabCut class from one trimap with the native solver and with
+    the device solver: whole-solve times, and the native min-cuts' own
+    host time."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch import native
+
+    cut_s = []
+    solve = native.grid_mincut_native
+
+    def timed_cut(*args, **kwargs):
+        t = time.perf_counter()
+        out = solve(*args, **kwargs)
+        cut_s.append(time.perf_counter() - t)
+        return out
+
+    native.grid_mincut_native = timed_cut
+    try:
+        times = {}
+        masks = {}
+        for backend in ("native", "device"):
+            gc = gt.GrabCut(img, gt.GrabCutConfig(backend=backend))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            masks[backend] = gc.run_with_trimap(trimap)
+            times[backend] = time.perf_counter() - t
+    finally:
+        native.grid_mincut_native = solve
+    n = len(cut_s)
+    print(f"  GrabCut solver, same trimap ({card}): native "
+          f"{times['native']:.4f} s per solve ({n} host cuts, "
+          f"{1e3 * sum(cut_s) / max(n, 1):.2f} ms each), device "
+          f"{times['device']:.4f} s per solve; mask IoU native vs device "
+          f"{iou(masks['native'], masks['device']):.6f}", flush=True)
+
+
+def run_stream(card: str) -> None:
+    """Item 6: segment_stream against segment_batch on the same chunks,
+    beside segment_batch against itself."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+
+    model, _ = load_ensemble()
+    pipe = gt.GCNGrabCutPipeline(model, gt.SuperpixelGraphConfig(
+        n_segments=DENSE_SEGMENTS, bg_connectivity=True))
+    images = [make_image(DENSE_HW, s) for s in STREAM_SEEDS]
+    chunks = [images[i:i + STREAM_BATCH]
+              for i in range(0, len(images), STREAM_BATCH)]
+
+    def agreement(a, b) -> tuple[float, float]:
+        """(least mask pixel agreement, least trimap agreement) over a
+        run's images."""
+        return (min(float((x.binary_mask == y.binary_mask).mean())
+                    for x, y in zip(a, b)),
+                min(float((x.trimap == y.trimap).mean())
+                    for x, y in zip(a, b)))
+
+    first = pipe.segment_batch(chunks[0], **DENSE_SETTINGS)
+    again = pipe.segment_batch(chunks[0], **DENSE_SETTINGS)
+    self_agree = agreement(first, again)
+    banded_spmm.kernel_launches = 0
+    t = time.perf_counter()
+    stream = list(pipe.segment_stream(images, batch_size=STREAM_BATCH,
+                                      **DENSE_SETTINGS))
+    wall = time.perf_counter() - t
+    k1 = banded_spmm.kernel_launches
+    t = time.perf_counter()
+    batch = [r for c in chunks
+             for r in pipe.segment_batch(c, **DENSE_SETTINGS)]
+    batch_wall = time.perf_counter() - t
+    stream_agree = agreement(stream, batch)
+    print(f"segment_stream ({len(images)} images in chunks of "
+          f"{STREAM_BATCH}; {card}): {wall:.4f} s, segment_batch on the same "
+          f"chunks {batch_wall:.4f} s; stream vs batch: least mask agreement "
+          f"{stream_agree[0]:.6f}, trimap {stream_agree[1]:.6f}; batch vs "
+          f"batch on chunk 0: mask {self_agree[0]:.6f}, trimap "
+          f"{self_agree[1]:.6f}; banded_spmm launches={k1}", flush=True)
+    if k1 != 0:
+        fail(f"segment_stream at {DENSE_HW} px launched banded_spmm {k1} "
+             "times")
+    if len(stream) != len(images):
+        fail(f"segment_stream yielded {len(stream)} of {len(images)} results")
+    if stream_agree[0] < self_agree[0] or stream_agree[1] < self_agree[1]:
+        fail("segment_stream agrees with segment_batch less than "
+             "segment_batch with itself")
+
+
+def run_predict_probs(card: str) -> None:
+    """Item 7: predict_probs(build_graph(...)) on the main path's image and
+    model: (K, 3) numpy through the banded SpMM, against segment_batch's
+    posteriors on that image."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    model = gt.ResGCNNet(hidden_channels=HIDDEN, n_layers=N_LAYERS,
+                         generator=torch.Generator().manual_seed(MODEL_SEED))
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    img = make_image(IMAGE_HW)
+    t = time.perf_counter()
+    graph = gt.build_graph(img, cfg)
+    build_s = time.perf_counter() - t
+    pipe.predict_probs(graph)                                   # warm
+    banded_spmm.kernel_launches = 0
+    t = time.perf_counter()
+    probs = pipe.predict_probs(graph)
+    wall = time.perf_counter() - t
+    k1 = banded_spmm.kernel_launches
+    res = pipe.segment_batch([img])[0]
+    seg_agree = float((res.segments == graph.segments).mean())
+    differ = res.segments != graph.segments
+    same = np.ones(graph.n_nodes, bool)
+    same[res.segments[differ]] = False
+    same[graph.segments[differ]] = False
+    valid = (graph.node_mask > 0) & same
+    dp = float(np.abs(probs - res.probs)[valid].max())
+    print(f"predict_probs(RegionGraph) ({IMAGE_HW}^2, K={graph.n_nodes}, "
+          f"ResGCNNet D={HIDDEN} n={N_LAYERS}; {card}): build_graph "
+          f"{build_s:.4f} s, predict_probs {wall:.4f} s, banded_spmm "
+          f"launches={k1}; vs segment_batch: SLIC agreement {seg_agree:.6f}, "
+          f"max |dp| {dp:.3e} on {int(valid.sum())} nodes (tol "
+          f"{PREDICT_TOL:.0e}), exactly equal: "
+          f"{bool(np.array_equal(probs, res.probs))}", flush=True)
+    if not isinstance(probs, np.ndarray) or probs.shape != (graph.n_nodes, 3):
+        fail("predict_probs did not return (K, 3) numpy")
+    if k1 != N_LAYERS + 1:
+        fail(f"predict_probs launched banded_spmm {k1} times, expected "
+             f"{N_LAYERS + 1}")
+    if seg_agree < 0.999 or dp > PREDICT_TOL:
+        fail("predict_probs disagrees with segment_batch's posteriors")
+
+
+def check_keep_largest_repeats(dev) -> None:
+    """Keep-largest's component sums run in a fixed order: repeated runs
+    on one mask give bit-identical sums and masks."""
+    from gcn_grabcut_torch.ops.connected import (_clean_mask,
+                                                 connected_components)
+    from gcn_grabcut_torch.ops.region import segment_sum
+    hw = DENSE_HW
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    mask = np.zeros((hw, hw), np.uint8)
+    for cy, cx, r in ((200, 220, 110), (420, 100, 50), (90, 430, 40),
+                      (400, 400, 60)):
+        mask[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 1
+    mask[:, :6] = 1                                 # a frame-like strip
+    rng = np.random.RandomState(11)
+    post = (0.5 + 0.5 * rng.rand(hw, hw)).astype(np.float32)
+    m = torch.from_numpy(mask).to(dev)
+    p = torch.from_numpy(post).to(dev)
+    labels = connected_components(m > 0).long().reshape(-1).clamp_max(
+        hw * hw - 1)
+    planes = torch.stack([torch.ones(hw * hw, device=dev), p.reshape(-1)], 1)
+    min_area = 0.002 * hw * hw
+    outs, sums = [], []
+    t = time.perf_counter()
+    for _ in range(KEEP_LARGEST_REPEATS):
+        outs.append(_clean_mask(m, min_area, True, p))
+        sums.append(segment_sum(labels, planes, hw * hw))
+    torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t) / KEEP_LARGEST_REPEATS
+    same_mask = all(torch.equal(o, outs[0]) for o in outs)
+    same_sums = all(torch.equal(s_, sums[0]) for s_ in sums)
+    cpu = _clean_mask(m.cpu(), min_area, True, p.cpu())
+    cpu_sums = segment_sum(labels.cpu(), planes.cpu(), hw * hw)
+    print(f"keep-largest fixed-order sums ({hw}^2 mask, "
+          f"{int(torch.unique(labels).numel()) - 1} components): "
+          f"{KEEP_LARGEST_REPEATS} repeats, masks identical {same_mask}, "
+          f"sums identical {same_sums}; equal to the CPU's: mask "
+          f"{bool(torch.equal(outs[0].cpu(), cpu))}, sums "
+          f"{bool(torch.equal(sums[0].cpu(), cpu_sums))}; "
+          f"{per_call * 1e3:.2f} ms per clean-up and sum", flush=True)
+    if not (same_mask and same_sums):
+        fail("keep-largest's sums differ between runs")
+
+
+def flat_image(hw: int) -> np.ndarray:
+    """Uniform colour regions and a uniform disc."""
+    img = np.empty((hw, hw, 3), np.uint8)
+    img[:] = (70, 90, 120)
+    img[2 * hw // 3:] = (60, 110, 50)
+    img[:, : hw // 5] = (140, 120, 100)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    img[(yy - hw // 2) ** 2 + (xx - int(hw * 0.55)) ** 2 < (hw // 5) ** 2] = (
+        220, 60, 40)
+    return img
+
+
+def run_flat_colour(card: str) -> None:
+    """Open fault 1: a flat-colour image through the dense path on the card
+    and on the CPU (the port on both).  Reported, not gated: the std-Lab
+    feature cancels in float32 on uniform regions."""
+    import copy
+
+    import gcn_grabcut_torch as gt
+
+    model, _ = load_ensemble()
+    cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
+                                   bg_connectivity=True)
+    img = flat_image(DENSE_HW)
+    card_res = gt.GCNGrabCutPipeline(model, cfg).segment_batch(
+        [img], **DENSE_SETTINGS)[0]
+    t = time.perf_counter()
+    cpu_res = gt.GCNGrabCutPipeline(copy.deepcopy(model).cpu(), cfg,
+                                    device="cpu").segment_batch(
+        [img], **DENSE_SETTINGS)[0]
+    cpu_s = time.perf_counter() - t
+    seg_agree = float((card_res.segments == cpu_res.segments).mean())
+    dp = float(np.abs(card_res.probs - cpu_res.probs).max())
+    print(f"flat-colour image through the dense path, card vs CPU ({card}; "
+          f"the CPU run {cpu_s:.1f} s): SLIC agreement {seg_agree:.6f}; max "
+          f"|dp| {dp:.3e} over {card_res.probs.shape[0]} nodes; trimap "
+          f"pixels differing {int((card_res.trimap != cpu_res.trimap).sum())}"
+          f", mask pixels differing "
+          f"{int((card_res.binary_mask != cpu_res.binary_mask).sum())} of "
+          f"{DENSE_HW * DENSE_HW}; FG {card_res.binary_mask.mean():.4f} / "
+          f"{cpu_res.binary_mask.mean():.4f}", flush=True)
 
 
 def main() -> None:
@@ -710,6 +1100,7 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
           f"{card}", flush=True)
+    print(optional_packages(), flush=True)
 
     t = time.perf_counter()
     libs = kernels.build()
@@ -725,6 +1116,11 @@ def main() -> None:
     run_main_path(dev, record)
     run_sharded_path(dev, rings, k)
     run_dense_path(dev, card)
+    check_keep_largest_repeats(dev)
+    run_flat_colour(card)
+    run_staged_paths(card)
+    run_stream(card)
+    run_predict_probs(card)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
     print(card)

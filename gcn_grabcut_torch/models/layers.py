@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.graph import masked_softmax
+from ..ops.region import segment_sum
 
 LN_EPS = 1e-6
 
@@ -132,14 +133,14 @@ class EdgeContext(nn.Module):
     def forward(self, edge_attr, edge_dst, edge_mask, n_nodes: int):
         h = self.fc1(gelu(self.fc0(edge_attr)))             # (G, E, C)
         G, E, C = h.shape
-        # Masked scatter-mean by destination, all graphs in one index_add_.
+        # Masked scatter-mean by destination, all graphs in one fixed-order
+        # segment sum (the same sums in every run on the card).
         idx = (edge_dst + n_nodes * torch.arange(
             G, device=h.device)[:, None]).reshape(-1)
         w = edge_mask.reshape(-1)
-        tot = torch.zeros((G * n_nodes, C), dtype=h.dtype, device=h.device
-                          ).index_add_(0, idx, h.reshape(-1, C) * w[:, None])
-        cnt = torch.zeros(G * n_nodes, dtype=h.dtype, device=h.device
-                          ).index_add_(0, idx, w)
+        sums = segment_sum(idx, torch.cat([h.reshape(-1, C) * w[:, None],
+                                           w[:, None]], dim=1), G * n_nodes)
+        tot, cnt = sums[:, :C], sums[:, C]
         ctx = (tot / cnt.clamp_min(1.0)[:, None]).reshape(G, n_nodes, C)
         return torch.sigmoid(self.gate(self.norm(ctx)))
 

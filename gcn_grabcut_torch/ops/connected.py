@@ -11,12 +11,21 @@ give every foreground pixel the minimum over its maximal run, which here is
 a ``scatter_reduce("amin")`` over run ids from ``cumsum(is_bg)`` and a
 gather back.  Integer arithmetic: the labels equal the JAX package's
 exactly.
+
+The clean-up's per-component sums (sizes, border counts, posterior mass)
+run in a fixed order on every device (`ops.region.segment_sum`): a float
+``index_add_`` adds in no fixed order on CUDA, which could flip a
+runner-up sitting at the keep-largest gate from one run to the next.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from .region import segment_sum
 
 _NEIGHBOURS_8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
                  (0, 1), (1, -1), (1, 0), (1, 1))
@@ -80,10 +89,18 @@ def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
     clamped = flat.clamp_max(hw - 1)
     valid_px = (flat < hw).float()
 
-    def segsum(v):
-        return torch.zeros(hw, device=v.device).index_add_(0, clamped, v)
-
-    sizes = segsum(valid_px)
+    planes = [valid_px]
+    if keep_largest:
+        on_border = torch.zeros((H, W), device=mask.device)
+        on_border[0, :] = 1.0
+        on_border[-1, :] = 1.0
+        on_border[:, 0] = 1.0
+        on_border[:, -1] = 1.0
+        planes.append(on_border.reshape(-1) * valid_px)
+        if posterior is not None:
+            planes.append(posterior.reshape(-1).float() * valid_px)
+    sums = segment_sum(clamped, torch.stack(planes, dim=1), hw)
+    sizes = sums[:, 0]
     comp_size = torch.where(labels < hw, sizes[clamped].reshape(H, W), 0.0)
 
     keep_minarea = comp_size >= min_area
@@ -95,12 +112,7 @@ def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
 
     # Components hugging much of the border are frame-like: demoted unless
     # nothing else exists.
-    on_border = torch.zeros((H, W), device=mask.device)
-    on_border[0, :] = 1.0
-    on_border[-1, :] = 1.0
-    on_border[:, 0] = 1.0
-    on_border[:, -1] = 1.0
-    border_cnt = segsum(on_border.reshape(-1) * valid_px)
+    border_cnt = sums[:, 1]
     perimeter = float(2 * (H + W) - 4)
     frame_like = border_cnt[clamped].reshape(H, W) / perimeter > 0.3
     eff_size = torch.where(frame_like, 0.0, comp_size)
@@ -109,7 +121,7 @@ def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
     if posterior is None:
         return keep.to(torch.uint8)
 
-    pmass = segsum(posterior.reshape(-1).float() * valid_px)
+    pmass = sums[:, 2]
     pmass_px = torch.where(labels < hw, pmass[clamped].reshape(H, W), 0.0)
     mean_p = pmass_px / comp_size.clamp_min(1.0)
     winner_mean = torch.where(keep, mean_p, 0.0).max()
@@ -117,3 +129,22 @@ def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
                  & (mean_p >= KEEP_LARGEST_CONF_GATE * winner_mean)
                  & (comp_size >= min_area))
     return (keep | confident).to(torch.uint8)
+
+
+def clean_mask(mask, min_area_ratio: float = 0.002,
+               keep_largest: bool = False, posterior=None,
+               device=None) -> np.ndarray:
+    """Remove spurious connected components from a binary (H, W) mask:
+    components below `min_area_ratio` of the image are dropped (never all
+    of them), or only the largest non-frame-like one is kept, gated on the
+    (H, W) foreground `posterior` when given.  numpy in, numpy out; runs
+    on `device` (default: the card)."""
+    mask = np.asarray(mask)
+    if mask.sum() == 0 or (min_area_ratio <= 0 and not keep_largest):
+        return mask
+    dev = resolve_device(device)
+    post = (None if posterior is None
+            else torch.as_tensor(np.asarray(posterior), device=dev))
+    out = _clean_mask(torch.as_tensor(mask, device=dev),
+                      min_area_ratio * mask.size, keep_largest, post)
+    return out.cpu().numpy()

@@ -14,13 +14,25 @@ import math
 import torch
 
 
+def segment_sum(index: torch.Tensor, values: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """(n, ...) sums of the rows of `values` (P, ...) by `index` (P,) in
+    [0, n), each in ascending row order: a stable sort by index, then one
+    sequential sum per segment.  The same float32 adds on every device and
+    in every run (a float ``index_add_`` adds in no fixed order on CUDA),
+    and on the CPU bit for bit ``index_add_``'s sums, which are the JAX
+    package's ``segment_sum``."""
+    order = torch.sort(index, stable=True).indices
+    lengths = torch.bincount(index, minlength=n)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths,
+                                axis=0)
+
+
 def region_reduce(segments: torch.Tensor, planes: torch.Tensor, k: int
                   ) -> torch.Tensor:
     """Sum each of C image planes over regions: (H, W, C) -> (K, C)."""
-    vals = planes.reshape(-1, planes.shape[-1])
-    return torch.zeros((k, vals.shape[1]), dtype=vals.dtype,
-                       device=vals.device).index_add_(
-        0, segments.reshape(-1), vals)
+    return segment_sum(segments.reshape(-1),
+                       planes.reshape(-1, planes.shape[-1]), k)
 
 
 def region_boundaries(segments: torch.Tensor) -> torch.Tensor:

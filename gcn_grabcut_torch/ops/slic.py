@@ -8,9 +8,10 @@ min-label component pass.
 
 The JAX package moves values between pixels and cells with one-hot matmuls
 (a TPU workaround for slow gathers); here the same exchange is a gather
-(cells -> pixels) and an ``index_add_`` (pixels -> cells).  The sums are
-the same up to float32 summation order, so near-tied argmins can flip at a
-few pixels: compare labels by agreement, not bit equality.
+(cells -> pixels) and a fixed-order segment sum (pixels -> cells; the same
+labels in every run on the card).  The sums are the same up to float32
+summation order, so near-tied argmins can flip at a few pixels: compare
+labels by agreement, not bit equality.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .region import segment_sum
 
 _OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 _BIG = 1e9   # sentinel centre for out-of-grid candidates
@@ -110,8 +113,7 @@ def slic(lab: torch.Tensor, n_segments: int = 300, compactness: float = 10.0,
     flat_feats = feats.reshape(-1, 6)
     for _ in range(n_iter):
         lbl = assign(centers)
-        total = torch.zeros((K, 6), dtype=torch.float32, device=dev
-                            ).index_add_(0, lbl.reshape(-1), flat_feats)
+        total = segment_sum(lbl.reshape(-1), flat_feats, K)
         total = total.reshape(gh, gw, 6)
         cnts = total[..., 5]
         means = total[..., :5] / cnts.clamp_min(1.0)[..., None]

@@ -1,6 +1,7 @@
 """End-to-end automatic segmentation: image -> binary mask.
 
-Counterpart of ``gcn_grabcut_tpu/pipeline.py``'s `segment_batch`:
+Counterpart of ``gcn_grabcut_tpu/pipeline.py``.  `segment_batch` (and
+`segment` in its default options, at B=1) runs:
   1. superpixel graph build with its prior;
   2. the ResGCNNet forward (a model or an ensemble) -> posteriors: one
      stacked (B, N, N) dense forward up to LARGE_NODE_THRESHOLD nodes,
@@ -11,12 +12,22 @@ Counterpart of ``gcn_grabcut_tpu/pipeline.py``'s `segment_batch`:
   4. GrabCut (GMMs + push-relabel min-cut);
   5. connected-component clean-up and bit-packed output.
 Stages stay on the device until the one packed pull at the end.
+`segment_stream` keeps two such batches in flight.
+
+`segment`'s staged branch (`edge_aware=False`, `refine_iters > 0`, or
+the "native" GrabCut backend) runs the same stages one at a time through
+the scalar API: `build_graph` -> `predict_probs` -> `refine_trimap` or
+the per-region trimap -> `seed_from_prior` -> the `GrabCut` class ->
+`clean_mask`.  `segment_bbox` is the classic box-initialised GrabCut.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 import time
+import zlib
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -26,15 +37,38 @@ from .core.device import resolve_device, synchronize
 from .core.graph import (CLASS_BG, CLASS_FG, TRIMAP_BG, TRIMAP_FG,
                          TRIMAP_PROB_BG, TRIMAP_PROB_FG, GraphBatch,
                          make_graph_batch)
-from .grabcut import GrabCutConfig, grabcut_batch_device
-from .graph_build import (SuperpixelGraphConfig, build_graph_batch_arrays,
+from .grabcut import GrabCut, GrabCutConfig, grabcut_batch_device
+from .graph_build import (RegionGraph, SuperpixelGraphConfig,
+                          build_graph, build_graph_batch_arrays,
                           num_nodes_for)
-from .models.factory import apply_model
+from .metrics import evaluate, evaluate_trimap
+from .models.factory import (apply_model, probs_to_node_trimap,
+                             project_planes)
 from .models.large import apply_large
 from .ops import image as im
-from .ops.connected import _clean_mask
+from .ops.connected import _clean_mask, clean_mask
 
-_STAGED = "comes with ROADMAP queue 1 item 4 (the staged paths)"
+
+def _write_png(path, img: np.ndarray) -> None:
+    """Write an (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image
+    as an 8-bit PNG (no row filters, zlib level 6)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    colour_type = {1: 0, 3: 2, 4: 6}[channels]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0,
+                                     0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b""))
 
 
 @dataclasses.dataclass
@@ -50,18 +84,126 @@ class SegmentationResult:
     timing: dict = dataclasses.field(default_factory=dict)
     probs: Optional[np.ndarray] = None
 
+    def show(self) -> None:
+        """Display input | trimap | overlay panels until a key is pressed.
+        Needs cv2 and a display; headless environments use save()."""
+        import cv2
+        panel = np.concatenate([
+            cv2.resize(cv2.cvtColor(a, cv2.COLOR_RGB2BGR), (256, 256))
+            for a in (self.image, colour_trimap(self.trimap), self.overlay)
+        ], axis=1)
+        cv2.imshow("Input | Trimap | Result", panel)
+        cv2.waitKey(0)
+        cv2.destroyAllWindows()
+
+    def save(self, prefix: str = "result") -> None:
+        """Write <prefix>_overlay.png, _rgba.png, _trimap_colour.png and
+        _mask.png."""
+        _write_png(f"{prefix}_overlay.png", self.overlay)
+        _write_png(f"{prefix}_rgba.png", self.rgba)
+        _write_png(f"{prefix}_trimap_colour.png", colour_trimap(self.trimap))
+        _write_png(f"{prefix}_mask.png", self.binary_mask * 255)
+        print(f"Saved outputs with prefix: {prefix}")
+
+    def evaluate_against(self, gt_mask: np.ndarray):
+        return evaluate(self.binary_mask, gt_mask), \
+            evaluate_trimap(self.trimap, gt_mask)
+
+
+def colour_trimap(trimap: np.ndarray) -> np.ndarray:
+    vis = np.zeros((*trimap.shape, 3), np.uint8)
+    vis[trimap == TRIMAP_BG] = [0, 0, 0]
+    vis[trimap == TRIMAP_FG] = [255, 255, 255]
+    vis[trimap == TRIMAP_PROB_BG] = [60, 20, 20]
+    vis[trimap == TRIMAP_PROB_FG] = [0, 200, 200]
+    return vis
+
+
+def _threshold(p_bg, p_fg, gray, thr_fg, thr_bg, radius: int,
+               eps: float = 1e-3) -> torch.Tensor:
+    """Pixel P(BG), P(FG) -> uint8 trimap: guided-filter both under the
+    grey image, then definite at or above a threshold, else the more
+    likely probable side."""
+    p_bg = im.guided_filter(gray, p_bg, radius, eps).clamp(0, 1)
+    p_fg = im.guided_filter(gray, p_fg, radius, eps).clamp(0, 1)
+    tri = torch.where(p_fg > p_bg, TRIMAP_PROB_FG, TRIMAP_PROB_BG)
+    tri = torch.where(p_bg >= thr_bg, TRIMAP_BG, tri)
+    return torch.where(p_fg >= thr_fg, TRIMAP_FG, tri).to(torch.uint8)
+
+
+def refine_trimap(probs: np.ndarray, segments: np.ndarray, image: np.ndarray,
+                  threshold_fg: float = 0.55, threshold_bg: float = 0.55,
+                  radius: int = 8, eps: float = 1e-3,
+                  device=None) -> np.ndarray:
+    """Edge-aware trimap: project the (K, 3) posteriors' P(BG) and P(FG)
+    to pixels, guided-filter them under the grey image and threshold, on
+    `device` (default: the card).  Boundaries land on intensity edges
+    rather than superpixel borders."""
+    dev = resolve_device(device)
+    p = torch.as_tensor(np.asarray(probs), device=dev).float()
+    seg = torch.as_tensor(np.asarray(segments), device=dev).long()
+    gray = im.rgb_to_gray(torch.as_tensor(np.asarray(image), device=dev
+                                          ).float()) / 255.0
+    px = project_planes(p[:, [CLASS_BG, CLASS_FG]], seg)
+    return _threshold(px[..., 0], px[..., 1], gray, threshold_fg,
+                      threshold_bg, radius, eps).cpu().numpy()
+
+
+def seed_from_prior(trimap: np.ndarray, graph: RegionGraph,
+                    seed_frac: float = 0.1) -> np.ndarray:
+    """Make sure both FG and BG seeds exist: when a side is missing,
+    promote the ~seed_frac highest-prior valid superpixels to its probable
+    label."""
+    prior = graph.prior
+    if prior is None or prior.size == 0:
+        return trimap
+
+    has_fg = np.isin(trimap, (TRIMAP_FG, TRIMAP_PROB_FG)).any()
+    has_bg = np.isin(trimap, (TRIMAP_BG, TRIMAP_PROB_BG)).any()
+    if has_fg and has_bg:
+        return trimap
+
+    node_mask = graph.node_mask
+    n_valid = max(int(node_mask.sum()), 1)
+    n_seed = max(1, int(round(seed_frac * n_valid)))
+    trimap = trimap.copy()
+
+    # Empty clusters rank last.
+    score = np.where(node_mask > 0, prior[:, 0], -1.0)
+    if not has_fg:
+        ids = np.argsort(score)[::-1][:n_seed]
+        trimap[np.isin(graph.segments, ids)] = TRIMAP_PROB_FG
+    score_bg = np.where(node_mask > 0, prior[:, 1], -1.0)
+    if not has_bg:
+        ids = np.argsort(score_bg)[::-1][:n_seed]
+        trimap[np.isin(graph.segments, ids)] = TRIMAP_PROB_BG
+    return trimap
+
+
+def _erode_box(mask: np.ndarray, size: int) -> np.ndarray:
+    """cv2.erode(mask, np.ones((size, size))) of a binary mask: the minimum
+    over the window at offsets -(size // 2) .. size - 1 - size // 2 (cv2's
+    anchor), cut at the image edge (cv2's default border does not
+    erode)."""
+    H, W = mask.shape
+    lo, hi = size // 2, size - 1 - size // 2
+    zeros = np.pad((mask == 0).astype(np.int64), ((1, 0), (1, 0))
+                   ).cumsum(0).cumsum(1)
+    y0 = np.clip(np.arange(H) - lo, 0, H)
+    y1 = np.clip(np.arange(H) + hi + 1, 0, H)
+    x0 = np.clip(np.arange(W) - lo, 0, W)
+    x1 = np.clip(np.arange(W) + hi + 1, 0, W)
+    n_zero = (zeros[y1][:, x1] - zeros[y0][:, x1] - zeros[y1][:, x0]
+              + zeros[y0][:, x0])
+    return (n_zero == 0).astype(mask.dtype)
+
 
 def _threshold_and_seed(px1, gray, thr_fg, thr_bg, filter_radius: int):
     """(H, W, 4) planes [P(BG), P(FG), seed_fg, seed_bg] -> uint8 trimap:
     guided-filter the posteriors, threshold, and when a probable side is
     missing entirely promote the highest-prior regions to it."""
-    p_bg = im.guided_filter(gray, px1[..., 0], filter_radius, 1e-3
-                            ).clamp(0, 1)
-    p_fg = im.guided_filter(gray, px1[..., 1], filter_radius, 1e-3
-                            ).clamp(0, 1)
-    tri = torch.where(p_fg > p_bg, TRIMAP_PROB_FG, TRIMAP_PROB_BG)
-    tri = torch.where(p_bg >= thr_bg, TRIMAP_BG, tri)
-    tri = torch.where(p_fg >= thr_fg, TRIMAP_FG, tri).to(torch.uint8)
+    tri = _threshold(px1[..., 0], px1[..., 1], gray, thr_fg, thr_bg,
+                     filter_radius)
     has_fg = ((tri == TRIMAP_FG) | (tri == TRIMAP_PROB_FG)).any()
     has_bg = ((tri == TRIMAP_BG) | (tri == TRIMAP_PROB_BG)).any()
     tri = torch.where(has_fg | (px1[..., 2] <= 0), tri, TRIMAP_PROB_FG
@@ -91,9 +233,9 @@ def _project_probs_device(probs, segments, out_hw: tuple) -> torch.Tensor:
     """(B, K, 3) probs + (B, h, w) segments -> (B, H, W, 2) pixel planes
     [P(BG), P(FG)], bilinearly resized to `out_hw` when the graph was
     built at another scale (the multi-scale path)."""
-    px = torch.stack([torch.stack([p[:, CLASS_BG], p[:, CLASS_FG]],
-                                  dim=-1).float()[s.long()]
-                      for p, s in zip(probs, segments)])
+    px = torch.stack([project_planes(torch.stack(
+        [p[:, CLASS_BG], p[:, CLASS_FG]], dim=-1).float(), s)
+        for p, s in zip(probs, segments)])
     if tuple(px.shape[1:3]) != tuple(out_hw):
         px = im.resize_bilinear(px, out_hw)
     return px
@@ -108,7 +250,7 @@ def _trimap_stage_device(px_probs, segments, grays, priors, node_masks,
     out = []
     for px, seg, gray, prior, nm in zip(px_probs, segments, grays, priors,
                                         node_masks):
-        seeds = _seed_planes(prior, nm)[seg.long()]
+        seeds = project_planes(_seed_planes(prior, nm), seg)
         out.append(_threshold_and_seed(torch.cat([px, seeds], dim=-1), gray,
                                        thr_fg, thr_bg, filter_radius))
     return torch.stack(out)
@@ -192,7 +334,12 @@ class GCNGrabCutPipeline:
         self.sp_config = sp_config or SuperpixelGraphConfig()
         self.gc_config = gc_config or GrabCutConfig()
 
-    def predict_probs(self, graph: GraphBatch) -> torch.Tensor:
+    def predict_probs(self, graph: RegionGraph) -> np.ndarray:
+        """(K, 3) softmax class probabilities of one built graph (above
+        LARGE_NODE_THRESHOLD nodes through the banded-SpMM forward)."""
+        return self._predict_probs_batch(graph.graph)[0].cpu().numpy()
+
+    def _predict_probs_batch(self, graph: GraphBatch) -> torch.Tensor:
         """(G, N, 3) softmax class probabilities: one stacked dense forward,
         or above LARGE_NODE_THRESHOLD one banded-SpMM forward per graph."""
         if graph.max_nodes > self.LARGE_NODE_THRESHOLD:
@@ -217,13 +364,60 @@ class GCNGrabCutPipeline:
                 min_area_ratio: float = 0.002, keep_largest: bool = False,
                 edge_aware: bool = True, filter_radius: int = 8,
                 ms_scales: tuple | None = None) -> SegmentationResult:
-        """Image in -> mask out, through `segment_batch` at B=1."""
-        if not edge_aware or refine_iters:
-            raise NotImplementedError(f"the staged scalar path {_STAGED}")
-        return self.segment_batch(
-            [image], threshold_fg=threshold_fg, threshold_bg=threshold_bg,
-            min_area_ratio=min_area_ratio, keep_largest=keep_largest,
-            filter_radius=filter_radius, ms_scales=ms_scales)[0]
+        """Image in -> mask out.  The default options run `segment_batch`
+        at B=1; `edge_aware=False`, `refine_iters > 0` and the "native"
+        GrabCut backend run the staged path, which ignores `ms_scales`."""
+        if (edge_aware and refine_iters == 0
+                and self.gc_config.backend != "native"):
+            return self.segment_batch(
+                [image], threshold_fg=threshold_fg,
+                threshold_bg=threshold_bg, min_area_ratio=min_area_ratio,
+                keep_largest=keep_largest, filter_radius=filter_radius,
+                ms_scales=ms_scales)[0]
+
+        timing: dict = {}
+        t = time.perf_counter()
+        graph = build_graph(image, self.sp_config, device=self.device)
+        timing["graph_build"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        probs = self.predict_probs(graph)
+        if edge_aware:
+            trimap = refine_trimap(probs, graph.segments, image,
+                                   threshold_fg, threshold_bg,
+                                   radius=filter_radius, device=self.device)
+        else:
+            trimap = probs_to_node_trimap(probs, threshold_fg, threshold_bg
+                                          ).numpy()[graph.segments]
+        timing["gcn_inference"] = time.perf_counter() - t
+
+        # Without a user to correct it, a one-sided trimap must be repaired.
+        trimap = seed_from_prior(trimap, graph)
+
+        t = time.perf_counter()
+        gc = GrabCut(image, self.gc_config, device=self.device)
+        binary_mask = gc.run_with_trimap(trimap)
+        if refine_iters > 0:
+            binary_mask = gc.refine(refine_iters)
+        timing["grabcut"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        # keep_largest reads the node posterior projected to pixels, with
+        # no filter (the batched path reads the filtered plane).
+        post = (probs[:, CLASS_FG].astype(np.float32)[graph.segments]
+                if keep_largest else None)
+        cleaned = clean_mask(binary_mask, min_area_ratio, keep_largest,
+                             posterior=post, device=self.device)
+        if not np.array_equal(cleaned, binary_mask):
+            binary_mask = cleaned
+            gc.mask = np.where(binary_mask == 1, TRIMAP_PROB_FG,
+                               TRIMAP_PROB_BG).astype(np.uint8)
+        timing["postprocess"] = time.perf_counter() - t
+
+        return SegmentationResult(
+            image=image, binary_mask=binary_mask, trimap=trimap,
+            segments=graph.segments, overlay=gc.overlay_mask(),
+            rgba=gc.crop_foreground(), timing=timing, probs=probs)
 
     def segment_batch(self, images: list, threshold_fg: float = 0.55,
                       threshold_bg: float = 0.55,
@@ -243,6 +437,32 @@ class GCNGrabCutPipeline:
             filter_radius=filter_radius, want_segments=want_segments,
             sync_timing=sync_timing, ms_scales=ms_scales)
         return self._finalize_batch(handle)
+
+    def segment_stream(self, images, batch_size: int = 8,
+                       threshold_fg: float = 0.55, threshold_bg: float = 0.55,
+                       min_area_ratio: float = 0.002,
+                       keep_largest: bool = False, filter_radius: int = 8,
+                       want_segments: bool = True,
+                       ms_scales: tuple | None = None):
+        """Generator of SegmentationResults over same-size images, in
+        chunks of `batch_size`: chunk i+1 is dispatched before chunk i's
+        packed output is pulled.  The last chunk may be shorter; it is not
+        padded, since each padded image would cost a whole GrabCut solve.
+        Each chunk's results equal `segment_batch`'s on that chunk."""
+        pending = None
+        images = list(images)
+        for start in range(0, len(images), batch_size):
+            handle = self._dispatch_batch(
+                images[start:start + batch_size], threshold_fg=threshold_fg,
+                threshold_bg=threshold_bg, min_area_ratio=min_area_ratio,
+                keep_largest=keep_largest, filter_radius=filter_radius,
+                want_segments=want_segments, sync_timing=False,
+                ms_scales=ms_scales)
+            if pending is not None:
+                yield from self._finalize_batch(pending)
+            pending = handle
+        if pending is not None:
+            yield from self._finalize_batch(pending)
 
     def _dispatch_batch(self, images, threshold_fg, threshold_bg,
                         min_area_ratio, keep_largest, filter_radius,
@@ -275,7 +495,7 @@ class GCNGrabCutPipeline:
         stage_done("graph_build", t)
 
         t = time.perf_counter()
-        probs = self.predict_probs(batch)
+        probs = self._predict_probs_batch(batch)
         segments = out["segments"]
         px = _project_probs_device(probs, segments, (H, W))
         if multi_scale:
@@ -286,7 +506,8 @@ class GCNGrabCutPipeline:
                 hw = (max(int(round(H * sc)), 64), max(int(round(W * sc)), 64))
                 out_s, batch_s = self._graph(im.resize_bilinear(rgbs, hw))
                 px_list.append(_project_probs_device(
-                    self.predict_probs(batch_s), out_s["segments"], (H, W)))
+                    self._predict_probs_batch(batch_s), out_s["segments"],
+                    (H, W)))
             px = torch.stack(px_list).mean(dim=0)
         grays = im.rgb_to_gray(rgbs) / 255.0
         trimaps = _trimap_stage_device(
@@ -336,3 +557,24 @@ class GCNGrabCutPipeline:
                 overlay=overlay, rgba=rgba, timing=dict(timing),
                 probs=probs[b]))
         return results
+
+    def segment_bbox(self, image: np.ndarray,
+                     bbox: tuple[int, int, int, int]) -> SegmentationResult:
+        """Classic GrabCut from a bounding box (x, y, w, h).  The returned
+        trimap marks the box probable FG, its 30-pixel-eroded core FG and
+        the rest probable BG."""
+        gc = GrabCut(image, self.gc_config, device=self.device)
+        binary_mask = gc.run_with_bbox(bbox)
+
+        x, y, w, h = bbox
+        H, W = image.shape[:2]
+        trimap = np.full((H, W), TRIMAP_PROB_BG, np.uint8)
+        trimap[y:y + h, x:x + w] = TRIMAP_PROB_FG
+        inner = np.zeros((H, W), np.uint8)
+        inner[y:y + h, x:x + w] = 1
+        trimap[_erode_box(inner, 30) == 1] = TRIMAP_FG
+
+        return SegmentationResult(
+            image=image, binary_mask=binary_mask, trimap=trimap,
+            segments=np.zeros((H, W), np.int32), overlay=gc.overlay_mask(),
+            rgba=gc.crop_foreground())
