@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (gcn_grabcut_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase; needs one card
+    python3 chip_smoke.py --eval-all   # the evaluation phase on all 60
 
 Phases, each of which exits non-zero on failure:
   1. versions and the card's name and power limit;
@@ -51,10 +52,25 @@ Phases, each of which exits non-zero on failure:
      three against segment_batch on the same chunks, beside two
      segment_batch runs against each other; predict_probs on the main
      path's 1536x1536 graph (7 K1 launches) against segment_batch's
-     posteriors; K1 launched 0 times on the 512 px items.  Before them,
+     posteriors, and two apply_large runs on that graph bit for bit; K1
+     launched 0 times on the 512 px items.  Before them,
      keep-largest's fixed-order sums (20 repeats on one 512x512 mask, bit
      for bit), and a flat-colour image through the dense path on the card
-     and on the CPU (the std-Lab feature's cancellation, reported).
+     and on the CPU (the std-Lab feature's cancellation, reported);
+  8. training and the CLIs at the flagship recipe's width (ResGCNNet
+     D=128 n=6, 512 px, 500 superpixels, the geodesic prior, batch 8):
+     (a) one fp32 training step from the bgc_s42 weights on 8 prepared
+     hard-synthetic graphs, the card against the port's CPU step (loss,
+     every gradient leaf, the running statistics); (b) cli.train on 24
+     hard-synthetic images for 2 epochs in bf16 with AdamW and SGDR --
+     its files, a finite history, ms per step, graphs/s and peak memory,
+     and the final checkpoint reloading to the same weights and
+     posteriors; (c) cli.evaluate with the bgc ensemble on 16 of the 60
+     hard-synthetic evaluation images at batch 8, held against the JAX
+     package's run (tests/data/torch_eval_jax_ref.npz): the generated
+     images' and masks' sha1s, mask IoU per image, the report's mean
+     IoU; (d) cli.inference --batch 4 --fixed-size on 4 of those images
+     as PNGs, held against segment_batch at its settings.
 Phase 1 also reports whether cv2, PIL and networkx import (information
 only).  Kernel times are device times: the launches run back to back
 behind a device sleep, so the host's launch cost is not counted.
@@ -141,6 +157,29 @@ STREAM_SEEDS, STREAM_BATCH = (1, 3, 4, 6), 3
 # order differently.
 PREDICT_TOL = 1e-3
 KEEP_LARGEST_REPEATS = 20
+
+# The evaluation CLI on the hard-synthetic set (`cli.evaluate
+# --hard-synthetic EVAL_N --hard-size DENSE_HW --batch EVAL_BATCH
+# --bg-connectivity`, synthetic seed EVAL_SEED) with the bgc ensemble;
+# tests/data/torch_eval_jax_ref.npz holds the JAX package's images' and
+# masks' sha1s, masks and report on all EVAL_N
+# (tests/make_torch_eval_jax_ref.py).  The card runs the first
+# EVAL_LIMIT.
+EVAL_N, EVAL_SEED, EVAL_BATCH, EVAL_LIMIT = 60, 777, 8, 16
+EVAL_REF = "tests/data/torch_eval_jax_ref.npz"
+EVAL_MIN_IOU = 0.99        # mean per-image mask IoU against JAX's masks
+EVAL_REPORT_TOL = 0.005    # the report's mean_iou against JAX's
+INFER_IMAGES, INFER_MIN_IOU = 4, 0.999
+# Training at the flagship recipe's width (examples/ensemble_r5/README.md):
+# ResGCNNet D=128, n_layers=6, 512 px images with 500 superpixels and the
+# geodesic prior, batch 8.  One fp32 step (TF32 off, dropout 0) from
+# TRAIN_START's weights on the card against the port's CPU step.
+TRAIN_START = "examples/ensemble_r5/bgc_s42.msgpack"
+TRAIN_GRAPHS, TRAIN_CLI_SAMPLES = 8, 24
+TRAIN_LOSS_TOL = 1e-5      # the step's loss, relative
+TRAIN_GRAD_TOL = 1e-4      # each gradient leaf, of its scale ...
+TRAIN_GRAD_FLOOR = 1e-3    # ... floored at this share of the largest
+TRAIN_STATS_TOL = 1e-6     # InputNorm's running statistics after the step
 
 
 def optional_packages() -> str:
@@ -999,6 +1038,357 @@ def run_predict_probs(card: str) -> None:
     if seg_agree < 0.999 or dp > PREDICT_TOL:
         fail("predict_probs disagrees with segment_batch's posteriors")
 
+    # The SpMM plans and degree add in a fixed order: two forwards of one
+    # graph give the same bits.
+    from gcn_grabcut_torch.models.large import apply_large
+    runs = [apply_large(pipe.model, graph.graph) for _ in range(2)]
+    same = bool(torch.equal(runs[0], runs[1]))
+    print(f"apply_large twice on one {IMAGE_HW}^2 graph (K={graph.n_nodes}): "
+          f"bit-identical logits {same}; predict_probs vs segment_batch "
+          f"max |dp| {dp:.3e}", flush=True)
+    if not same:
+        fail("two apply_large runs on the same graph differ")
+
+
+def leaf_errors(got: dict, want: dict) -> float:
+    """max over gradient leaves of |got - want| / the leaf's scale, the
+    scale floored at TRAIN_GRAD_FLOOR of the largest gradient."""
+    gmax = max(float(v.abs().max()) for v in want.values())
+    return max(float((got[k].cpu() - v).abs().max())
+               / max(float(v.abs().max()), TRAIN_GRAD_FLOOR * gmax)
+               for k, v in want.items())
+
+
+def run_train_step(dev, card: str) -> list:
+    """Phase (a): one fp32 training step at the flagship width from the
+    bgc_s42 weights on TRAIN_GRAPHS prepared hard-synthetic graphs, on
+    the card against the port's CPU step.  Returns the graphs (on the
+    card)."""
+    import tempfile
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.train.trainer import TrainConfig, Trainer
+
+    root = Path(__file__).resolve().parent
+    cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
+                                   bg_connectivity=True)
+    samples = gt.make_hard_synthetic_dataset(TRAIN_GRAPHS, DENSE_HW,
+                                             seed=EVAL_SEED + 1)
+    t = time.perf_counter()
+    graphs = [r[0] for r in gt.prepare_dataset(samples, cfg)]
+    prep_s = time.perf_counter() - t
+    kw = dict(hidden_channels=HIDDEN, n_layers=N_LAYERS, dropout=0.0)
+    tcfg = TrainConfig(bf16=False, prior_dropout=0.0, weight_decay=3e-4,
+                       batch_size=TRAIN_GRAPHS, verbose=False)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            tr = Trainer("resgcn", kw, tcfg, save_dir=tmp, device=device)
+            batch = tr._bucket(graphs)
+            tr._init_state(1)
+            tr.load(str(root / TRAIN_START))
+            w = torch.ones(batch.n_graphs, device=device)
+            if name == "card":              # warm, then time a step
+                tr.loss_and_grads(batch, w)
+                tr.load(str(root / TRAIN_START))
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, grads = tr.loss_and_grads(batch, w)
+            tr.optimizer.step(grads)
+            if name == "card":
+                torch.cuda.synchronize()
+            out[name] = dict(
+                loss=float(loss), s=time.perf_counter() - t,
+                grads={k: g.cpu() for k, g in grads.items()},
+                mean=tr.model.in_norm.running_mean.cpu(),
+                var=tr.model.in_norm.running_var.cpu(),
+                params={k: p.detach().cpu()
+                        for k, p in tr.optimizer.params.items()})
+    c, h = out["card"], out["cpu"]
+    loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    grad_err = leaf_errors(c["grads"], h["grads"])
+    stats_err = max(float((c["mean"] - h["mean"]).abs().max()),
+                    float((c["var"] - h["var"]).abs().max()))
+    upd_err = max(float((c["params"][k] - h["params"][k]).abs().max())
+                  for k in h["params"])
+    print(f"training step, card vs CPU ({TRAIN_GRAPHS} x {DENSE_HW}^2 "
+          f"hard-synthetic graphs, K={graphs[0].max_nodes}, ResGCNNet "
+          f"D={HIDDEN} n={N_LAYERS} fp32 from {TRAIN_START}; {card}): "
+          f"prepare {prep_s:.3f} s, step {1e3 * c['s']:.2f} ms on the card "
+          f"({h['s']:.2f} s on the CPU); loss {c['loss']:.6f} rel err "
+          f"{loss_err:.2e} (tol {TRAIN_LOSS_TOL:.0e}); gradient err "
+          f"{grad_err:.2e} of each leaf's scale (tol {TRAIN_GRAD_TOL:.0e}); "
+          f"running stats |d| {stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e}); "
+          f"params after the AdamW step |d| {upd_err:.2e}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and stats_err <= TRAIN_STATS_TOL):
+        fail("the card's training step disagrees with the CPU's")
+    return graphs
+
+
+def run_train_cli(graphs: list, card: str) -> None:
+    """Phase (b): cli.train at the flagship recipe (bf16, AdamW with weight
+    decay 3e-4 and SGDR) on TRAIN_CLI_SAMPLES hard-synthetic 512 px images
+    for 2 epochs; its checkpoint reloads to the same bits."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.cli import train as train_cli
+    from gcn_grabcut_torch.train import trainer as trainer_mod
+
+    seen, step_s = {}, []
+    fit, step = trainer_mod.Trainer.fit, trainer_mod.Trainer.train_step
+
+    def recording_fit(self, *args, **kwargs):
+        seen["trainer"] = self
+        return fit(self, *args, **kwargs)
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return loss
+
+    trainer_mod.Trainer.fit = recording_fit
+    trainer_mod.Trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t = time.perf_counter()
+            history = train_cli.main([
+                "--hard-synthetic", str(TRAIN_CLI_SAMPLES), "--hard-size",
+                str(DENSE_HW), "--n-segments", str(DENSE_SEGMENTS),
+                "--bg-connectivity", "--epochs", "2", "--batch",
+                str(TRAIN_GRAPHS), "--save-dir", tmp])
+            wall = time.perf_counter() - t
+        finally:
+            trainer_mod.Trainer.fit = fit
+            trainer_mod.Trainer.train_step = step
+        peak = torch.cuda.max_memory_allocated()
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        saved = json.loads((Path(tmp) / "history.json").read_text())
+        trainer = seen["trainer"]
+        final = Path(tmp) / "final_model.msgpack"
+        loaded, meta = gt.load_model_from_checkpoint(final,
+                                                     dtype=torch.bfloat16)
+    sd, ld = trainer.model.state_dict(), loaded.state_dict()
+    same_weights = all(torch.equal(sd[k], ld[k]) for k in sd)
+    batch = gt.stack_graphs(graphs)
+    trainer.model.eval()
+    with torch.no_grad():
+        a = torch.softmax(trainer.model(batch).float(), dim=-1)
+        b = torch.softmax(loaded(batch).float(), dim=-1)
+    same_probs = bool(torch.equal(a, b))
+    med = float(np.median(step_s[1:]))
+    finite = all(np.isfinite(v).all() for v in saved.values() if v)
+    print(f"cli.train ({TRAIN_CLI_SAMPLES} hard-synthetic {DENSE_HW}^2, "
+          f"K=484, bg-connectivity, 2 epochs, batch {TRAIN_GRAPHS}, bf16, "
+          f"AdamW wd 3e-4 + SGDR; {card}): {wall:.2f} s in all, "
+          f"{len(step_s)} steps, median {1e3 * med:.2f} ms per step after "
+          f"the first ({TRAIN_GRAPHS / med:.1f} graphs/s), peak "
+          f"torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB; files "
+          f"{files}; train loss {[round(x, 5) for x in history['train_loss']]}"
+          f", val score {[round(x, 5) for x in history['val_score']]}; "
+          f"final checkpoint reloads: weights identical {same_weights}, "
+          f"eval posteriors identical {same_probs} (meta epoch "
+          f"{meta['epoch']})", flush=True)
+    for name in ("best_model.msgpack", "final_model.msgpack", "history.json"):
+        if name not in files:
+            fail(f"cli.train wrote no {name}")
+    if not finite:
+        fail("the training history holds a non-finite value")
+    if not (same_weights and same_probs):
+        fail("load_model_from_checkpoint(final) does not reproduce the "
+             "trained model")
+
+
+def sha1(a: np.ndarray) -> str:
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a)).hexdigest()
+
+
+def other_generator_outputs(dataset) -> list:
+    """(name, array) of the arrays the other generators and augment_sample
+    give from fixed seeds, with `dataset` the JAX package's or the port's
+    data module: make_synthetic_dataset (cv2 circles, rectangles,
+    ellipses), make_photo_synthetic_dataset (Gaussian and box blurs,
+    dilation, morphology, cubic resizes), augment_sample with every op,
+    and augment_sample's cv2 calls one at a time (warpAffine linear and
+    nearest with a reflected border, the HSV conversions, linear and
+    nearest resizes)."""
+    out = []
+    for s in dataset.make_synthetic_dataset(n=6, size=128, seed=42):
+        out += [(s["name"] + "/image", s["image"]),
+                (s["name"] + "/mask", s["gt_mask"])]
+    for s in dataset.make_photo_synthetic_dataset(n=4, size=DENSE_HW,
+                                                  seed=99):
+        out += [(s["name"] + "/image", s["image"]),
+                (s["name"] + "/mask", s["gt_mask"])]
+    base = dataset.make_hard_synthetic_dataset(n=1, size=DENSE_HW, seed=5)[0]
+    for seed in range(4):
+        img, mask = dataset.augment_sample(
+            base["image"], base["gt_mask"], np.random.RandomState(seed),
+            prob_flip=1.0, prob_rotate=1.0, prob_color=1.0, prob_crop=1.0)
+        out += [(f"augment_{seed}/image", img), (f"augment_{seed}/mask", mask)]
+    # augment_sample's cv2 calls one by one, as it makes them.
+    import cv2
+    img, mask = base["image"], base["gt_mask"]
+    hw = DENSE_HW
+    rot = cv2.getRotationMatrix2D((hw / 2.0, hw / 2.0), 11.3, 1.0)
+    crop = (slice(37, 37 + 421), slice(52, 52 + 421))
+    out += [
+        ("warpAffine/linear/reflect", cv2.warpAffine(
+            img, rot, (hw, hw), flags=cv2.INTER_LINEAR,
+            borderMode=cv2.BORDER_REFLECT)),
+        ("warpAffine/nearest/reflect", cv2.warpAffine(
+            mask, rot, (hw, hw), flags=cv2.INTER_NEAREST,
+            borderMode=cv2.BORDER_REFLECT)),
+        ("cvtColor/RGB2HSV", cv2.cvtColor(img, cv2.COLOR_RGB2HSV)),
+        ("cvtColor/HSV2RGB", cv2.cvtColor(img, cv2.COLOR_HSV2RGB)),
+        ("resize/linear", cv2.resize(img[crop], (hw, hw),
+                                     interpolation=cv2.INTER_LINEAR)),
+        ("resize/nearest", cv2.resize(mask[crop], (hw, hw),
+                                      interpolation=cv2.INTER_NEAREST))]
+    return out
+
+
+def run_eval_cli(card: str, limit: int = EVAL_LIMIT) -> list:
+    """Phase (c): cli.evaluate with the bgc ensemble on the first `limit`
+    of the EVAL_N hard-synthetic 512 px images, held against the JAX
+    package's run (tests/data/torch_eval_jax_ref.npz).  Returns the
+    (image, mask) pairs it segmented."""
+    import json
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.cli import evaluate as eval_cli
+    from gcn_grabcut_torch.data import dataset as ds
+
+    root = Path(__file__).resolve().parent
+    ref = np.load(root / EVAL_REF)
+    jax_report = json.loads(str(ref["report"]))
+    made, masks = [], []
+    make, stream = (ds.make_hard_synthetic_dataset,
+                    gt.GCNGrabCutPipeline.segment_stream)
+
+    def recording_make(*args, **kwargs):
+        made.extend(make(*args, **kwargs))
+        return list(made)
+
+    def recording_stream(self, *args, **kwargs):
+        for res in stream(self, *args, **kwargs):
+            masks.append(res.binary_mask)
+            yield res
+
+    ds.make_hard_synthetic_dataset = recording_make
+    gt.GCNGrabCutPipeline.segment_stream = recording_stream
+    try:
+        report = eval_cli.main([
+            "--checkpoint", ",".join(str(root / p) for p in DENSE_CHECKPOINTS),
+            "--hard-synthetic", str(EVAL_N), "--hard-size", str(DENSE_HW),
+            "--batch", str(EVAL_BATCH), "--bg-connectivity", "--limit",
+            str(limit)])
+    finally:
+        ds.make_hard_synthetic_dataset = make
+        gt.GCNGrabCutPipeline.segment_stream = stream
+    img_same = [sha1(s["image"]) == h for s, h in zip(made, ref["image_sha1"])]
+    mask_same = [sha1(s["gt_mask"]) == h
+                 for s, h in zip(made, ref["mask_sha1"])]
+    ious = [iou(m, np.unpackbits(ref["mask"][i], count=DENSE_HW * DENSE_HW
+                                 ).reshape(DENSE_HW, DENSE_HW))
+            for i, m in enumerate(masks)]
+    jax_mean = float(np.mean(ref["iou"][:limit]))
+    print(f"cli.evaluate (bgc ensemble, {limit} of {EVAL_N} "
+          f"hard-synthetic {DENSE_HW}^2, seed {EVAL_SEED}, batch "
+          f"{EVAL_BATCH}, bg-connectivity, ms_scales 1.0,0.75; {card}): "
+          f"{report['mean_seconds_per_image']:.4f} s per image; images "
+          f"generated {len(made)}, sha1 equal to JAX's: images "
+          f"{sum(img_same)}/{len(img_same)}, masks "
+          f"{sum(mask_same)}/{len(mask_same)}; mask IoU vs JAX per image "
+          f"{[round(x, 6) for x in ious]} (mean {np.mean(ious):.6f}, least "
+          f"{min(ious):.6f}, {sum(x == 1.0 for x in ious)} equal; min "
+          f"{EVAL_MIN_IOU}); report mean_iou {report['mean_iou']:.6f} vs "
+          f"JAX's {jax_mean:.6f} on the same {limit} (tol "
+          f"{EVAL_REPORT_TOL}); JAX's report on all {EVAL_N}: mean_iou "
+          f"{jax_report['mean_iou']:.6f}", flush=True)
+    if "other_sha1" in ref:
+        # Information only: whether this machine's OpenCV draws the other
+        # generators' and augment_sample's pixels as the JAX package's run.
+        others = other_generator_outputs(ds)
+        differ = [name for (name, a), h in zip(others, ref["other_sha1"])
+                  if sha1(a) != h]
+        print(f"other generators and augment_sample vs the JAX run's sha1s: "
+              f"{len(others) - len(differ)}/{len(others)} equal; differ: "
+              f"{differ}", flush=True)
+    if len(made) != EVAL_N or not (all(img_same) and all(mask_same)):
+        bad = [i for i, (a, b) in enumerate(zip(img_same, mask_same))
+               if not (a and b)]
+        fail(f"generated images or masks differ from JAX's: {bad}")
+    if report["n"] != limit or len(masks) != limit:
+        fail(f"evaluated {report['n']} images, recorded {len(masks)}")
+    if np.mean(ious) < EVAL_MIN_IOU:
+        fail(f"mean mask IoU against JAX {np.mean(ious):.4f}")
+    if abs(report["mean_iou"] - jax_mean) > EVAL_REPORT_TOL:
+        fail("the report's mean_iou disagrees with JAX's")
+    return [(s["image"], m) for s, m in zip(made, masks)]
+
+
+def run_inference_cli(evaluated: list, card: str) -> None:
+    """Phase (d): cli.inference --batch 4 --fixed-size with the ensemble on
+    INFER_IMAGES of phase (c)'s images, written as PNGs.  The inference
+    CLI runs one scale (neither package's has a multi-scale option), so
+    its masks are held against segment_batch at its settings on the same
+    images; phase (c)'s multi-scale masks are reported beside."""
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.cli import inference as infer_cli
+
+    root = Path(__file__).resolve().parent
+    ckpt = ",".join(str(root / p) for p in DENSE_CHECKPOINTS)
+    images = [img for img, _ in evaluated[:INFER_IMAGES]]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = Path(tmp) / "in", Path(tmp) / "out"
+        src.mkdir()
+        for i, img in enumerate(images):
+            cv2.imwrite(str(src / f"img{i}.png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        t = time.perf_counter()
+        infer_cli.main(["--checkpoint", ckpt, "--input", str(src),
+                        "--output-dir", str(out), "--batch",
+                        str(INFER_IMAGES), "--fixed-size", "--max-size",
+                        str(DENSE_HW), "--bg-connectivity", "--save", "mask",
+                        "overlay", "rgba", "trimap"])
+        wall = time.perf_counter() - t
+        files = sorted(p.name for p in out.iterdir())
+        written = [cv2.imread(str(out / f"img{i}_mask.png"), 0) > 0
+                   for i in range(len(images))]
+    model, _ = load_ensemble()
+    pipe = gt.GCNGrabCutPipeline(model, gt.SuperpixelGraphConfig(
+        n_segments=DENSE_SEGMENTS, bg_connectivity=True))
+    direct = pipe.segment_batch(images, threshold_fg=0.65, threshold_bg=0.65,
+                                filter_radius=4, want_segments=False)
+    ious = [iou(w, d.binary_mask) for w, d in zip(written, direct)]
+    vs_eval = [iou(w, m) for w, (_, m) in zip(written, evaluated)]
+    print(f"cli.inference (--batch {INFER_IMAGES} --fixed-size, bgc "
+          f"ensemble, {len(images)} PNGs of {DENSE_HW}^2; {card}): "
+          f"{wall:.3f} s, {len(files)} files; mask IoU vs segment_batch "
+          f"{[round(x, 6) for x in ious]} (min {INFER_MIN_IOU}); vs phase "
+          f"(c)'s multi-scale masks {[round(x, 6) for x in vs_eval]}",
+          flush=True)
+    if len(files) != 4 * len(images):
+        fail(f"cli.inference wrote {files}")
+    if min(ious) < INFER_MIN_IOU:
+        fail("cli.inference's masks disagree with segment_batch's")
+
 
 def check_keep_largest_repeats(dev) -> None:
     """Keep-largest's component sums run in a fixed order: repeated runs
@@ -1089,6 +1479,16 @@ def run_flat_colour(card: str) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    if sys.argv[1:] == ["--eval-all"]:
+        # The evaluation phase alone, on all EVAL_N images.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = gpu_line()
+        print(card, flush=True)
+        run_eval_cli(card, limit=EVAL_N)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]} (only --eval-all)")
     import gcn_grabcut_torch as gt     # fails outside the checkout
     from gcn_grabcut_torch import kernels
     from gcn_grabcut_torch.graph_build import num_nodes_for
@@ -1121,6 +1521,10 @@ def main() -> None:
     run_staged_paths(card)
     run_stream(card)
     run_predict_probs(card)
+    graphs = run_train_step(dev, card)
+    run_train_cli(graphs, card)
+    evaluated = run_eval_cli(card)
+    run_inference_cli(evaluated, card)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
     print(card)

@@ -13,10 +13,23 @@ with the device or the native C++ min-cut, `clean_mask`); the metrics;
 and the graph-sharded ResGCNNet forward and its gradient over a ring of
 ranks (`make_graph_mesh`, `mesh_aggregators`), whose halo is the
 hand-written ring all-gather and, backward, the ring reduce-scatter.
-Entry points run on the card unless the caller passes device="cpu".
+It trains and evaluates: the data generators and graph preparation
+(`make_hard_synthetic_dataset`, `prepare_dataset` with the JAX package's
+graph cache), the losses, the `Trainer` with the optax chain of the JAX
+package (AdamW or SGD-nesterov, SGDR / one-cycle / plateau), checkpoints
+either package reads, and the CLIs ``python -m gcn_grabcut_torch.cli.
+{train,prepare_graphs,evaluate,inference}``.  Entry points run on the
+card unless the caller passes device="cpu" (the CLIs: --cpu).
 """
 
-from .core.graph import GraphBatch, make_graph_batch
+from .core.graph import GraphBatch, make_graph_batch, pad_graph, stack_graphs
+from .data.dataset import (augment_sample, derive_trimap_labels,
+                           load_image_mask_dataset,
+                           make_hard_synthetic_dataset,
+                           make_photo_synthetic_dataset,
+                           make_synthetic_dataset, prepare_dataset,
+                           prepare_sample, split_dataset)
+from .data.hints import encode_user_hints, sample_clicks
 from .grabcut import GrabCut, GrabCutConfig, GrabCutSnapshot
 from .graph_build import (GraphBuilder, RegionGraph, SuperpixelGraph,
                           SuperpixelGraphConfig, build_graph,
@@ -25,7 +38,7 @@ from .metrics import (SegmentationMetrics, TrimapMetrics, boundary_f1,
                       evaluate, evaluate_batch, evaluate_trimap)
 from .models.convert import resgcn_from_jax
 from .models.factory import (ResGCNEnsemble, apply_model, build_model,
-                             predict_probs, probs_to_node_trimap,
+                             init_model, predict_probs, probs_to_node_trimap,
                              probs_to_trimap, project_to_pixels)
 from .models.large import apply_large
 from .models.resgcn import ResGCNNet
@@ -37,20 +50,31 @@ from .parallel.partition import mesh_aggregators, sharded_scatter_add
 from .parallel.ring import ring_all_gather, ring_reduce_scatter
 from .pipeline import (GCNGrabCutPipeline, SegmentationResult, colour_trimap,
                        refine_trimap, seed_from_prior)
-from .train.checkpoints import load_model_auto
+from .train.checkpoints import (load_ensemble_from_checkpoints,
+                                load_model_auto, load_model_from_checkpoint)
+from .train.losses import (FocalLoss, LabelSmoothingCE, TrimapLoss,
+                           focal_loss, label_smoothing_ce, trimap_loss)
+from .train.trainer import TrainConfig, Trainer
 
 __all__ = [
-    "GCNGrabCutPipeline", "GrabCut", "GrabCutConfig", "GrabCutSnapshot",
-    "GraphBatch", "GraphBuilder", "GraphMesh", "RegionGraph",
-    "ResGCNEnsemble", "ResGCNNet", "SegmentationMetrics",
-    "SegmentationResult", "SuperpixelGraph", "SuperpixelGraphConfig",
-    "TrimapMetrics", "apply_large", "apply_model", "boundary_f1",
-    "build_graph", "build_graph_batch_arrays", "build_model", "clean_mask",
-    "colour_trimap", "compute_auto_prior", "evaluate", "evaluate_batch",
-    "evaluate_trimap", "guided_filter", "load_model_auto",
-    "make_graph_batch", "make_graph_mesh", "mesh_aggregators",
-    "predict_probs", "probs_to_node_trimap", "probs_to_trimap",
-    "project_to_pixels", "refine_trimap", "resgcn_from_jax",
-    "ring_all_gather", "ring_reduce_scatter", "seed_from_prior",
-    "sharded_scatter_add",
+    "FocalLoss", "GCNGrabCutPipeline", "GrabCut", "GrabCutConfig",
+    "GrabCutSnapshot", "GraphBatch", "GraphBuilder", "GraphMesh",
+    "LabelSmoothingCE", "RegionGraph", "ResGCNEnsemble", "ResGCNNet",
+    "SegmentationMetrics", "SegmentationResult", "SuperpixelGraph",
+    "SuperpixelGraphConfig", "TrainConfig", "Trainer", "TrimapLoss",
+    "TrimapMetrics", "apply_large", "apply_model", "augment_sample",
+    "boundary_f1", "build_graph", "build_graph_batch_arrays", "build_model",
+    "clean_mask", "colour_trimap", "compute_auto_prior",
+    "derive_trimap_labels", "encode_user_hints", "evaluate",
+    "evaluate_batch", "evaluate_trimap", "focal_loss", "guided_filter",
+    "init_model", "label_smoothing_ce", "load_ensemble_from_checkpoints",
+    "load_image_mask_dataset", "load_model_auto",
+    "load_model_from_checkpoint", "make_graph_batch", "make_graph_mesh",
+    "make_hard_synthetic_dataset", "make_photo_synthetic_dataset",
+    "make_synthetic_dataset", "mesh_aggregators", "pad_graph",
+    "predict_probs", "prepare_dataset", "prepare_sample",
+    "probs_to_node_trimap", "probs_to_trimap", "project_to_pixels",
+    "refine_trimap", "resgcn_from_jax", "ring_all_gather",
+    "ring_reduce_scatter", "sample_clicks", "seed_from_prior",
+    "sharded_scatter_add", "split_dataset", "stack_graphs", "trimap_loss",
 ]

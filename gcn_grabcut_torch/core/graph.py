@@ -13,8 +13,10 @@ features.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 N_IMAGE_FEATS = 16
 N_PRIOR_FEATS = 3
@@ -39,8 +41,8 @@ class GraphBatch:
 
     x (G, N, F) float32, edge_src / edge_dst (G, E) int64, edge_attr
     (G, E, Fe) float32, node_mask / edge_mask / node_area (G, N | E)
-    float32.  The training targets (fg_ratio, y) come with the training
-    slice.
+    float32.  The training targets, fg_ratio (G, N) float32 and y (G, N)
+    int64, are None on a graph built for inference.
     """
     x: torch.Tensor
     edge_src: torch.Tensor
@@ -49,6 +51,8 @@ class GraphBatch:
     node_mask: torch.Tensor
     edge_mask: torch.Tensor
     node_area: torch.Tensor
+    fg_ratio: Optional[torch.Tensor] = None
+    y: Optional[torch.Tensor] = None
 
     @property
     def n_graphs(self) -> int:
@@ -59,17 +63,30 @@ class GraphBatch:
         return self.x.shape[1]
 
     @property
+    def max_edges(self) -> int:
+        return self.edge_src.shape[1]
+
+    @property
     def device(self) -> torch.device:
         return self.x.device
 
+    def map(self, fn) -> "GraphBatch":
+        """A GraphBatch of fn(field) over every field that is set."""
+        return GraphBatch(**{
+            f.name: None if getattr(self, f.name) is None
+            else fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
+
     def graph(self, b: int) -> "GraphBatch":
         """Graph `b` as a G=1 batch (views, no copies)."""
-        return GraphBatch(**{f.name: getattr(self, f.name)[b:b + 1]
-                             for f in dataclasses.fields(self)})
+        return self.map(lambda a: a[b:b + 1])
+
+    def to(self, device) -> "GraphBatch":
+        return self.map(lambda a: a.to(device))
 
 
 def make_graph_batch(x, edge_src, edge_dst, edge_attr, node_mask, edge_mask,
-                     node_area=None, device=None) -> GraphBatch:
+                     node_area=None, device=None, fg_ratio=None, y=None
+                     ) -> GraphBatch:
     """Build a GraphBatch from arrays or tensors; `node_area` defaults to
     1 / (valid node count).  `device=None` keeps tensors where they are
     (numpy inputs land on the CPU)."""
@@ -86,7 +103,51 @@ def make_graph_batch(x, edge_src, edge_dst, edge_attr, node_mask, edge_mask,
     return GraphBatch(
         x=f32(x), edge_src=i64(edge_src), edge_dst=i64(edge_dst),
         edge_attr=f32(edge_attr), node_mask=node_mask,
-        edge_mask=f32(edge_mask), node_area=f32(node_area))
+        edge_mask=f32(edge_mask), node_area=f32(node_area),
+        fg_ratio=None if fg_ratio is None else f32(fg_ratio),
+        y=None if y is None else i64(y))
+
+
+def stack_graphs(graphs: list) -> GraphBatch:
+    """Stack batches with identical static budgets into one batch (JAX
+    ``core/graph.py:212``).  A training target set on some graphs and not
+    on others is an error."""
+    if not graphs:
+        raise ValueError("empty graph list")
+    out = {}
+    for f in dataclasses.fields(GraphBatch):
+        parts = [getattr(g, f.name) for g in graphs]
+        if all(p is None for p in parts):
+            out[f.name] = None
+        elif any(p is None for p in parts):
+            raise ValueError(f"{f.name} is set on some graphs only")
+        else:
+            out[f.name] = torch.cat(parts, dim=0)
+    return GraphBatch(**out)
+
+
+def pad_graph(g: GraphBatch, max_nodes: int, max_edges: int) -> GraphBatch:
+    """Grow a batch's static (N, E) budgets; the new slots are masked
+    zeros (JAX ``core/graph.py:218``)."""
+    dn, de = max_nodes - g.max_nodes, max_edges - g.max_edges
+    if dn < 0 or de < 0:
+        raise ValueError(f"cannot shrink ({g.max_nodes}, {g.max_edges}) to "
+                         f"({max_nodes}, {max_edges})")
+    if dn == 0 and de == 0:
+        return g
+
+    def pad(a, count):
+        if a is None or count == 0:
+            return a
+        widths = [0, 0] * (a.dim() - 2) + [0, count]
+        return F.pad(a, widths)
+
+    return GraphBatch(
+        x=pad(g.x, dn), edge_src=pad(g.edge_src, de),
+        edge_dst=pad(g.edge_dst, de), edge_attr=pad(g.edge_attr, de),
+        node_mask=pad(g.node_mask, dn), edge_mask=pad(g.edge_mask, de),
+        node_area=pad(g.node_area, dn), fg_ratio=pad(g.fg_ratio, dn),
+        y=pad(g.y, dn))
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = 1
@@ -99,7 +160,7 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = 1
     while m.dim() < s.dim():
         m = m[..., None]
     s = torch.where(m > 0, s, torch.full_like(s, NEG_INF))
-    s = s - s.amax(dim=dim, keepdim=True)
+    s = s - s.amax(dim=dim, keepdim=True).detach()
     ex = torch.exp(s) * m
     tot = ex.sum(dim=dim, keepdim=True)
     return (ex / (tot + 1e-12)).to(dtype)

@@ -10,6 +10,9 @@ that tree, as nested dicts of numpy arrays, becomes a ResGCNNet
 * InputNorm ``batch_stats`` mean / var -> the ``running_mean`` /
   ``running_var`` buffers.
 
+`param_table` lists the correspondence parameter by parameter; the
+trainer writes Adam's moments and the LR groups through it.
+
 The port's own seeded initialisation is ``ResGCNNet(generator=...)``.
 """
 
@@ -59,33 +62,73 @@ def _n_leaves(tree) -> int:
     return 1
 
 
+def param_table(n_layers: int) -> list[tuple[str, tuple, bool]]:
+    """(port parameter name, flax parameter path, transposed?) for every
+    parameter of a ResGCNNet with `n_layers` blocks."""
+    dense, norms = _layout(n_layers)
+    table = []
+    for path, prefix in dense.items():
+        table.append((f"{prefix}.weight", path + ("kernel",), True))
+        if not prefix.startswith(("convs.", "sage.lin_r")):
+            table.append((f"{prefix}.bias", path + ("bias",), False))
+    for path, prefix in norms.items():
+        table.append((f"{prefix}.weight", path + ("scale",), False))
+        table.append((f"{prefix}.bias", path + ("bias",), False))
+    table += [(f"convs.{i}.bias", (f"gcn_{i}", "bias"), False)
+              for i in range(n_layers)]
+    table += [("jk_logits", ("jk_logits",), False),
+              ("in_norm.weight", ("in_norm", "scale"), False),
+              ("in_norm.bias", ("in_norm", "bias"), False)]
+    return table
+
+
+def flax_path(name: str, n_layers: int) -> tuple:
+    """The flax parameter path of a port parameter name."""
+    for n, path, _ in param_table(n_layers):
+        if n == name:
+            return path
+    raise KeyError(f"{name!r} is not a ResGCNNet parameter")
+
+
+def params_tree(named: dict, n_layers: int) -> dict:
+    """{port parameter name: tensor or array} -> the flax params tree of
+    float32 numpy arrays (Dense kernels transposed back to (in, out)).
+    Any tree shaped like the parameters maps so: Adam's moments too."""
+    tree: dict = {}
+    for name, path, transposed in param_table(n_layers):
+        a = named[name]
+        a = np.array(a.detach().cpu() if torch.is_tensor(a) else a,
+                     dtype=np.float32)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a.T.copy() if transposed else a
+    return tree
+
+
+def named_from_params_tree(tree: dict) -> dict[str, torch.Tensor]:
+    """The inverse of `params_tree`: float32 CPU tensors by port name.
+    Raises if any leaf of the tree is left unmapped."""
+    n_layers = _n_layers(tree)
+    out = {}
+    for name, path, transposed in param_table(n_layers):
+        t = torch.from_numpy(np.array(_get(tree, path), dtype=np.float32))
+        out[name] = t.T.contiguous() if transposed else t
+    if len(out) != _n_leaves(tree):
+        raise ValueError(f"mapped {len(out)} tensors from a tree of "
+                         f"{_n_leaves(tree)} leaves")
+    return out
+
+
 def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     """flax {"params", "batch_stats"} tree -> ResGCNNet state_dict.  Raises
     if any leaf of the tree is left unmapped."""
-    params, stats = variables["params"], variables["batch_stats"]
-    n_layers = _n_layers(params)
-    dense, norms = _layout(n_layers)
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {}
-    for path, prefix in dense.items():
-        node = _get(params, path)
-        sd[f"{prefix}.weight"] = t(node["kernel"]).T.contiguous()
-        if "bias" in node:
-            sd[f"{prefix}.bias"] = t(node["bias"])
-    for path, prefix in norms.items():
-        node = _get(params, path)
-        sd[f"{prefix}.weight"] = t(node["scale"])
-        sd[f"{prefix}.bias"] = t(node["bias"])
-    for i in range(n_layers):
-        sd[f"convs.{i}.bias"] = t(params[f"gcn_{i}"]["bias"])
-    sd["jk_logits"] = t(params["jk_logits"])
-    sd["in_norm.weight"] = t(params["in_norm"]["scale"])
-    sd["in_norm.bias"] = t(params["in_norm"]["bias"])
-    sd["in_norm.running_mean"] = t(stats["in_norm"]["mean"])
-    sd["in_norm.running_var"] = t(stats["in_norm"]["var"])
+    sd = named_from_params_tree(variables["params"])
+    stats = variables["batch_stats"]
+    sd["in_norm.running_mean"] = torch.from_numpy(
+        np.array(stats["in_norm"]["mean"], dtype=np.float32))
+    sd["in_norm.running_var"] = torch.from_numpy(
+        np.array(stats["in_norm"]["var"], dtype=np.float32))
     if len(sd) != _n_leaves(variables):
         raise ValueError(f"mapped {len(sd)} tensors from a tree of "
                          f"{_n_leaves(variables)} leaves")
@@ -94,33 +137,12 @@ def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
 
 def jax_variables_from_state_dict(state_dict: dict) -> dict:
     """The inverse of `state_dict_from_jax`: nested dicts of numpy arrays."""
-    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
-    n_layers = sum(1 for k in sd if k.startswith("convs.")
+    n_layers = sum(1 for k in state_dict if k.startswith("convs.")
                    and k.endswith(".bias"))
-    dense, norms = _layout(n_layers)
-    params: dict = {}
-
-    def put(path, leaf, value):
-        node = params
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = value
-
-    for path, prefix in dense.items():
-        put(path, "kernel", sd[f"{prefix}.weight"].T.copy())
-        if f"{prefix}.bias" in sd:
-            put(path, "bias", sd[f"{prefix}.bias"])
-    for path, prefix in norms.items():
-        put(path, "scale", sd[f"{prefix}.weight"])
-        put(path, "bias", sd[f"{prefix}.bias"])
-    for i in range(n_layers):
-        put((f"gcn_{i}",), "bias", sd[f"convs.{i}.bias"])
-    params["jk_logits"] = sd["jk_logits"]
-    put(("in_norm",), "scale", sd["in_norm.weight"])
-    put(("in_norm",), "bias", sd["in_norm.bias"])
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     stats = {"in_norm": {"mean": sd["in_norm.running_mean"],
                          "var": sd["in_norm.running_var"]}}
-    return {"params": params, "batch_stats": stats}
+    return {"params": params_tree(sd, n_layers), "batch_stats": stats}
 
 
 def resgcn_from_jax(variables: dict, device=None) -> ResGCNNet:

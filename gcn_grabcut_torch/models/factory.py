@@ -1,13 +1,15 @@
 """Model factory and the eval-mode prediction helpers.
 
 Counterpart of the inference side of ``gcn_grabcut_tpu/models/factory.py``:
-`build_model`, the M-member inference ensemble (the JAX package's
+`build_model`, `init_model`, the M-member inference ensemble (the JAX package's
 ``stack_variables`` bundle, here a module holding its members),
 `apply_model` and `predict_probs`, and the helpers that turn per-region
 posteriors into trimaps and pixel planes.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -16,23 +18,50 @@ from torch import nn
 from ..core.graph import (CLASS_BG, CLASS_FG, N_EDGE_FEATS, N_NODE_FEATS,
                           TRIMAP_BG, TRIMAP_FG, TRIMAP_PROB_BG,
                           TRIMAP_PROB_FG, GraphBatch)
-from .layers import dense_aggregators
+from .layers import GCNConv, InputNorm, dense_aggregators, reset_parameters
 from .resgcn import ResGCNNet
 
 
 def build_model(variant: str = "resgcn", in_channels: int = N_NODE_FEATS,
                 edge_channels: int = N_EDGE_FEATS,
                 hidden_channels: int = 128, n_layers: int = 6,
-                n_classes: int = 3,
+                n_classes: int = 3, dropout: float = 0.2,
+                dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None) -> nn.Module:
-    """variant: "resgcn"; the GCN and GAT variants raise."""
+    """variant: "resgcn"; the GCN and GAT variants raise.  `dtype` is the
+    compute dtype (None: float32); `generator` seeds the initialisation."""
     if variant != "resgcn":
         raise NotImplementedError(
             f"variant {variant!r} comes with ROADMAP queue 1 item 6 (the "
             "GCN/GAT variants)")
     return ResGCNNet(in_channels=in_channels, edge_channels=edge_channels,
                      hidden_channels=hidden_channels, n_layers=n_layers,
-                     n_classes=n_classes, generator=generator)
+                     n_classes=n_classes, dropout=dropout, dtype=dtype,
+                     generator=generator)
+
+
+def init_model(model: nn.Module, seed=0) -> nn.Module:
+    """(Re)initialise `model` in place from a seed or a CPU
+    torch.Generator: the JAX package's initialisers (Kaiming-normal Dense
+    kernels, zero biases, unit scales, zero JK logits) and fresh running
+    statistics, drawn on the CPU wherever the model lives.  Returns it."""
+    generator = seed if isinstance(seed, torch.Generator) else \
+        torch.Generator().manual_seed(int(seed))
+    fresh = copy.deepcopy(model).cpu()
+    reset_parameters(fresh, generator)
+    with torch.no_grad():
+        for m in fresh.modules():
+            if isinstance(m, InputNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, GCNConv):
+                m.bias.zero_()
+        if isinstance(getattr(fresh, "jk_logits", None), nn.Parameter):
+            fresh.jk_logits.zero_()
+    model.load_state_dict(fresh.state_dict())
+    return model
 
 
 class ResGCNEnsemble(nn.Module):

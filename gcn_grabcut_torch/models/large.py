@@ -18,6 +18,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.graph import GraphBatch
+from ..ops.region import segment_sum
 from ..ops.spmm import SpmmPlan, banded_spmm, spmm_plan, spmm_plan_device
 
 #: band dtype per precision: "default" contracts in bf16 (the JAX default
@@ -53,7 +54,7 @@ def _gcn_edge_weights_device(src, dst, mask, n_nodes: int):
     src = src.long().clamp(0, n_nodes - 1)
     dst = dst.long().clamp(0, n_nodes - 1)
     m = mask.float()
-    deg = torch.zeros(n_nodes, device=m.device).index_add_(0, dst, m)
+    deg = segment_sum(dst, m, n_nodes)     # fixed order on every device
     dhat = deg + 1.0
     dis = torch.rsqrt(dhat)
     g_w = dis[src] * dis[dst] * m          # neighbour term

@@ -1,9 +1,14 @@
 """Graph-NN building blocks over dense-padded batches.
 
-Counterpart of ``gcn_grabcut_tpu/models/layers.py`` (eval forward).  Two
-flax conventions are kept so that converted weights compute the same
-function: LayerNorm eps is 1e-6 (torch's default is 1e-5), and GELU is the
-tanh approximation (flax ``nn.gelu`` default).
+Counterpart of ``gcn_grabcut_tpu/models/layers.py``.  Two flax conventions
+are kept so that converted weights compute the same function: LayerNorm eps
+is 1e-6 (torch's default is 1e-5), and GELU is the tanh approximation (flax
+``nn.gelu`` default).
+
+A compute dtype mirrors flax's ``dtype=`` argument: parameters stay
+float32, a `Linear` casts its input, weight and bias to the compute dtype,
+a `LayerNorm` takes its statistics in float32 and returns the compute
+dtype.  None (the default) computes in the input's dtype, float32 here.
 
 Aggregation is a callable h -> aggregated h: the dense (G, N, N)
 normalised adjacencies of `dense_aggregators` (one ``torch.bmm`` per
@@ -29,8 +34,52 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def layer_norm(features: int) -> nn.LayerNorm:
-    return nn.LayerNorm(features, eps=LN_EPS)
+class Linear(nn.Linear):
+    """nn.Linear in a compute dtype (flax ``nn.Dense(dtype=...)``)."""
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with float32 statistics, returning the compute dtype
+    (flax ``nn.LayerNorm(dtype=...)``)."""
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype or x.dtype)
+
+
+def layer_norm(features: int) -> LayerNorm:
+    return LayerNorm(features, eps=LN_EPS)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
+    1 / (1 - rate); the draws come from `generator` (torch's default
+    generator when None).  Identity outside training."""
+    if not training or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device
+                      ) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None) -> None:
+    """Set the compute dtype of every Linear, LayerNorm and InputNorm."""
+    for m in module.modules():
+        if isinstance(m, (Linear, LayerNorm, InputNorm)):
+            m.compute_dtype = dtype
 
 
 def dense_adjacency(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -59,9 +108,11 @@ def mean_adjacency(adj: torch.Tensor) -> torch.Tensor:
 
 
 def _as_aggregate(adj: torch.Tensor):
-    """A dense (G, N, N) matrix as an aggregation callable, fp32."""
+    """A dense (G, N, N) matrix as an aggregation callable: the matrix is
+    rounded to h's dtype, the products accumulate in float32 and the
+    result is h's dtype (JAX ``preferred_element_type=float32``)."""
     def agg(h):
-        return torch.bmm(adj, h.float()).to(h.dtype)
+        return torch.bmm(adj.to(h.dtype).float(), h.float()).to(h.dtype)
     return agg
 
 
@@ -99,11 +150,12 @@ class GCNConv(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.lin = nn.Linear(in_features, features, bias=False)
+        self.lin = Linear(in_features, features, bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, propagate):
-        return propagate(self.lin(x)) + self.bias
+        out = propagate(self.lin(x))
+        return out + self.bias.to(out.dtype)
 
 
 class SAGEConv(nn.Module):
@@ -111,8 +163,8 @@ class SAGEConv(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.lin_l = nn.Linear(in_features, features, bias=True)
-        self.lin_r = nn.Linear(in_features, features, bias=False)
+        self.lin_l = Linear(in_features, features, bias=True)
+        self.lin_r = Linear(in_features, features, bias=False)
 
     def forward(self, x, propagate):
         return self.lin_l(propagate(x)) + self.lin_r(x)
@@ -125,10 +177,10 @@ class EdgeContext(nn.Module):
     def __init__(self, edge_features: int, hidden_dim: int):
         super().__init__()
         ctx_dim = max(hidden_dim // 2, 8)
-        self.fc0 = nn.Linear(edge_features, ctx_dim)
-        self.fc1 = nn.Linear(ctx_dim, ctx_dim)
+        self.fc0 = Linear(edge_features, ctx_dim)
+        self.fc1 = Linear(ctx_dim, ctx_dim)
         self.norm = layer_norm(ctx_dim)
-        self.gate = nn.Linear(ctx_dim, hidden_dim)
+        self.gate = Linear(ctx_dim, hidden_dim)
 
     def forward(self, edge_attr, edge_dst, edge_mask, n_nodes: int):
         h = self.fc1(gelu(self.fc0(edge_attr)))             # (G, E, C)
@@ -150,9 +202,9 @@ class GlobalContext(nn.Module):
 
     def __init__(self, hidden_dim: int):
         super().__init__()
-        self.attn = nn.Linear(hidden_dim, 1)
-        self.compress = nn.Linear(hidden_dim, hidden_dim // 2)
-        self.expand = nn.Linear(hidden_dim // 2, hidden_dim)
+        self.attn = Linear(hidden_dim, 1)
+        self.compress = Linear(hidden_dim, hidden_dim // 2)
+        self.expand = Linear(hidden_dim // 2, hidden_dim)
 
     def forward(self, x, node_mask):
         w = masked_softmax(self.attn(x)[..., 0], node_mask, dim=1)[..., None]
@@ -162,17 +214,49 @@ class GlobalContext(nn.Module):
 
 
 class InputNorm(nn.Module):
-    """Masked BatchNorm1d analog, eval mode: running statistics only."""
+    """Masked BatchNorm1d analog with running statistics (JAX
+    ``layers.py:309-351``).
 
-    def __init__(self, n_features: int, eps: float = 1e-5):
+    Training normalises with the batch statistics over valid nodes (biased
+    variance) and updates the running ones with momentum 0.05 (unbiased
+    variance); with fewer than two valid nodes it uses and keeps the
+    running statistics.  Evaluation uses the running statistics.  The
+    arithmetic is float32; the output is the compute dtype, else x's."""
+    compute_dtype: torch.dtype | None = None
+
+    def __init__(self, n_features: int, momentum: float = 0.05,
+                 eps: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(n_features))
         self.bias = nn.Parameter(torch.zeros(n_features))
         self.register_buffer("running_mean", torch.zeros(n_features))
         self.register_buffer("running_var", torch.ones(n_features))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return ((x.float() - self.running_mean) * inv * self.weight
-                + self.bias).to(x.dtype)
+    def forward(self, x, node_mask=None):
+        xf = x.float()
+        if self.training:
+            if node_mask is None:
+                raise ValueError("InputNorm needs node_mask in training")
+            m = node_mask.float()[..., None]
+            count = m.sum(dim=(0, 1)).clamp_min(1.0)
+            mean = (xf * m).sum(dim=(0, 1)) / count
+            var = (((xf - mean) ** 2) * m).sum(dim=(0, 1)) / count
+            use_batch = count >= 2.0
+            mean = torch.where(use_batch, mean, self.running_mean)
+            var = torch.where(use_batch, var, self.running_var)
+            with torch.no_grad():
+                unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                mo = self.momentum
+                self.running_mean.copy_(torch.where(
+                    use_batch, (1 - mo) * self.running_mean + mo * mean,
+                    self.running_mean))
+                self.running_var.copy_(torch.where(
+                    use_batch, (1 - mo) * self.running_var + mo * unbiased,
+                    self.running_var))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        y = (xf - mean) * inv * self.weight + self.bias
+        return y.to(self.compute_dtype or x.dtype)

@@ -1,13 +1,16 @@
 """ResGCNNet — the flagship residual GCN with jumping-knowledge fusion.
 
-Counterpart of ``gcn_grabcut_tpu/models/resgcn.py`` (eval forward):
+Counterpart of ``gcn_grabcut_tpu/models/resgcn.py``:
 
     InputNorm -> InputProj -> PriorBooster -> [pre-norm ResBlock x n] ->
     SAGE branch -> JK softmax fusion -> GlobalContext -> fuse -> head
 
 Aggregation comes from (gcn_propagate, mean_propagate) callables: the
 dense adjacencies built once per forward by default, the banded SpMM on
-the large-graph path (``models/large.py``).
+the large-graph path (``models/large.py``).  `train()` mode computes the
+InputNorm's batch statistics (and updates its running ones) and applies
+dropout drawn from the forward's `generator`; `dtype=torch.bfloat16` is
+flax's ``dtype=bfloat16`` (``layers.py``).
 """
 
 from __future__ import annotations
@@ -16,9 +19,9 @@ import torch
 from torch import nn
 
 from ..core.graph import GraphBatch, N_PRIOR_FEATS
-from .layers import (EdgeContext, GCNConv, GlobalContext, InputNorm,
-                     SAGEConv, dense_aggregators, gelu, layer_norm,
-                     reset_parameters)
+from .layers import (EdgeContext, GCNConv, GlobalContext, InputNorm, Linear,
+                     SAGEConv, dense_aggregators, dropout, gelu, layer_norm,
+                     reset_parameters, set_compute_dtype)
 
 
 class ResGCNNet(nn.Module):
@@ -27,15 +30,18 @@ class ResGCNNet(nn.Module):
 
     def __init__(self, in_channels: int = 19, edge_channels: int = 5,
                  hidden_channels: int = 128, n_layers: int = 6,
-                 n_classes: int = 3, generator: torch.Generator | None = None):
+                 n_classes: int = 3, dropout: float = 0.15,
+                 dtype: torch.dtype | None = None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         D = hidden_channels
         self.n_layers = n_layers
+        self.dropout = dropout
         self.in_norm = InputNorm(in_channels)
-        self.input_proj = nn.Linear(in_channels, D)
+        self.input_proj = Linear(in_channels, D)
         self.input_ln = layer_norm(D)
-        self.prior_fc1 = nn.Linear(N_PRIOR_FEATS, max(D // 4, 8))
-        self.prior_fc2 = nn.Linear(max(D // 4, 8), D)
+        self.prior_fc1 = Linear(N_PRIOR_FEATS, max(D // 4, 8))
+        self.prior_fc2 = Linear(max(D // 4, 8), D)
         self.edge_ctx = EdgeContext(edge_channels, D)
         self.norms = nn.ModuleList(layer_norm(D) for _ in range(n_layers))
         self.convs = nn.ModuleList(GCNConv(D, D) for _ in range(n_layers))
@@ -44,21 +50,30 @@ class ResGCNNet(nn.Module):
         self.jk_logits = nn.Parameter(torch.zeros(n_layers + 2))
         self.ctx = GlobalContext(D)
         self.fuse_ln = layer_norm(D)
-        self.fuse_fc = nn.Linear(D, D)
-        self.head = nn.Linear(D, n_classes)
+        self.fuse_fc = Linear(D, D)
+        self.head = Linear(D, n_classes)
+        set_compute_dtype(self, dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
+        # Built in eval mode, as flax's `train` flag defaults to False;
+        # the trainer switches to train() for its steps.
+        self.eval()
 
-    def forward(self, g: GraphBatch, aggregators=None) -> torch.Tensor:
-        """(G, N, n_classes) logits.  `aggregators` = (gcn_propagate,
-        mean_propagate) callables over (G, N, D) tensors; None builds the
-        dense ones from `g`."""
+    def forward(self, g: GraphBatch, aggregators=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(G, N, n_classes) logits, in the compute dtype.  `aggregators` =
+        (gcn_propagate, mean_propagate) callables over (G, N, D) tensors;
+        None builds the dense ones from `g`.  `generator` draws the dropout
+        masks in training (on the tensors' device)."""
         adj_gcn, adj_mean = aggregators or dense_aggregators(g)
         x = g.x
         prior = x[..., -N_PRIOR_FEATS:]
 
-        h = self.in_norm(x)
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
+
+        h = self.in_norm(x, g.node_mask)
         h = gelu(self.input_ln(self.input_proj(h)))
         pb = torch.sigmoid(self.prior_fc2(gelu(self.prior_fc1(prior))))
         h = h * (1.0 + pb)
@@ -67,7 +82,7 @@ class ResGCNNet(nn.Module):
                              g.max_nodes).to(h.dtype)
         states = [h]
         for norm, conv in zip(self.norms, self.convs):
-            h = h + gelu(conv(norm(h), adj_gcn) * gate)
+            h = h + drop(gelu(conv(norm(h), adj_gcn) * gate))
             states.append(h)
 
         sage = gelu(self.sage_norm(self.sage(h, adj_mean)))
@@ -76,5 +91,36 @@ class ResGCNNet(nn.Module):
         w = torch.softmax(self.jk_logits.float(), dim=0).to(h.dtype)
         h_jk = torch.einsum("k,kgnd->gnd", w, torch.stack(states))
         h_jk = self.ctx(h_jk, g.node_mask)
-        out = gelu(self.fuse_fc(self.fuse_ln(h_jk)))
+        out = drop(gelu(self.fuse_fc(self.fuse_ln(h_jk))))
         return self.head(out)
+
+    def layer_weights(self) -> torch.Tensor:
+        """Fusion weights over [input, block 1..n, SAGE] (JAX
+        ``ResGCNNet.layer_weights``)."""
+        return torch.softmax(self.jk_logits.detach().float(), dim=0)
+
+
+def resgcn_lr_label(path, n_layers: int) -> str:
+    """A parameter's layer-wise LR group: GCN block i -> "block_i"; the
+    input stack -> "input"; edge/SAGE/context -> "mid"; jk/fuse/head ->
+    "head" (JAX ``resgcn.py:117-137``).  `path` is a flax parameter path
+    (a tuple) or a port parameter name, mapped onto the flax path through
+    ``models/convert.py``'s layout."""
+    if isinstance(path, str):
+        from .convert import flax_path
+        path = flax_path(path, n_layers)
+    top = path[0] if path else ""
+    for i in range(n_layers):
+        if top in (f"gcn_{i}", f"norm_{i}"):
+            return f"block_{i}"
+    if top in ("in_norm", "input_proj", "input_ln", "prior_fc1", "prior_fc2"):
+        return "input"
+    if top in ("edge_ctx", "sage", "sage_norm", "ctx"):
+        return "mid"
+    return "head"
+
+
+def resgcn_group_scales(n_layers: int) -> dict[str, float]:
+    scales = {f"block_{i}": 0.8 ** (n_layers - i) for i in range(n_layers)}
+    scales.update(input=0.5, mid=0.9, head=1.0)
+    return scales

@@ -11,7 +11,9 @@ with row blocks of R rows and K source sub-blocks at offsets k - K//2,
 and the product is, per destination block b,
 ``out_b = sum_k band[k, bR:(b+1)R, :] @ x[(b+k-K//2)R : (b+k-K//2+1)R]``
 with rows of x outside [0, n) read as zero.  Out-of-window edges go through
-a segment-sum fallback (``index_add_``) outside the kernel.
+a segment-sum fallback outside the kernel.  The device plan's band and the
+fallback add in a fixed order (``ops.region.segment_sum``), so two runs
+on the card give the same bits.
 
 On a CUDA tensor `banded_spmm` always launches the hand-written kernel
 (``csrc/banded_spmm.cu``); there is no fallback to the plain version, and a
@@ -32,6 +34,8 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .region import segment_sum
 
 
 @dataclasses.dataclass
@@ -95,8 +99,8 @@ def spmm_plan_device(src: torch.Tensor, dst: torch.Tensor,
     As in the JAX package, zero-weight (masked / padded) edges are kept but
     contribute nothing, and the fallback list is all E edges with in-window
     weights zeroed rather than a compacted list (static shapes, no host
-    sync).  The band is accumulated with ``index_add_``, whose float atomics
-    on CUDA add duplicate slots in no fixed order (last-ulp differences)."""
+    sync).  Duplicate slots of the band add in edge order through
+    ``segment_sum`` (on the CPU bit for bit ``index_add_``'s sums)."""
     n_pad, k_blocks = _layout(n_nodes, block_rows, window)
     src = src.long().clamp(0, n_pad - 1)
     dst = dst.long().clamp(0, n_pad - 1)
@@ -107,8 +111,7 @@ def spmm_plan_device(src: torch.Tensor, dst: torch.Tensor,
     idx = torch.where(in_w, (k * n_pad + dst) * block_rows
                       + src % block_rows, torch.zeros_like(k))
     w_in = torch.where(in_w, weight, torch.zeros_like(weight))
-    band = torch.zeros(k_blocks * n_pad * block_rows, dtype=torch.float32,
-                       device=src.device).index_add_(0, idx, w_in)
+    band = segment_sum(idx, w_in, k_blocks * n_pad * block_rows)
 
     w_fb = torch.where(in_w, torch.zeros_like(weight), weight)
     order = torch.argsort(dst, stable=True)
@@ -182,8 +185,10 @@ def banded_spmm(x: torch.Tensor, plan: SpmmPlan) -> torch.Tensor:
     N <= plan.n_nodes; returns (N, D) float32.
 
     CUDA tensors go through the kernel, CPU tensors through
-    `banded_spmm_plain`; the out-of-window fallback is an ``index_add_``
-    in float32 on either device."""
+    `banded_spmm_plain`; the out-of-window fallback adds each row's
+    fallback products to it in edge order, in float32 on either device
+    (``segment_sum`` over the band's rows followed by the products: on
+    the CPU bit for bit an ``index_add_`` into the band's output)."""
     n = x.shape[0]
     if n > plan.n_nodes:
         raise ValueError(f"x has {n} rows, the plan {plan.n_nodes}")
@@ -193,8 +198,11 @@ def banded_spmm(x: torch.Tensor, plan: SpmmPlan) -> torch.Tensor:
         out = banded_spmm_plain(x, plan.band)
     if plan.fb_src.numel():
         xf = F.pad(x.float(), (0, 0, 0, plan.n_nodes - n))
-        out.index_add_(0, plan.fb_dst,
-                       xf[plan.fb_src] * plan.fb_weight[:, None])
+        rows = torch.arange(plan.n_nodes, device=out.device)
+        out = segment_sum(
+            torch.cat([rows, plan.fb_dst]),
+            torch.cat([out, xf[plan.fb_src] * plan.fb_weight[:, None]]),
+            plan.n_nodes)
     return out[:n]
 
 

@@ -1,7 +1,7 @@
-"""Checkpoint loading: the JAX package's msgpack checkpoints, read without
-flax or msgpack.
+"""Checkpoint I/O in the JAX package's msgpack format, without flax or
+msgpack.
 
-Counterpart of the load side of ``gcn_grabcut_tpu/train/checkpoints.py``.
+Counterpart of ``gcn_grabcut_tpu/train/checkpoints.py``.
 A checkpoint is a flax ``msgpack_serialize`` tree: a map with ``params``,
 ``batch_stats``, ``meta_json`` (the JSON metadata as a uint8 array) and
 optionally ``opt_state``.  flax writes arrays as msgpack ext type 1 and
@@ -9,12 +9,16 @@ numpy scalars as ext type 3, each holding a msgpack array ``[shape,
 dtype name, raw C-order bytes]``.  `msgpack_restore` decodes the subset
 of msgpack flax writes into the same tree flax's own ``msgpack_restore``
 gives: dicts, lists, str, bytes, int, float, bool, None and numpy arrays.
-The weights then go through ``models/convert.py``.
+The weights then go through ``models/convert.py``.  `msgpack_serialize`
+encodes the same subset the way flax's ``msgpack_serialize`` does (ext-1
+arrays, ext-3 numpy scalars, maps, arrays, strings, bytes, ints, floats,
+bools, nil), so `save_checkpoint` writes files the JAX package reads.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 from pathlib import Path
 
@@ -125,6 +129,101 @@ def _decode_ext(code: int, data: bytes):
     raise ValueError(f"unknown msgpack ext type {code}")
 
 
+def _pack_len(out: bytearray, n: int, small: int | None, small_max: int,
+              codes: tuple) -> None:
+    """A length header: `small | n` below `small_max`, else the 8/16/32-bit
+    form of `codes` (None where the 8-bit form does not exist)."""
+    if small is not None and n < small_max:
+        out.append(small | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 1 << 16:
+        out += struct.pack(">BH", codes[1], n)
+    elif n < 1 << 32:
+        out += struct.pack(">BI", codes[2], n)
+    else:
+        raise ValueError(f"msgpack cannot frame {n} items or bytes")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -0x20 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v >= 0:
+        for code, fmt, top in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                               (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+            if v < top:
+                out += struct.pack(">B" + fmt, code, v)
+                return
+        raise OverflowError(f"{v} does not fit msgpack's uint64")
+    else:
+        for code, fmt, low in ((0xD0, "b", -(1 << 7)), (0xD1, "h", -(1 << 15)),
+                               (0xD2, "i", -(1 << 31)), (0xD3, "q", -(1 << 63))):
+            if v >= low:
+                out += struct.pack(">B" + fmt, code, v)
+                return
+        raise OverflowError(f"{v} does not fit msgpack's int64")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(fixext[len(data)])
+    else:
+        _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_to_bytes(a: np.ndarray) -> bytes:
+    """flax's framing of an array: msgpack [shape, dtype name, C bytes]."""
+    if a.dtype.hasobject:
+        raise TypeError("object arrays cannot be serialised")
+    return msgpack_serialize([list(a.shape), a.dtype.name, a.tobytes("C")])
+
+
+def _pack(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif type(obj) is int:
+        _pack_int(out, obj)
+    elif type(obj) is float:
+        out += struct.pack(">Bd", 0xCB, obj)
+    elif type(obj) is str:
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif type(obj) is bytes:
+        _pack_len(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        # flax copies the tree through jax.tree_util, which sorts keys.
+        _pack_len(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for key in sorted(obj):
+            _pack(out, key)
+            _pack(out, obj[key])
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for value in obj:
+            _pack(out, value)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """`tree` as flax's ``serialization.msgpack_serialize`` encodes it,
+    byte for byte (chunked oversized arrays excepted: checkpoints hold
+    none)."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
 def msgpack_restore(data: bytes):
     """The tree flax's ``serialization.msgpack_restore`` decodes from
     `data` (chunked oversized arrays excepted: checkpoints hold none)."""
@@ -136,6 +235,34 @@ def msgpack_restore(data: bytes):
     return out
 
 
+def save_checkpoint(path: str | Path, params: dict, batch_stats: dict,
+                    meta: dict | None = None, opt_state: dict | None = None
+                    ) -> None:
+    """Write a checkpoint the JAX package's `load_checkpoint` reads:
+    `params` / `batch_stats` are flax trees of numpy arrays
+    (``models/convert.py``), `opt_state` optax's ``to_state_dict`` tree.
+    Written to a temporary file, then moved into place."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "params": params,
+        "batch_stats": batch_stats,
+        "meta_json": np.frombuffer(json.dumps(meta or {}).encode(),
+                                   dtype=np.uint8).copy(),
+    }
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
+    blob = msgpack_serialize(payload)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+
+
 def load_checkpoint(path: str | Path):
     """Returns (params, batch_stats, meta dict)."""
     payload = msgpack_restore(Path(path).read_bytes())
@@ -143,29 +270,51 @@ def load_checkpoint(path: str | Path):
     return payload["params"], payload["batch_stats"], meta
 
 
+def _same_structure(target, tree, where: str = "opt_state") -> None:
+    if isinstance(target, dict):
+        if not isinstance(tree, dict) or set(target) != set(tree):
+            raise ValueError(
+                f"{where}: keys {sorted(tree) if isinstance(tree, dict) else type(tree).__name__}"
+                f" do not match the target's {sorted(target)}")
+        for k in target:
+            _same_structure(target[k], tree[k], f"{where}/{k}")
+
+
+def load_opt_state(path: str | Path, target: dict | None = None):
+    """The checkpoint's optimiser state (optax's ``to_state_dict`` tree of
+    numpy arrays), or None if it holds none.  With `target`, a tree of the
+    same keys, a checkpoint of another optimiser chain raises."""
+    payload = msgpack_restore(Path(path).read_bytes())
+    if "opt_state" not in payload:
+        return None
+    if target is not None:
+        _same_structure(target, payload["opt_state"])
+    return payload["opt_state"]
+
+
 def _shape_kwargs(kw: dict) -> dict:
     return {k: kw[k] for k in _SHAPE_KEYS if k in kw}
 
 
-def _load_member(path):
+def _load_member(path, dtype=None):
     """(ResGCNNet on the CPU, meta) from one checkpoint."""
     params, batch_stats, meta = load_checkpoint(path)
-    model = build_model(meta.get("variant", "resgcn"),
+    model = build_model(meta.get("variant", "resgcn"), dtype=dtype,
                         **_shape_kwargs(meta.get("model_kwargs", {})))
     model.load_state_dict(state_dict_from_jax(
         {"params": params, "batch_stats": batch_stats}))
     return model.eval(), meta
 
 
-def load_model_from_checkpoint(path: str | Path, device=None):
+def load_model_from_checkpoint(path: str | Path, device=None, dtype=None):
     """(model, meta) rebuilt from a checkpoint's own metadata, on `device`
-    (default: the card)."""
+    (default: the card), in the compute `dtype` (default float32)."""
     dev = resolve_device(device)
-    model, meta = _load_member(path)
+    model, meta = _load_member(path, dtype)
     return model.to(dev), meta
 
 
-def load_ensemble_from_checkpoints(paths, device=None):
+def load_ensemble_from_checkpoints(paths, device=None, dtype=None):
     """(ResGCNEnsemble, metas) from M architecture-compatible checkpoints:
     every file must share the first one's variant and shape kwargs."""
     dev = resolve_device(device)
@@ -174,7 +323,7 @@ def load_ensemble_from_checkpoints(paths, device=None):
         raise ValueError("load_ensemble_from_checkpoints needs >= 1 path")
     members, metas = [], []
     for p in paths:
-        model, meta = _load_member(p)
+        model, meta = _load_member(p, dtype)
         members.append(model)
         metas.append(meta)
     ref_kw = _shape_kwargs(metas[0].get("model_kwargs", {}))
@@ -189,7 +338,7 @@ def load_ensemble_from_checkpoints(paths, device=None):
     return ResGCNEnsemble(members).to(dev).eval(), metas
 
 
-def load_model_auto(spec, device=None):
+def load_model_auto(spec, device=None, dtype=None):
     """`spec` is one checkpoint path, a comma-separated list or a sequence
     of paths.  One path loads a plain model, several the ensemble.
     Returns (model, meta) with meta["ensemble_size"] set."""
@@ -198,7 +347,9 @@ def load_model_auto(spec, device=None):
     else:
         paths = [str(p) for p in spec]
     if len(paths) == 1:
-        model, meta = load_model_from_checkpoint(paths[0], device=device)
+        model, meta = load_model_from_checkpoint(paths[0], device=device,
+                                                 dtype=dtype)
         return model, dict(meta, ensemble_size=1)
-    model, metas = load_ensemble_from_checkpoints(paths, device=device)
+    model, metas = load_ensemble_from_checkpoints(paths, device=device,
+                                                  dtype=dtype)
     return model, dict(metas[0], ensemble_size=len(paths))
