@@ -71,6 +71,19 @@ Phases, each of which exits non-zero on failure:
      images' and masks' sha1s, mask IoU per image, the report's mean
      IoU; (d) cli.inference --batch 4 --fixed-size on 4 of those images
      as PNGs, held against segment_batch at its settings.
+  9. the GCN and GAT variants at full width (D=128, n_layers=6; GAT with
+     8 heads of 16), numpy-seeded weights: segment_batch at 1536x1536 /
+     10 000 per variant with its stage split (GCN: 6 K1 launches per
+     forward, counts set to 0 just before and read just after; GAT: 0),
+     the GAT plan's fallback overflow (0) on that graph, the banded
+     forward against the edge-list forward, and one attention layer timed
+     banded ("default", "highest") and as the edge list; both variants
+     against the JAX package (tests/data/torch_variants_jax_ref.npz) at
+     320x320 / 2600 (the large path: logits) and 512x512 / 500 (the
+     dense path: posteriors), mask IoU per image; one fp32 training step
+     card vs CPU and cli.train --model gcn|gat at the flagship recipe per
+     variant; the trained GAT checkpoint through load_model_auto and
+     segment_batch at 1536x1536.
 Phase 1 also reports whether cv2, PIL and networkx import (information
 only).  Kernel times are device times: the launches run back to back
 behind a device sleep, so the host's launch cost is not counted.
@@ -181,6 +194,25 @@ TRAIN_GRAD_TOL = 1e-4      # each gradient leaf, of its scale ...
 TRAIN_GRAD_FLOOR = 1e-3    # ... floored at this share of the largest
 TRAIN_STATS_TOL = 1e-6     # InputNorm's running statistics after the step
 
+# The GCN and GAT variants at full width (build_model's defaults: D=128,
+# n_layers=6, GAT with 8 heads of 16), weights drawn with numpy from
+# VARIANT_SEED (init_model_numpy).  VARIANT_CASES: (side, n_segments,
+# image seed) of textured_image for the large path and the dense path;
+# tests/data/torch_variants_jax_ref.npz holds the JAX package's logits
+# and masks on them (tests/make_torch_variants_jax_ref.py).
+VARIANTS = ("gcn", "gat")
+VARIANT_SEED = 8
+VARIANT_CASES = {"large": (320, 2600, 1), "dense": (DENSE_HW, 500, 3)}
+VARIANT_REF = "tests/data/torch_variants_jax_ref.npz"
+VARIANT_LOGIT_TOL = 2e-2   # large path vs JAX, x max(1, |logits|)
+VARIANT_PROB_TOL = 1e-4    # dense path posteriors vs JAX (fp32)
+VARIANT_MIN_IOU = 0.99     # mask IoU vs JAX, per image
+# The banded GAT attention against the edge-list form on the card:
+# "highest" within rtol = atol = 2e-4 (the JAX package's bar), "default"
+# (bf16 windows) within 0.05 of the largest output.
+BANDED_HIGHEST_TOL = 2e-4
+BANDED_DEFAULT_REL = 0.05
+
 
 def optional_packages() -> str:
     """Which optional packages import here, with their versions."""
@@ -252,13 +284,16 @@ def make_image(hw: int, seed: int = 0) -> np.ndarray:
     return (img * 255).astype(np.uint8)
 
 
-def staged_image(seed: int) -> np.ndarray:
-    """make_image(DENSE_HW, seed) with seeded uniform noise of
-    +-STAGED_NOISE on every channel."""
+def textured_image(hw: int, seed: int) -> np.ndarray:
+    """make_image(hw, seed) with seeded uniform noise of +-STAGED_NOISE on
+    every channel."""
     noise = np.random.RandomState(1000 + seed).randint(
-        -STAGED_NOISE, STAGED_NOISE + 1, (DENSE_HW, DENSE_HW, 3))
-    return np.clip(make_image(DENSE_HW, seed) + noise, 0, 255).astype(
-        np.uint8)
+        -STAGED_NOISE, STAGED_NOISE + 1, (hw, hw, 3))
+    return np.clip(make_image(hw, seed) + noise, 0, 255).astype(np.uint8)
+
+
+def staged_image(seed: int) -> np.ndarray:
+    return textured_image(DENSE_HW, seed)
 
 
 def slic_like_edges(side: int, n_nonlocal: int, seed: int):
@@ -1050,20 +1085,27 @@ def run_predict_probs(card: str) -> None:
         fail("two apply_large runs on the same graph differ")
 
 
-def leaf_errors(got: dict, want: dict) -> float:
-    """max over gradient leaves of |got - want| / the leaf's scale, the
-    scale floored at TRAIN_GRAD_FLOOR of the largest gradient."""
+def leaf_errors(got: dict, want: dict) -> tuple[float, str]:
+    """(max over gradient leaves of |got - want| / the leaf's scale, the
+    scale floored at TRAIN_GRAD_FLOOR of the largest gradient; the leaf
+    and its scale's share of the largest, as text)."""
     gmax = max(float(v.abs().max()) for v in want.values())
-    return max(float((got[k].cpu() - v).abs().max())
-               / max(float(v.abs().max()), TRAIN_GRAD_FLOOR * gmax)
-               for k, v in want.items())
+    errs = []
+    for k, v in want.items():
+        scale = max(float(v.abs().max()), TRAIN_GRAD_FLOOR * gmax)
+        errs.append((float((got[k].cpu() - v).abs().max()) / scale, k,
+                     float(v.abs().max()) / gmax))
+    err, name, share = max(errs)
+    return err, f"{name}, |grad| {share:.1e} of the largest"
 
 
-def run_train_step(dev, card: str) -> list:
-    """Phase (a): one fp32 training step at the flagship width from the
-    bgc_s42 weights on TRAIN_GRAPHS prepared hard-synthetic graphs, on
-    the card against the port's CPU step.  Returns the graphs (on the
-    card)."""
+def run_train_step(dev, card: str, variant: str = "resgcn",
+                   graphs: list | None = None) -> list:
+    """Phase (a): one fp32 training step at the flagship width on
+    TRAIN_GRAPHS prepared hard-synthetic graphs (prepared here unless
+    given), on the card against the port's CPU step: ResGCNNet from the
+    bgc_s42 weights, the GCN and GAT variants from VARIANT_SEED's numpy
+    weights.  Returns the graphs (on the card)."""
     import tempfile
     from pathlib import Path
 
@@ -1073,25 +1115,35 @@ def run_train_step(dev, card: str) -> list:
     root = Path(__file__).resolve().parent
     cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
                                    bg_connectivity=True)
-    samples = gt.make_hard_synthetic_dataset(TRAIN_GRAPHS, DENSE_HW,
-                                             seed=EVAL_SEED + 1)
     t = time.perf_counter()
-    graphs = [r[0] for r in gt.prepare_dataset(samples, cfg)]
+    if graphs is None:
+        samples = gt.make_hard_synthetic_dataset(TRAIN_GRAPHS, DENSE_HW,
+                                                 seed=EVAL_SEED + 1)
+        graphs = [r[0] for r in gt.prepare_dataset(samples, cfg)]
     prep_s = time.perf_counter() - t
     kw = dict(hidden_channels=HIDDEN, n_layers=N_LAYERS, dropout=0.0)
     tcfg = TrainConfig(bf16=False, prior_dropout=0.0, weight_decay=3e-4,
                        batch_size=TRAIN_GRAPHS, verbose=False)
+    start = TRAIN_START if variant == "resgcn" else \
+        f"init_model_numpy({VARIANT_SEED})"
+
+    def load_start(tr):
+        if variant == "resgcn":
+            tr.load(str(root / TRAIN_START))
+        else:
+            gt.init_model_numpy(tr.model, VARIANT_SEED)
+
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            tr = Trainer("resgcn", kw, tcfg, save_dir=tmp, device=device)
+            tr = Trainer(variant, kw, tcfg, save_dir=tmp, device=device)
             batch = tr._bucket(graphs)
             tr._init_state(1)
-            tr.load(str(root / TRAIN_START))
+            load_start(tr)
             w = torch.ones(batch.n_graphs, device=device)
             if name == "card":              # warm, then time a step
                 tr.loss_and_grads(batch, w)
-                tr.load(str(root / TRAIN_START))
+                load_start(tr)
                 torch.cuda.synchronize()
             t = time.perf_counter()
             loss, grads = tr.loss_and_grads(batch, w)
@@ -1107,18 +1159,19 @@ def run_train_step(dev, card: str) -> list:
                         for k, p in tr.optimizer.params.items()})
     c, h = out["card"], out["cpu"]
     loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
-    grad_err = leaf_errors(c["grads"], h["grads"])
+    grad_err, worst = leaf_errors(c["grads"], h["grads"])
     stats_err = max(float((c["mean"] - h["mean"]).abs().max()),
                     float((c["var"] - h["var"]).abs().max()))
     upd_err = max(float((c["params"][k] - h["params"][k]).abs().max())
                   for k in h["params"])
     print(f"training step, card vs CPU ({TRAIN_GRAPHS} x {DENSE_HW}^2 "
-          f"hard-synthetic graphs, K={graphs[0].max_nodes}, ResGCNNet "
-          f"D={HIDDEN} n={N_LAYERS} fp32 from {TRAIN_START}; {card}): "
+          f"hard-synthetic graphs, K={graphs[0].max_nodes}, {variant} "
+          f"D={HIDDEN} n={N_LAYERS} fp32 from {start}; {card}): "
           f"prepare {prep_s:.3f} s, step {1e3 * c['s']:.2f} ms on the card "
           f"({h['s']:.2f} s on the CPU); loss {c['loss']:.6f} rel err "
           f"{loss_err:.2e} (tol {TRAIN_LOSS_TOL:.0e}); gradient err "
-          f"{grad_err:.2e} of each leaf's scale (tol {TRAIN_GRAD_TOL:.0e}); "
+          f"{grad_err:.2e} of each leaf's scale (tol {TRAIN_GRAD_TOL:.0e}; "
+          f"worst {worst}); "
           f"running stats |d| {stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e}); "
           f"params after the AdamW step |d| {upd_err:.2e}", flush=True)
     if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
@@ -1127,10 +1180,12 @@ def run_train_step(dev, card: str) -> list:
     return graphs
 
 
-def run_train_cli(graphs: list, card: str) -> None:
-    """Phase (b): cli.train at the flagship recipe (bf16, AdamW with weight
-    decay 3e-4 and SGDR) on TRAIN_CLI_SAMPLES hard-synthetic 512 px images
-    for 2 epochs; its checkpoint reloads to the same bits."""
+def run_train_cli(graphs: list, card: str, variant: str = "resgcn",
+                  save_dir=None) -> None:
+    """Phase (b): cli.train --model `variant` at the flagship recipe (bf16,
+    AdamW with weight decay 3e-4 and SGDR) on TRAIN_CLI_SAMPLES
+    hard-synthetic 512 px images for 2 epochs; its checkpoint reloads to
+    the same bits.  The files stay in `save_dir` when one is given."""
     import json
     import tempfile
     from pathlib import Path
@@ -1158,13 +1213,14 @@ def run_train_cli(graphs: list, card: str) -> None:
     trainer_mod.Trainer.train_step = timed_step
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = str(save_dir or tmp)
         try:
             t = time.perf_counter()
             history = train_cli.main([
                 "--hard-synthetic", str(TRAIN_CLI_SAMPLES), "--hard-size",
                 str(DENSE_HW), "--n-segments", str(DENSE_SEGMENTS),
                 "--bg-connectivity", "--epochs", "2", "--batch",
-                str(TRAIN_GRAPHS), "--save-dir", tmp])
+                str(TRAIN_GRAPHS), "--model", variant, "--save-dir", tmp])
             wall = time.perf_counter() - t
         finally:
             trainer_mod.Trainer.fit = fit
@@ -1186,7 +1242,8 @@ def run_train_cli(graphs: list, card: str) -> None:
     same_probs = bool(torch.equal(a, b))
     med = float(np.median(step_s[1:]))
     finite = all(np.isfinite(v).all() for v in saved.values() if v)
-    print(f"cli.train ({TRAIN_CLI_SAMPLES} hard-synthetic {DENSE_HW}^2, "
+    print(f"cli.train --model {variant} ({TRAIN_CLI_SAMPLES} "
+          f"hard-synthetic {DENSE_HW}^2, "
           f"K=484, bg-connectivity, 2 epochs, batch {TRAIN_GRAPHS}, bf16, "
           f"AdamW wd 3e-4 + SGDR; {card}): {wall:.2f} s in all, "
           f"{len(step_s)} steps, median {1e3 * med:.2f} ms per step after "
@@ -1390,6 +1447,190 @@ def run_inference_cli(evaluated: list, card: str) -> None:
         fail("cli.inference's masks disagree with segment_batch's")
 
 
+def variant_model(variant: str):
+    """build_model(variant) at its defaults (D=128, n_layers=6; GAT with 8
+    heads of 16), weights from VARIANT_SEED (init_model_numpy), on the
+    CPU."""
+    import gcn_grabcut_torch as gt
+    return gt.init_model_numpy(gt.build_model(variant), VARIANT_SEED)
+
+
+def gat_layer_case(dev):
+    """One full-width GAT attention layer on the main path's 1536^2 / 10k
+    graph: (the seeded GATTrimapNet, its graph, its second GATv2Conv
+    (128 -> 8 heads of 16), the layer's arguments (random inputs, the
+    edges sorted by destination, the node mask), the graph's GatPlan at
+    the default fallback capacity, built without reading its overflow)."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.models.large import build_gat_plan_device
+    from gcn_grabcut_torch.models.layers import sort_edges_by_dst
+
+    g = graph_on_card([make_image(IMAGE_HW)],
+                      gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS), dev)
+    model = variant_model("gat").to(dev)
+    x = torch.randn((1, g.max_nodes, HIDDEN), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    args = (x, *sort_edges_by_dst(g.edge_src, g.edge_dst, g.edge_attr,
+                                  g.edge_mask), g.node_mask)
+    plan = build_gat_plan_device(g.edge_src[0], g.edge_dst[0],
+                                 g.edge_attr[0], g.edge_mask[0],
+                                 g.max_nodes, check_overflow=False)
+    return model, g, model.convs[1], args, plan
+
+
+def run_variants(dev, card: str, graphs: list) -> None:
+    """Phase 9: the GCN and GAT variants at full width through the entry
+    points: (a) segment_batch at 1536^2 / 10k per variant (GCN: 6 K1
+    launches per forward; GAT: the GatPlan without overflow, banded
+    against the edge-list forward, one layer timed); (b) the card against
+    the JAX package's outputs (tests/data/torch_variants_jax_ref.npz) on
+    the large path (320^2 / 2600) and the dense path (512^2 / 500); (c) one
+    fp32 training step card vs CPU and cli.train --model per variant;
+    (d) the GAT checkpoint cli.train wrote, through load_model_auto and
+    segment_batch at 1536^2 / 10k."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    img = make_image(IMAGE_HW)
+    g = graph_on_card([img], cfg, dev)
+    for variant in VARIANTS:
+        pipe = gt.GCNGrabCutPipeline(variant_model(variant), cfg)
+        t = time.perf_counter()
+        apply_large(pipe.model, g)   # warm the forward; GrabCut is warm
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        banded_spmm.kernel_launches = 0
+        t = time.perf_counter()
+        res = pipe.segment_batch([img], sync_timing=True)[0]
+        wall = time.perf_counter() - t
+        k1 = banded_spmm.kernel_launches
+        k = res.probs.shape[0]
+        print(f"{variant} at {IMAGE_HW}^2 (K={k}, D={HIDDEN} n={N_LAYERS}, "
+              f"seed {VARIANT_SEED}; {card}): segment_batch B=1 {wall:.3f} s "
+              f"({split(res.timing)}; the first forward {warm:.3f} s); "
+              f"banded_spmm launches={k1}; FG {res.binary_mask.mean():.4f}",
+              flush=True)
+        want = N_LAYERS if variant == "gcn" else 0
+        if k1 != want:
+            fail(f"{variant}: banded_spmm launched {k1} times per forward, "
+                 f"expected {want}")
+        if res.probs.shape != (k, 3) or not np.isfinite(res.probs).all():
+            fail(f"{variant}: posteriors are not finite (K, 3)")
+
+    # The GAT plan of the SLIC graph, and the banded forward against the
+    # card's own edge-list forward.
+    del g
+    model, g, layer, args, plan = gat_layer_case(dev)
+    overflow = int(plan.fb_overflow[0])
+    valid = g.node_mask[0] > 0
+    with torch.no_grad():
+        edge = model(g)[0][valid].float()
+        highest = apply_large(model, g, plans=plan,
+                              precision="highest")[0][valid].float()
+        default = apply_large(model, g, plans=plan)[0][valid].float()
+    excess = float(((highest - edge).abs() - BANDED_HIGHEST_TOL
+                    * (1 + edge.abs())).max())
+    scale = float(edge.abs().max())
+    d_default = float((default - edge).abs().max())
+    print(f"GAT plan at {IMAGE_HW}^2 (n_pad={plan.n_nodes}, R="
+          f"{plan.block_rows}, K={plan.k_blocks}): {int(plan.mask_band.sum())}"
+          f" window edges, {int(plan.fb_mask.sum())} fallback edges in a "
+          f"capacity of {plan.fb_mask.numel()}, fb_overflow={overflow}; "
+          f"banded vs edge-list logits: highest max |d| "
+          f"{float((highest - edge).abs().max()):.3e} (rtol = atol = "
+          f"{BANDED_HIGHEST_TOL:.0e}), default max |d| {d_default:.3e} "
+          f"({d_default / scale:.4f} of max |logits| {scale:.3f}, limit "
+          f"{BANDED_DEFAULT_REL})", flush=True)
+    if overflow:
+        fail(f"the SLIC graph's GatPlan overflowed by {overflow} edges")
+    if excess > 0 or d_default > BANDED_DEFAULT_REL * scale:
+        fail("the banded GAT forward disagrees with the edge-list forward")
+    with torch.no_grad():
+        times = {name: time_ms(lambda kw=kw: layer(*args, pre_sorted=True,
+                                                   **kw), reps=10)
+                 for name, kw in (
+                     ("edge-list", {}),
+                     ("banded default", dict(plan=plan)),
+                     ("banded highest", dict(plan=plan,
+                                             plan_precision="highest")))}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        layer(*args, pre_sorted=True, plan=plan)
+        peak = torch.cuda.max_memory_allocated() - base
+    print(f"GAT attention layer (128 -> 8 x 16) at K={g.max_nodes}, "
+          f"E={g.max_edges} ({card}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; banded default peak {peak / 2**20:.1f} MiB above its inputs",
+          flush=True)
+    del model, g, layer, args, plan
+
+    # Against the JAX package on the same images and weights.
+    ref = np.load(Path(__file__).resolve().parent / VARIANT_REF)
+    for case, (hw, n_segments, seed) in VARIANT_CASES.items():
+        img_c = textured_image(hw, seed)
+        cfg_c = gt.SuperpixelGraphConfig(n_segments=n_segments)
+        rg = gt.build_graph(img_c, cfg_c)
+        seg_agree = float((rg.segments == ref[f"{case}_segments"]).mean())
+        large = rg.n_nodes > gt.GCNGrabCutPipeline.LARGE_NODE_THRESHOLD
+        nm = np.asarray(rg.graph.node_mask[0].cpu()) > 0
+        for variant in VARIANTS:
+            model = variant_model(variant).to(dev)
+            with torch.no_grad():
+                out = apply_large(model, rg.graph) if large else \
+                    model(rg.graph)
+            logits = out[0].float().cpu().numpy()
+            want = ref[f"{variant}_{case}_logits"]
+            if large:
+                err = float(np.abs(logits - want)[nm].max())
+                tol = VARIANT_LOGIT_TOL * max(1.0, float(np.abs(want).max()))
+                what = "logits"
+            else:
+                p = torch.softmax(torch.from_numpy(logits), -1).numpy()
+                q = torch.softmax(torch.from_numpy(want), -1).numpy()
+                err, tol = float(np.abs(p - q)[nm].max()), VARIANT_PROB_TOL
+                what = "posteriors"
+            mask = gt.GCNGrabCutPipeline(model, cfg_c).segment_batch(
+                [img_c])[0].binary_mask
+            m_iou = iou(mask > 0, np.unpackbits(
+                ref[f"{variant}_{case}_mask"], count=hw * hw).reshape(
+                    hw, hw) > 0)
+            print(f"{variant} {case} path vs JAX ({hw}^2, K={rg.n_nodes}; "
+                  f"{card}): SLIC agreement {seg_agree:.6f}, max |d "
+                  f"{what}| {err:.3e} (tol {tol:.1e}), mask IoU {m_iou:.6f} "
+                  f"(min {VARIANT_MIN_IOU})", flush=True)
+            if seg_agree != 1.0:
+                fail(f"{case}: the card's superpixels differ from JAX's")
+            if err > tol or m_iou < VARIANT_MIN_IOU:
+                fail(f"{variant} {case}: the card disagrees with JAX")
+
+    # Training, then the trained GAT checkpoint through the large path.
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        for variant in VARIANTS:
+            run_train_step(dev, card, variant, graphs)
+            run_train_cli(graphs, card, variant, save_dir=tmp / variant)
+        model, meta = gt.load_model_auto(str(tmp / "gat/final_model.msgpack"))
+        pipe = gt.GCNGrabCutPipeline(model, cfg)
+        t = time.perf_counter()
+        res = pipe.segment_batch([img], sync_timing=True)[0]
+        wall = time.perf_counter() - t
+        print(f"trained GAT checkpoint (cli.train, meta variant "
+              f"{meta['variant']}) -> load_model_auto -> segment_batch at "
+              f"{IMAGE_HW}^2 (K={res.probs.shape[0]}; {card}): {wall:.3f} s "
+              f"({split(res.timing)}); FG {res.binary_mask.mean():.4f}",
+              flush=True)
+        if meta["variant"] != "gat" or not np.isfinite(res.probs).all():
+            fail("the trained GAT checkpoint does not segment")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_keep_largest_repeats(dev) -> None:
     """Keep-largest's component sums run in a fixed order: repeated runs
     on one mask give bit-identical sums and masks."""
@@ -1510,21 +1751,33 @@ def main() -> None:
     k = num_nodes_for(IMAGE_HW, IMAGE_HW,
                       gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS))
 
-    record = check_banded_spmm(dev)
-    rings = check_ring_collectives(dev, k)
-    stress_ring_collectives(dev, k)
-    run_main_path(dev, record)
-    run_sharded_path(dev, rings, k)
-    run_dense_path(dev, card)
-    check_keep_largest_repeats(dev)
-    run_flat_colour(card)
-    run_staged_paths(card)
-    run_stream(card)
-    run_predict_probs(card)
-    graphs = run_train_step(dev, card)
-    run_train_cli(graphs, card)
-    evaluated = run_eval_cli(card)
-    run_inference_cli(evaluated, card)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    record = timed("kernels", check_banded_spmm, dev)
+    rings = timed("rings", check_ring_collectives, dev, k)
+    timed("ring stress", stress_ring_collectives, dev, k)
+    timed("main path", run_main_path, dev, record)
+    timed("sharded", run_sharded_path, dev, rings, k)
+    timed("dense", run_dense_path, dev, card)
+    timed("keep-largest", check_keep_largest_repeats, dev)
+    timed("flat colour", run_flat_colour, card)
+    timed("staged", run_staged_paths, card)
+    timed("stream", run_stream, card)
+    timed("predict_probs", run_predict_probs, card)
+    graphs = timed("train step", run_train_step, dev, card)
+    timed("train cli", run_train_cli, graphs, card)
+    evaluated = timed("eval cli", run_eval_cli, card)
+    timed("inference cli", run_inference_cli, evaluated, card)
+    timed("variants", run_variants, dev, card, graphs)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in phase_s.items()),
+          flush=True)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
     print(card)

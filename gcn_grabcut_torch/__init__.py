@@ -2,10 +2,11 @@
 
 The port grows slice by slice beside the JAX package, which stays the
 reference.  It runs `GCNGrabCutPipeline.segment_batch`: graph build with
-the saliency or geodesic prior, the ResGCNNet forward of one model or of
-an ensemble read from the JAX package's checkpoints (`load_model_auto`)
--- dense up to 2048 superpixels, with optional multi-scale inference,
-the banded SpMM (a hand-written CUDA kernel on the card) above -- then
+the saliency or geodesic prior, the forward of ResGCNNet, GCNTrimapNet or
+GATTrimapNet, one model or an ensemble read from the JAX package's
+checkpoints (`load_model_auto`) -- dense up to 2048 superpixels, with
+optional multi-scale inference; above, the banded SpMM (a hand-written
+CUDA kernel on the card) or the banded GATv2 attention -- then
 trimap, GrabCut and clean-up; `segment_stream` over a stream of images;
 `segment`'s staged options and `segment_bbox` through the scalar API
 (`build_graph`, `refine_trimap`, `seed_from_prior`, the `GrabCut` class
@@ -36,10 +37,14 @@ from .graph_build import (GraphBuilder, RegionGraph, SuperpixelGraph,
                           build_graph_batch_arrays)
 from .metrics import (SegmentationMetrics, TrimapMetrics, boundary_f1,
                       evaluate, evaluate_batch, evaluate_trimap)
-from .models.convert import resgcn_from_jax
-from .models.factory import (ResGCNEnsemble, apply_model, build_model,
-                             init_model, predict_probs, probs_to_node_trimap,
-                             probs_to_trimap, project_to_pixels)
+from .models.convert import model_from_jax, resgcn_from_jax
+from .models.factory import (ModelEnsemble, ResGCNEnsemble, apply_model,
+                             build_model, init_model, init_model_numpy,
+                             predict_probs,
+                             probs_to_node_trimap, probs_to_trimap,
+                             project_to_pixels)
+from .models.gat import GATTrimapNet
+from .models.gcn import GCNTrimapNet
 from .models.large import apply_large
 from .models.resgcn import ResGCNNet
 from .ops.connected import clean_mask
@@ -57,7 +62,8 @@ from .train.losses import (FocalLoss, LabelSmoothingCE, TrimapLoss,
 from .train.trainer import TrainConfig, Trainer
 
 __all__ = [
-    "FocalLoss", "GCNGrabCutPipeline", "GrabCut", "GrabCutConfig",
+    "FocalLoss", "GATTrimapNet", "GCNGrabCutPipeline", "GCNTrimapNet",
+    "GrabCut", "GrabCutConfig",
     "GrabCutSnapshot", "GraphBatch", "GraphBuilder", "GraphMesh",
     "LabelSmoothingCE", "RegionGraph", "ResGCNEnsemble", "ResGCNNet",
     "SegmentationMetrics", "SegmentationResult", "SuperpixelGraph",
@@ -67,11 +73,12 @@ __all__ = [
     "clean_mask", "colour_trimap", "compute_auto_prior",
     "derive_trimap_labels", "encode_user_hints", "evaluate",
     "evaluate_batch", "evaluate_trimap", "focal_loss", "guided_filter",
-    "init_model", "label_smoothing_ce", "load_ensemble_from_checkpoints",
+    "init_model", "init_model_numpy", "label_smoothing_ce", "load_ensemble_from_checkpoints",
     "load_image_mask_dataset", "load_model_auto",
     "load_model_from_checkpoint", "make_graph_batch", "make_graph_mesh",
     "make_hard_synthetic_dataset", "make_photo_synthetic_dataset",
-    "make_synthetic_dataset", "mesh_aggregators", "pad_graph",
+    "make_synthetic_dataset", "mesh_aggregators", "model_from_jax",
+    "ModelEnsemble", "pad_graph",
     "predict_probs", "prepare_dataset", "prepare_sample",
     "probs_to_node_trimap", "probs_to_trimap", "project_to_pixels",
     "refine_trimap", "resgcn_from_jax", "ring_all_gather",

@@ -81,10 +81,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model != "resgcn":
-        raise NotImplementedError(
-            f"--model {args.model} comes with ROADMAP queue 1 item 6 (the "
-            "GCN/GAT variants)")
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 (data-parallel training) comes with ROADMAP "
@@ -151,9 +147,10 @@ def main(argv=None):
                           [r[0] for r in val_recs],
                           resume_from=args.resume)
 
-    w = trainer.model.layer_weights().cpu().numpy()
-    print("[Train] JK fusion weights [input, blocks..., sage]:",
-          np.round(w, 4).tolist())
+    if args.model == "resgcn":
+        w = trainer.model.layer_weights().cpu().numpy()
+        print("[Train] JK fusion weights [input, blocks..., sage]:",
+              np.round(w, 4).tolist())
     best = max(history["val_score"]) if history["val_score"] else None
     print(f"[Train] Done. Best val score: {best}")
     return history

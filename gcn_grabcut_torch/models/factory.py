@@ -1,8 +1,9 @@
 """Model factory and the eval-mode prediction helpers.
 
 Counterpart of the inference side of ``gcn_grabcut_tpu/models/factory.py``:
-`build_model`, `init_model`, the M-member inference ensemble (the JAX package's
-``stack_variables`` bundle, here a module holding its members),
+`build_model` (ResGCNNet, GCNTrimapNet, GATTrimapNet), `init_model`, the
+M-member inference ensemble (the JAX package's ``stack_variables`` bundle,
+here a module holding its members),
 `apply_model` and `predict_probs`, and the helpers that turn per-region
 posteriors into trimaps and pixel planes.
 """
@@ -18,6 +19,8 @@ from torch import nn
 from ..core.graph import (CLASS_BG, CLASS_FG, N_EDGE_FEATS, N_NODE_FEATS,
                           TRIMAP_BG, TRIMAP_FG, TRIMAP_PROB_BG,
                           TRIMAP_PROB_FG, GraphBatch)
+from .gat import GATTrimapNet
+from .gcn import GCNTrimapNet
 from .layers import GCNConv, InputNorm, dense_aggregators, reset_parameters
 from .resgcn import ResGCNNet
 
@@ -28,16 +31,19 @@ def build_model(variant: str = "resgcn", in_channels: int = N_NODE_FEATS,
                 n_classes: int = 3, dropout: float = 0.2,
                 dtype: torch.dtype | None = None,
                 generator: torch.Generator | None = None) -> nn.Module:
-    """variant: "resgcn"; the GCN and GAT variants raise.  `dtype` is the
-    compute dtype (None: float32); `generator` seeds the initialisation."""
-    if variant != "resgcn":
-        raise NotImplementedError(
-            f"variant {variant!r} comes with ROADMAP queue 1 item 6 (the "
-            "GCN/GAT variants)")
-    return ResGCNNet(in_channels=in_channels, edge_channels=edge_channels,
-                     hidden_channels=hidden_channels, n_layers=n_layers,
-                     n_classes=n_classes, dropout=dropout, dtype=dtype,
-                     generator=generator)
+    """variant: "resgcn" | "gcn" | "gat" (8 heads).  `dtype` is the compute
+    dtype (None: float32); `generator` seeds the initialisation."""
+    kw = dict(in_channels=in_channels, edge_channels=edge_channels,
+              hidden_channels=hidden_channels, n_layers=n_layers,
+              n_classes=n_classes, dropout=dropout, dtype=dtype,
+              generator=generator)
+    if variant == "resgcn":
+        return ResGCNNet(**kw)
+    if variant == "gat":
+        return GATTrimapNet(**kw, n_heads=8)
+    if variant == "gcn":
+        return GCNTrimapNet(**kw)
+    raise ValueError(f"Unknown variant '{variant}'. Choose: resgcn|gcn|gat")
 
 
 def init_model(model: nn.Module, seed=0) -> nn.Module:
@@ -64,26 +70,62 @@ def init_model(model: nn.Module, seed=0) -> nn.Module:
     return model
 
 
-class ResGCNEnsemble(nn.Module):
-    """M ResGCNNet members as one model.  Its forward returns the log of
-    the members' mean class probability, log(mean_m softmax(logits_m) +
-    1e-9), so a softmax of it reproduces that mean.  The members share one
-    set of aggregators (the dense adjacencies, or the caller's SpMM plans
-    on the large-graph path)."""
+@torch.no_grad()
+def init_model_numpy(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and running statistic of `model` in place from
+    ``np.random.RandomState(seed)``, in state_dict order: 2-D weights
+    normal with std sqrt(2 / fan_in) (Kaiming, as the JAX package's
+    initialisers; the fan-in is the last axis of a port weight), norm scales
+    1 + normal(0.1), other vectors normal(0.1), running means normal(0.1),
+    running variances uniform in [0.5, 1.5).  numpy draws the same on
+    every machine, so the weights can reach the JAX package (through
+    ``models/convert.py``) and the card bit for bit.  Returns `model`."""
+    r = np.random.RandomState(seed)
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("running_var"):
+            a = r.uniform(0.5, 1.5, shape)
+        elif len(shape) == 2:
+            a = r.standard_normal(shape) * np.sqrt(2.0 / shape[-1])
+        elif name.endswith("weight"):
+            a = 1.0 + 0.1 * r.standard_normal(shape)
+        else:
+            a = 0.1 * r.standard_normal(shape)
+        t.copy_(torch.from_numpy(a.astype(np.float32)))
+    return model
 
-    supports_spmm_aggregators = True
+
+class ModelEnsemble(nn.Module):
+    """M members of one variant as one model.  Its forward returns the log
+    of the members' mean class probability, log(mean_m softmax(logits_m)
+    + 1e-9), so a softmax of it reproduces that mean.  The members share
+    one set of aggregators (the dense adjacencies, or the caller's SpMM
+    plans on the large-graph path) or one GatPlan; it takes the large
+    path its members take."""
 
     def __init__(self, members):
         super().__init__()
         self.members = nn.ModuleList(members)
+        for flag in ("supports_spmm_aggregators",
+                     "supports_banded_attention"):
+            setattr(self, flag, all(getattr(m, flag, False)
+                                    for m in members))
 
-    def forward(self, g: GraphBatch, aggregators=None) -> torch.Tensor:
-        aggregators = aggregators or dense_aggregators(g)
+    def forward(self, g: GraphBatch, aggregators=None, gat_plan=None,
+                gat_precision: str = "default") -> torch.Tensor:
+        if self.supports_banded_attention:
+            kw = dict(gat_plan=gat_plan, gat_precision=gat_precision)
+        else:
+            kw = dict(aggregators=aggregators or dense_aggregators(g))
         acc = None
         for member in self.members:
-            p = torch.softmax(member(g, aggregators).float(), dim=-1)
+            p = torch.softmax(member(g, **kw).float(), dim=-1)
             acc = p if acc is None else acc + p
         return torch.log(acc / len(self.members) + 1e-9)
+
+
+#: The ensemble's earlier name, from when every member was a ResGCNNet.
+ResGCNEnsemble = ModelEnsemble
 
 
 @torch.no_grad()

@@ -1,17 +1,23 @@
-"""Large-graph execution path: ResGCNNet on one 10k+-node graph with the
-banded SpMM instead of a dense adjacency.
+"""Large-graph execution path: the models on one 10k+-node graph without
+a dense adjacency.
 
-Counterpart of ``gcn_grabcut_tpu/models/large.py`` (SpMM branch).  The GCN
-and SAGE propagations compile into two `SpmmPlan`s:
+Counterpart of ``gcn_grabcut_tpu/models/large.py``.  Models with SpMM
+aggregators (ResGCNNet, GCNTrimapNet) get the GCN and SAGE propagations
+compiled into two `SpmmPlan`s:
 
 * GCN: D^-1/2 (A + I) D^-1/2, the normalisation folded into per-edge
   weights and the self loops added as N diagonal edges of weight 1/d_i;
 * mean: per-edge weight 1/deg(dst), no self loops.
 
-A ResGCNNet forward runs n_layers + 1 SpMMs (n_layers GCN + 1 SAGE).
+A ResGCNNet forward runs n_layers + 1 SpMMs (n_layers GCN + 1 SAGE), a
+GCNTrimapNet forward n_layers.  GATTrimapNet gets a `GatPlan` instead
+(``ops/sddmm.py``): the graph's structure in band slots, its attention
+computed banded in every layer.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -19,11 +25,43 @@ import torch
 from ..core.device import resolve_device
 from ..core.graph import GraphBatch
 from ..ops.region import segment_sum
+from ..ops.sddmm import GatPlan, gat_plan_device
 from ..ops.spmm import SpmmPlan, banded_spmm, spmm_plan, spmm_plan_device
 
 #: band dtype per precision: "default" contracts in bf16 (the JAX default
 #: precision), "highest" in exact float32.
 PLAN_DTYPES = {"default": torch.bfloat16, "highest": torch.float32}
+
+
+def build_gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
+                          n_nodes: int, window: int = 512,
+                          check_overflow: bool = True) -> GatPlan:
+    """The GatPlan of one graph's directed edge list, built on its device.
+
+    The fallback capacity E//2 + 4096 assumes SLIC scan-order labels and
+    the default non-local budget (the out-of-window edges are about the
+    non-local half).  A graph that breaks the assumption would lose
+    attention edges, so the plan's `fb_overflow` is read here (one host
+    sync per plan) and an overflowing plan is rebuilt at the exact
+    capacity E with a RuntimeWarning.  `check_overflow=False` skips the
+    read."""
+    e_budget = int(edge_src.shape[-1])
+    plan = gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
+                           n_nodes, window=window,
+                           fb_capacity=min(e_budget, e_budget // 2 + 4096))
+    if check_overflow:
+        dropped = int(plan.fb_overflow[0])
+        if dropped > 0:
+            warnings.warn(
+                f"banded-GAT plan dropped {dropped} out-of-window edges at "
+                "the default fallback capacity (non-SLIC-banded graph "
+                "structure?); rebuilding with exact capacity — pass a "
+                "larger `window` to keep the fallback phase small.",
+                RuntimeWarning, stacklevel=2)
+            plan = gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
+                                   n_nodes, window=window,
+                                   fb_capacity=e_budget)
+    return plan
 
 
 def build_gcn_plans(edge_src, edge_dst, edge_mask, n_nodes: int,
@@ -94,22 +132,33 @@ def spmm_aggregators(gcn_plan: SpmmPlan, mean_plan: SpmmPlan):
 @torch.no_grad()
 def apply_large(model, g: GraphBatch, window: int = 512, plans=None,
                 precision: str = "default", device=None) -> torch.Tensor:
-    """Forward one large graph (G=1) through `model` with SpMM aggregation;
-    (1, N, n_classes) logits.
+    """Forward one large graph (G=1) through `model`; (1, N, n_classes)
+    logits.
 
-    Plans are built on the graph's device unless `plans=(gcn_plan,
-    mean_plan)` is given.  `precision` picks the band dtype ("default" =
-    bf16, "highest" = float32).  `device` (default: the card) must be
-    where the graph and the model live."""
+    A model with `supports_banded_attention` (GATTrimapNet) runs its
+    attention banded over a GatPlan (`plans`, else built here), at
+    `precision` ("default": bfloat16 window compute, "highest": float32).
+    A model with `supports_spmm_aggregators` (ResGCNNet, GCNTrimapNet)
+    aggregates through the banded SpMM: `plans=(gcn_plan, mean_plan)`,
+    else built here, with the band in bfloat16 ("default") or float32
+    ("highest").  Any other model raises ValueError.  `device` (default:
+    the card) must be where the graph and the model live."""
     dev = resolve_device(device)
     if g.device != dev:
         raise ValueError(f"graph is on {g.device}, expected {dev}")
     if g.n_graphs != 1:
         raise ValueError("the large-graph path operates on one graph")
+    if getattr(model, "supports_banded_attention", False):
+        if plans is None:
+            plans = build_gat_plan_device(
+                g.edge_src[0], g.edge_dst[0], g.edge_attr[0],
+                g.edge_mask[0], g.max_nodes, window=window)
+        return model(g, gat_plan=plans, gat_precision=precision)
     if not getattr(model, "supports_spmm_aggregators", False):
-        raise NotImplementedError(
-            f"{type(model).__name__} has no SpMM forward in the port yet; "
-            "the GCN/GAT variants come with a later slice")
+        raise ValueError(
+            f"{type(model).__name__} has no large-graph forward; the "
+            "banded paths cover ResGCNNet, GCNTrimapNet (SpMM aggregators) "
+            "and GATTrimapNet (banded SDDMM attention).")
     if plans is None:
         plans = build_gcn_plans_device(
             g.edge_src[0], g.edge_dst[0], g.edge_mask[0], g.max_nodes,

@@ -13,7 +13,10 @@ dtype.  None (the default) computes in the input's dtype, float32 here.
 Aggregation is a callable h -> aggregated h: the dense (G, N, N)
 normalised adjacencies of `dense_aggregators` (one ``torch.bmm`` per
 propagation, fp32), or the banded SpMM of ``ops/spmm.py`` on the
-large-graph path.
+large-graph path.  `GATv2Conv` attends over the edge list (all graphs of
+a batch as one flattened list, fixed-order segment reductions), or
+banded over a ``GatPlan`` (``ops/sddmm.py``); `EdgeInjection` is the
+GCN and GAT variants' per-layer edge gate.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.graph import masked_softmax
-from ..ops.region import segment_sum
+from ..core.graph import NEG_INF, masked_softmax
+from ..ops.region import segment_max, segment_sum
+from ..ops.sddmm import banded_gat_attention
 
 LN_EPS = 1e-6
 
@@ -133,8 +137,9 @@ def kaiming_(weight: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's initialisation: Kaiming-normal Linear weights,
-    zero biases, unit LayerNorm scales (seeded by `generator`)."""
+    """The JAX package's initialisation: Kaiming-normal Linear weights and
+    GATv2 attention vectors, zero biases, unit LayerNorm scales (seeded by
+    `generator`)."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             kaiming_(m.weight, generator)
@@ -142,6 +147,12 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, GATv2Conv):
+            # flax's fan-in of an (H, F) kernel is shape[-2] = H.
+            with torch.no_grad():
+                m.att.normal_(0.0, math.sqrt(2.0 / m.att.shape[0]),
+                              generator=generator)
             nn.init.zeros_(m.bias)
 
 
@@ -170,6 +181,123 @@ class SAGEConv(nn.Module):
         return self.lin_l(propagate(x)) + self.lin_r(x)
 
 
+def _flat_edges(edge_index: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """(G, E) per-graph node indices -> (G·E,) indices into the G·N rows
+    of the flattened batch."""
+    G = edge_index.shape[0]
+    base = n_nodes * torch.arange(G, device=edge_index.device)[:, None]
+    return (edge_index.long() + base).reshape(-1)
+
+
+def sort_edges_by_dst(edge_src, edge_dst, edge_attr, edge_mask):
+    """Each graph's edges in stable destination order (``jnp.argsort``),
+    once per forward for every layer's segment reductions."""
+    order = torch.argsort(edge_dst, dim=1, stable=True)
+    return (edge_src.gather(1, order), edge_dst.gather(1, order),
+            edge_attr.gather(1, order[..., None].expand_as(edge_attr)),
+            edge_mask.gather(1, order))
+
+
+class GATv2Conv(nn.Module):
+    """GATv2 with edge attributes (JAX ``layers.py:118-224``):
+    e_ij = att_h . LeakyReLU(W_l x_j + W_r x_i + W_e attr_ij), a softmax
+    per destination over its in-edges and a self loop whose attribute is
+    the graph's mean edge attribute, heads concatenated.
+
+    The edge-list form runs all G graphs as one flattened edge list: the
+    softmax statistics in float32 (-1e30 for masked slots, a 1e-12
+    denominator guard), the messages flat (E, H·F) with the attention
+    repeated per head.  `plan=` (an ``ops.sddmm.GatPlan``, G == 1) runs
+    the banded form instead, with the same parameters."""
+
+    def __init__(self, in_features: int, features: int, heads: int = 8,
+                 edge_features: int = 5, negative_slope: float = 0.2):
+        super().__init__()
+        self.heads, self.features = heads, features
+        self.negative_slope = negative_slope
+        hf = heads * features
+        self.lin_l = Linear(in_features, hf)
+        self.lin_r = Linear(in_features, hf)
+        self.lin_edge = Linear(edge_features, hf, bias=False)
+        self.att = nn.Parameter(torch.zeros(heads, features))
+        self.bias = nn.Parameter(torch.zeros(hf))
+
+    def forward(self, x, edge_src, edge_dst, edge_attr, edge_mask, node_mask,
+                pre_sorted: bool = False, plan=None,
+                plan_precision: str = "default"):
+        G, N, _ = x.shape
+        H, Fh = self.heads, self.features
+        slope = self.negative_slope
+        xl = self.lin_l(x).reshape(G, N, H, Fh)
+        xr = self.lin_r(x).reshape(G, N, H, Fh)
+        if plan is not None:
+            if G != 1:
+                raise ValueError("banded attention operates on one graph")
+            out = banded_gat_attention(xl[0], xr[0], plan, self.lin_edge,
+                                       self.att, node_mask[0],
+                                       negative_slope=slope,
+                                       precision=plan_precision)
+            return out.reshape(1, N, H * Fh) + self.bias.to(out.dtype)
+
+        em = edge_mask[..., None]
+        attr_mean = ((edge_attr * em).sum(dim=1, keepdim=True)
+                     / em.sum(dim=1, keepdim=True).clamp_min(1.0))
+        ea = self.lin_edge(edge_attr)
+        ea_loop = self.lin_edge(attr_mean).reshape(G, 1, H, Fh)
+        if not pre_sorted:
+            edge_src, edge_dst, ea, edge_mask = sort_edges_by_dst(
+                edge_src, edge_dst, ea, edge_mask)
+        src, dst = _flat_edges(edge_src, N), _flat_edges(edge_dst, N)
+        xl_f = xl.reshape(G * N, H, Fh)
+        z = xl_f[src] + xr.reshape(G * N, H, Fh)[dst] + ea.reshape(-1, H, Fh)
+        z = F.leaky_relu(z, slope)
+        att = self.att.to(z.dtype)
+        score = torch.einsum("ehf,hf->eh", z, att)
+        zl = F.leaky_relu(xl + xr + ea_loop, slope)
+        sl = torch.einsum("gnhf,hf->gnh", zl, att).float().reshape(G * N, H)
+        nm = node_mask.reshape(-1, 1)
+        sl = torch.where(nm > 0, sl, NEG_INF)
+        m = edge_mask.reshape(-1, 1)
+        s = torch.where(m > 0, score.float(), NEG_INF)
+        with torch.no_grad():   # a shift the softmax does not depend on
+            peak = segment_max(dst, s, G * N, is_sorted=True)
+            peak = torch.maximum(
+                torch.where(torch.isfinite(peak), peak, NEG_INF), sl)
+        ex = torch.exp(s - peak[dst]) * m
+        exl = torch.exp(sl - peak) * nm
+        tot = segment_sum(dst, ex, G * N, is_sorted=True) + exl
+        alpha = (ex / (tot[dst] + 1e-12)).to(z.dtype)
+        alpha_l = (exl / (tot + 1e-12)).to(z.dtype)
+        msg = (xl_f[src] * alpha[..., None]).reshape(-1, H * Fh)
+        out = segment_sum(dst, msg, G * N, is_sorted=True).reshape(
+            G * N, H, Fh) + xl_f * alpha_l[..., None]
+        out = out.reshape(G, N, H * Fh)
+        return out + self.bias.to(out.dtype)
+
+
+class EdgeInjection(nn.Module):
+    """Per-layer edge gate of the GCN and GAT variants (JAX
+    ``layers.py:259-288``): sigmoid(MLP(edge attributes)), averaged over
+    each node's incoming edges, multiplies the node updates."""
+
+    def __init__(self, edge_features: int, hidden_dim: int):
+        super().__init__()
+        self.fc0 = Linear(edge_features, hidden_dim)
+        self.fc1 = Linear(hidden_dim, hidden_dim)
+
+    def forward(self, edge_attr, edge_dst, edge_mask, node_updates,
+                pre_sorted: bool = False):
+        G, N = node_updates.shape[:2]
+        h = torch.sigmoid(self.fc1(torch.relu(self.fc0(edge_attr))))
+        C = h.shape[-1]
+        w = edge_mask.reshape(-1, 1).float()
+        sums = segment_sum(_flat_edges(edge_dst, N),
+                           torch.cat([h.reshape(-1, C) * w, w], dim=1),
+                           G * N, is_sorted=pre_sorted)
+        gates = (sums[:, :C] / sums[:, C:].clamp_min(1.0)).reshape(G, N, C)
+        return node_updates * gates.to(node_updates.dtype)
+
+
 class EdgeContext(nn.Module):
     """Edge features -> per-node sigmoid gate: an edge MLP, a masked mean
     over each node's incoming edges, LayerNorm, a linear gate."""
@@ -187,11 +315,10 @@ class EdgeContext(nn.Module):
         G, E, C = h.shape
         # Masked scatter-mean by destination, all graphs in one fixed-order
         # segment sum (the same sums in every run on the card).
-        idx = (edge_dst + n_nodes * torch.arange(
-            G, device=h.device)[:, None]).reshape(-1)
         w = edge_mask.reshape(-1)
-        sums = segment_sum(idx, torch.cat([h.reshape(-1, C) * w[:, None],
-                                           w[:, None]], dim=1), G * n_nodes)
+        sums = segment_sum(_flat_edges(edge_dst, n_nodes),
+                           torch.cat([h.reshape(-1, C) * w[:, None],
+                                      w[:, None]], dim=1), G * n_nodes)
         tot, cnt = sums[:, :C], sums[:, C]
         ctx = (tot / cnt.clamp_min(1.0)[:, None]).reshape(G, n_nodes, C)
         return torch.sigmoid(self.gate(self.norm(ctx)))

@@ -14,18 +14,31 @@ import math
 import torch
 
 
-def segment_sum(index: torch.Tensor, values: torch.Tensor, n: int
-                ) -> torch.Tensor:
+def _segments(index: torch.Tensor, values: torch.Tensor, n: int,
+              reduce: str, is_sorted: bool) -> torch.Tensor:
+    if not is_sorted:
+        values = values[torch.sort(index, stable=True).indices]
+    lengths = torch.bincount(index, minlength=n)
+    return torch.segment_reduce(values, reduce, lengths=lengths, axis=0)
+
+
+def segment_sum(index: torch.Tensor, values: torch.Tensor, n: int,
+                is_sorted: bool = False) -> torch.Tensor:
     """(n, ...) sums of the rows of `values` (P, ...) by `index` (P,) in
     [0, n), each in ascending row order: a stable sort by index, then one
     sequential sum per segment.  The same float32 adds on every device and
     in every run (a float ``index_add_`` adds in no fixed order on CUDA),
     and on the CPU bit for bit ``index_add_``'s sums, which are the JAX
-    package's ``segment_sum``."""
-    order = torch.sort(index, stable=True).indices
-    lengths = torch.bincount(index, minlength=n)
-    return torch.segment_reduce(values[order], "sum", lengths=lengths,
-                                axis=0)
+    package's ``segment_sum``.  `is_sorted` asserts a non-decreasing
+    `index` and skips the sort."""
+    return _segments(index, values, n, "sum", is_sorted)
+
+
+def segment_max(index: torch.Tensor, values: torch.Tensor, n: int,
+                is_sorted: bool = False) -> torch.Tensor:
+    """(n, ...) maxima of the rows of `values` by `index`, as
+    `segment_sum`; an empty segment gives -inf (JAX ``segment_max``)."""
+    return _segments(index, values, n, "max", is_sorted)
 
 
 def region_reduce(segments: torch.Tensor, planes: torch.Tensor, k: int

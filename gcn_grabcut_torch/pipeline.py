@@ -3,9 +3,10 @@
 Counterpart of ``gcn_grabcut_tpu/pipeline.py``.  `segment_batch` (and
 `segment` in its default options, at B=1) runs:
   1. superpixel graph build with its prior;
-  2. the ResGCNNet forward (a model or an ensemble) -> posteriors: one
-     stacked (B, N, N) dense forward up to LARGE_NODE_THRESHOLD nodes,
-     above it the banded-SpMM forward per graph (models/large.py);
+  2. the model's forward (ResGCNNet, GCNTrimapNet, GATTrimapNet or an
+     ensemble) -> posteriors: one stacked dense forward up to
+     LARGE_NODE_THRESHOLD nodes, above it the large-graph forward per
+     graph (models/large.py: banded SpMM or banded attention);
      optionally again on the image rescaled (`ms_scales`, dense graphs
      only), the pixel posteriors averaged over the scales;
   3. edge-aware trimap (guided filter) with prior seeding;
@@ -315,8 +316,9 @@ def _unpack_post_host(packed: np.ndarray, H: int, W: int,
 class GCNGrabCutPipeline:
     """Full GCN-GrabCut segmentation pipeline.
 
-    model     : a ResGCNNet or ResGCNEnsemble holding its weights (e.g.
-                from train.checkpoints.load_model_auto, or seeded)
+    model     : a ResGCNNet, GCNTrimapNet, GATTrimapNet or ModelEnsemble
+                holding its weights (e.g. from
+                train.checkpoints.load_model_auto, or seeded)
     sp_config : SuperpixelGraphConfig
     gc_config : GrabCutConfig
     device    : where every stage runs; default the card (raises without
@@ -336,13 +338,19 @@ class GCNGrabCutPipeline:
 
     def predict_probs(self, graph: RegionGraph) -> np.ndarray:
         """(K, 3) softmax class probabilities of one built graph (above
-        LARGE_NODE_THRESHOLD nodes through the banded-SpMM forward)."""
+        LARGE_NODE_THRESHOLD nodes through the large-graph forward)."""
         return self._predict_probs_batch(graph.graph)[0].cpu().numpy()
+
+    def _has_large_path(self) -> bool:
+        return (getattr(self.model, "supports_spmm_aggregators", False)
+                or getattr(self.model, "supports_banded_attention", False))
 
     def _predict_probs_batch(self, graph: GraphBatch) -> torch.Tensor:
         """(G, N, 3) softmax class probabilities: one stacked dense forward,
-        or above LARGE_NODE_THRESHOLD one banded-SpMM forward per graph."""
-        if graph.max_nodes > self.LARGE_NODE_THRESHOLD:
+        or above LARGE_NODE_THRESHOLD one large-graph forward per graph
+        (banded SpMM or banded attention) for a model that has one."""
+        if graph.max_nodes > self.LARGE_NODE_THRESHOLD \
+                and self._has_large_path():
             logits = torch.cat([apply_large(self.model, graph.graph(b),
                                             device=self.device)
                                 for b in range(graph.n_graphs)])

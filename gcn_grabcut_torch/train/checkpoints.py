@@ -26,7 +26,7 @@ import numpy as np
 
 from ..core.device import resolve_device
 from ..models.convert import state_dict_from_jax
-from ..models.factory import ResGCNEnsemble, build_model
+from ..models.factory import ModelEnsemble, build_model
 
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
@@ -297,7 +297,8 @@ def _shape_kwargs(kw: dict) -> dict:
 
 
 def _load_member(path, dtype=None):
-    """(ResGCNNet on the CPU, meta) from one checkpoint."""
+    """(model on the CPU, meta) from one checkpoint: the variant its meta
+    names, its weights converted by ``models/convert.py``."""
     params, batch_stats, meta = load_checkpoint(path)
     model = build_model(meta.get("variant", "resgcn"), dtype=dtype,
                         **_shape_kwargs(meta.get("model_kwargs", {})))
@@ -315,7 +316,7 @@ def load_model_from_checkpoint(path: str | Path, device=None, dtype=None):
 
 
 def load_ensemble_from_checkpoints(paths, device=None, dtype=None):
-    """(ResGCNEnsemble, metas) from M architecture-compatible checkpoints:
+    """(ModelEnsemble, metas) from M architecture-compatible checkpoints:
     every file must share the first one's variant and shape kwargs."""
     dev = resolve_device(device)
     paths = [Path(p) for p in paths]
@@ -335,7 +336,7 @@ def load_ensemble_from_checkpoints(paths, device=None, dtype=None):
                 f"checkpoint {p} is architecture-incompatible with "
                 f"{paths[0]} ({m.get('variant')}/{m.get('model_kwargs')} vs "
                 f"{ref_variant}/{metas[0].get('model_kwargs')})")
-    return ResGCNEnsemble(members).to(dev).eval(), metas
+    return ModelEnsemble(members).to(dev).eval(), metas
 
 
 def load_model_auto(spec, device=None, dtype=None):

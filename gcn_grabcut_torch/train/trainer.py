@@ -156,7 +156,7 @@ class ChainOptimizer:
         clip_by_global_norm(grad_clip)
         scale_by_adam() + add_decayed_weights(wd)      (adamw)
           or add_decayed_weights(wd) + trace(0.9, nesterov)   (sgd)
-        scale by the parameter's layer-wise group
+        scale by the parameter's layer-wise group      (ResGCNNet only)
         scale by -schedule(count)
         then, as TrainState.apply_gradients, by the plateau lr_scale.
 
@@ -166,13 +166,16 @@ class ChainOptimizer:
     B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
-                 schedule, n_layers: int):
+                 schedule, n_layers: int, variant: str = "resgcn"):
         self.cfg = cfg
         self.n_layers = n_layers
+        self.variant = variant
         self.params = dict(model.named_parameters())
-        scales = resgcn_group_scales(n_layers)
-        self.scales = {n: scales[resgcn_lr_label(n, n_layers)]
-                       for n in self.params}
+        self.scales = None
+        if variant == "resgcn":
+            scales = resgcn_group_scales(n_layers)
+            self.scales = {n: scales[resgcn_lr_label(n, n_layers)]
+                           for n in self.params}
         self.schedule = schedule
         self.count = 0
         zeros = {n: torch.zeros_like(p) for n, p in self.params.items()}
@@ -220,7 +223,8 @@ class ChainOptimizer:
                 u = (self.mu[n] / bc1) / (torch.sqrt(self.nu[n] / bc2)
                                           + f32(self.EPS))
                 u = u + wd * p
-            u = u * f32(self.scales[n])
+            if self.scales is not None:
+                u = u * f32(self.scales[n])
             u = u * lr
             u = u * f32(lr_scale)
             p.add_(u)
@@ -228,17 +232,26 @@ class ChainOptimizer:
 
     # -- optax's to_state_dict tree ------------------------------------
 
+    def _sched_key(self) -> str:
+        """The schedule's index in the chain: after the group scale, which
+        only ResGCNNet's chain has."""
+        return "4" if self.scales is not None else "3"
+
     def state_tree(self) -> dict:
         count = np.asarray(self.count, np.int32)
         sched = {"count": count} if callable(self.schedule) else {}
+
+        def tree(named):
+            return params_tree(named, self.n_layers, self.variant)
         if self.cfg.optimizer == "sgd":
-            return {"0": {}, "1": {},
-                    "2": {"trace": params_tree(self.trace, self.n_layers)},
-                    "3": {}, "4": sched}
-        return {"0": {}, "1": {"count": count,
-                               "mu": params_tree(self.mu, self.n_layers),
-                               "nu": params_tree(self.nu, self.n_layers)},
-                "2": {}, "3": {}, "4": sched}
+            out = {"0": {}, "1": {}, "2": {"trace": tree(self.trace)}}
+        else:
+            out = {"0": {}, "1": {"count": count, "mu": tree(self.mu),
+                                  "nu": tree(self.nu)}, "2": {}}
+        if self.scales is not None:
+            out["3"] = {}
+        out[self._sched_key()] = sched
+        return out
 
     def load_state_tree(self, tree: dict) -> None:
         dev = next(iter(self.params.values())).device
@@ -248,7 +261,7 @@ class ChainOptimizer:
                     named_from_params_tree(sub).items()}
         if self.cfg.optimizer == "sgd":
             self.trace = named(tree["2"]["trace"])
-            self.count = int(tree["4"].get("count", 0))
+            self.count = int(tree[self._sched_key()].get("count", 0))
         else:
             self.mu = named(tree["1"]["mu"])
             self.nu = named(tree["1"]["nu"])
@@ -257,11 +270,11 @@ class ChainOptimizer:
 
 def make_optimizer(cfg: TrainConfig, model: torch.nn.Module, variant: str,
                    n_layers: int, steps_per_epoch: int):
-    """(ChainOptimizer, schedule fn): JAX ``make_optimizer``."""
-    if variant != "resgcn":
-        raise NotImplementedError(
-            f"variant {variant!r} comes with ROADMAP queue 1 item 6 (the "
-            "GCN/GAT variants)")
+    """(ChainOptimizer, schedule fn): JAX ``make_optimizer``.  Only
+    ResGCNNet's chain scales its updates by layer-wise groups."""
+    if variant not in ("resgcn", "gcn", "gat"):
+        raise ValueError(f"Unknown variant '{variant}'. Choose: "
+                         "resgcn|gcn|gat")
     if cfg.scheduler == "cosine_warm":
         schedule = sgdr_schedule(cfg.lr, cfg.t0, cfg.t_mult, steps_per_epoch)
     elif cfg.scheduler == "onecycle":
@@ -271,7 +284,8 @@ def make_optimizer(cfg: TrainConfig, model: torch.nn.Module, variant: str,
     else:  # plateau (host-controlled lr_scale) or none
         schedule = cfg.lr
     schedule_fn = schedule if callable(schedule) else (lambda step: schedule)
-    return ChainOptimizer(model, cfg, schedule, n_layers), schedule_fn
+    return ChainOptimizer(model, cfg, schedule, n_layers, variant), \
+        schedule_fn
 
 
 def per_class_counts(preds: torch.Tensor, labels: torch.Tensor,
@@ -298,7 +312,7 @@ def per_class_iou(preds: torch.Tensor, labels: torch.Tensor,
 class Trainer:
     """Training engine over prepared GraphBatches.
 
-    model_variant : "resgcn" (the GCN/GAT variants raise)
+    model_variant : "resgcn" | "gcn" | "gat"
     model_kwargs  : forwarded to build_model
     config        : TrainConfig
     save_dir      : checkpoint directory

@@ -2,7 +2,8 @@
 """Where the port's main path spends the card's time.
 
     python3 profile_port.py            # the main path under torch.profiler
-    python3 profile_port.py --kernels  # what holds K1, K2 and K3 back
+    python3 profile_port.py --kernels  # what holds K1, K2 and K3 back,
+                                       # and the banded GAT attention
 
 Runs chip_smoke.py's main-path configuration on one GPU (a 1536x1536
 synthetic image, 10 000 SLIC segments, the seeded ResGCNNet at D=128,
@@ -22,7 +23,11 @@ measured first, is the largest), built by nvcc into
 gcn_grabcut_torch/_build/variants/ and timed as chip_smoke.py times the
 kernels (device time per call, warm L2).  Variants that skip work give
 wrong outputs and only say what that work costs; each K2 line says whether
-the variant's output was exact.  Needs CUDA; imports nothing of JAX.
+the variant's output was exact.  Then it profiles one full-width GAT
+attention layer (128 -> 8 heads of 16, chip_smoke.gat_layer_case) on the
+main path's 10 000-node graph: banded at "default" and "highest" and as
+the edge list, each call's wall time, device busy time and busy share,
+and its heaviest kernels.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -344,6 +349,29 @@ def kernel_variants() -> None:
             print(f"K3 {tag}, {label}: {ms:.4f} ms", flush=True)
 
 
+def gat_attention() -> None:
+    """The banded GAT attention layer at 10k nodes under the profiler, as
+    the edge list beside it: the evidence for or against a fused kernel
+    (ROADMAP M5)."""
+    import chip_smoke as cs
+    _, g, layer, args, plan = cs.gat_layer_case(torch.device("cuda"))
+    for label, kw in (("banded default", dict(plan=plan)),
+                      ("banded highest", dict(plan=plan,
+                                              plan_precision="highest")),
+                      ("edge-list", {})):
+        def call(kw=kw):
+            with torch.no_grad():
+                layer(*args, pre_sorted=True, **kw)
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        report(f"GAT attention layer, {label} (K={g.max_nodes}, "
+               f"E={g.max_edges})", wall, call)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", flush=True)
@@ -352,6 +380,7 @@ def main() -> None:
         import chip_smoke as cs
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
         kernel_variants()
+        gat_attention()
         return
     import chip_smoke as cs
     import gcn_grabcut_torch as gt
