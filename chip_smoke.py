@@ -84,9 +84,28 @@ Phases, each of which exits non-zero on failure:
      card vs CPU and cli.train --model gcn|gat at the flagship recipe per
      variant; the trained GAT checkpoint through load_model_auto and
      segment_batch at 1536x1536.
-Phase 1 also reports whether cv2, PIL and networkx import (information
-only).  Kernel times are device times: the launches run back to back
-behind a device sleep, so the host's launch cost is not counted.
+ 10. serving (gcn_grabcut_torch.cli.serve through build_server, each
+     server on a serve_forever thread, shut down before the next): (a)
+     the recommended ensemble on a 512 px canvas (bgc x3, 500
+     superpixels, the geodesic prior, θ 0.65, radius 4, --batch 8),
+     16 requests from 8 client threads on five non-square serve_image
+     images (PNG, one JSON body, one at threshold 0.6), each mask held
+     against segment_batch at B=1 on its canvas and against the JAX
+     package's served mask (tests/data/torch_serve_jax_ref.npz), IoU
+     >= 0.999; /healthz, 400 and 404; at least one coalesced call
+     (group sizes recorded around the pipeline's segment_batch);
+     requests/s, p50 / p95 latency, group sizes and each batch's
+     timing_ms; (b) examples/flagship_resgcn_d128.msgpack at
+     1536x1536 / 10 000 superpixels, --batch 1: one request plain and
+     one under utils.profile_trace, each launching K1 exactly 7 times
+     (counts set to 0 just before and read just after) and held against
+     segment_batch; the trace holds the card's kernels and K1's; (c) a
+     FrameworkConfig JSON round trip and save_research_report on (a)'s
+     results.
+Phase 1 also reports whether cv2, PIL, networkx, matplotlib and yaml
+import (information only; visualise draws with cv2 without matplotlib).
+Kernel times are device times: the launches run back to back behind a
+device sleep, so the host's launch cost is not counted.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
@@ -94,10 +113,12 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -213,11 +234,30 @@ VARIANT_MIN_IOU = 0.99     # mask IoU vs JAX, per image
 BANDED_HIGHEST_TOL = 2e-4
 BANDED_DEFAULT_REL = 0.05
 
+# Serving (cli.serve) at the recommended configuration: the bgc ensemble
+# on a 512 px canvas with 500 superpixels, θ 0.65, radius 4 (no
+# ms_scales: the server passes none), on serve_image(h, w, seed) for each
+# (h, w, seed) of SERVE_IMAGES, and SERVE_IMAGES[0] again at threshold
+# SERVE_ALT_THRESHOLD; tests/data/torch_serve_jax_ref.npz holds the JAX
+# package's served masks (tests/make_torch_serve_jax_ref.py).
+SERVE_FLAGS = ["--size", str(DENSE_HW), "--n-segments", str(DENSE_SEGMENTS),
+               "--bg-connectivity", "--batch", "8", "--threshold", "0.65",
+               "--filter-radius", "4"]
+SERVE_IMAGES = ((384, 512, 0), (600, 450, 1), (480, 640, 2), (512, 384, 3),
+                (700, 500, 4))
+SERVE_ALT_THRESHOLD = 0.6
+SERVE_REF = "tests/data/torch_serve_jax_ref.npz"
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 16
+SERVE_WAIT_MS = 200      # long enough for concurrent clients to coalesce
+SERVE_MIN_IOU = 0.999    # per mask, against segment_batch and against JAX
+# The large server: one ResGCNNet at 1536^2 / 10 000 superpixels.
+SERVE_LARGE_CHECKPOINT = "examples/flagship_resgcn_d128.msgpack"
+
 
 def optional_packages() -> str:
     """Which optional packages import here, with their versions."""
     parts = []
-    for name in ("cv2", "PIL", "networkx"):
+    for name in ("cv2", "PIL", "networkx", "matplotlib", "yaml"):
         try:
             mod = importlib.import_module(name)
         except Exception as e:   # ImportError, or a broken native library
@@ -294,6 +334,17 @@ def textured_image(hw: int, seed: int) -> np.ndarray:
 
 def staged_image(seed: int) -> np.ndarray:
     return textured_image(DENSE_HW, seed)
+
+
+def serve_image(h: int, w: int, seed: int) -> np.ndarray:
+    """An h x w request image: the centre crop of the max(h, w) px
+    hard-synthetic image of this seed (textured background, one object;
+    the port's generator draws the JAX package's pixels)."""
+    from gcn_grabcut_torch.data.dataset import make_hard_synthetic_dataset
+    side = max(h, w)
+    img = make_hard_synthetic_dataset(1, side, seed)[0]["image"]
+    y0, x0 = (side - h) // 2, (side - w) // 2
+    return np.ascontiguousarray(img[y0:y0 + h, x0:x0 + w])
 
 
 def slic_like_edges(side: int, n_nonlocal: int, seed: int):
@@ -1631,6 +1682,287 @@ def run_variants(dev, card: str, graphs: list) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SERVE_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def serving(server, batcher):
+    """Serve on a thread; yields the port; shuts the server down, closes
+    its socket and stops its batcher on exit."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close(SERVE_TIMEOUT_S)
+        thread.join(SERVE_TIMEOUT_S)
+
+
+def http(port: int, path: str, body: bytes | None = None,
+         ctype: str = "image/png") -> tuple:
+    """(status, JSON payload, seconds) of one GET (no body) or POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        headers={} if body is None else {"Content-Type": ctype})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            code, payload = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, payload = e.code, json.loads(e.read())
+    return code, payload, time.perf_counter() - t
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    import cv2
+    return cv2.imencode(".png", cv2.cvtColor(img, cv2.COLOR_RGB2BGR))[1] \
+        .tobytes()
+
+
+def served_mask(payload: dict) -> np.ndarray:
+    import base64
+
+    import cv2
+    return cv2.imdecode(np.frombuffer(base64.b64decode(
+        payload["mask_png_b64"]), np.uint8), cv2.IMREAD_GRAYSCALE)
+
+
+def serve_reference(batcher, image: np.ndarray, threshold: float):
+    """(result, unboxed mask) of segment_batch at B=1 on the request's
+    canvas with the server's settings."""
+    from gcn_grabcut_torch.cli import serve
+    canvas, geom = serve._letterbox(image, batcher.size)
+    res = batcher.pipe.segment_batch(
+        [canvas], threshold_fg=threshold, threshold_bg=threshold,
+        keep_largest=False, filter_radius=batcher.defaults["filter_radius"],
+        want_segments=False)[0]
+    return res, serve._unbox(res.binary_mask, geom)
+
+
+def run_serving(card: str) -> None:
+    """cli.serve on the card: (a) the recommended ensemble at 512 px behind
+    its micro-batcher, 8 clients and 16 requests, held against
+    segment_batch and the JAX package's served masks; (b) one ResGCNNet at
+    1536^2 / 10 000 superpixels, one request plain and one under
+    profile_trace, 7 K1 launches each; (c) a FrameworkConfig round trip
+    and save_research_report on (a)'s results."""
+    import base64
+    import hashlib
+    import queue
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.cli import serve
+    from gcn_grabcut_torch.config import FrameworkConfig
+    from gcn_grabcut_torch.ops.spmm import banded_spmm
+    from gcn_grabcut_torch.utils import profile_trace
+
+    root = Path(__file__).resolve().parent
+    ref = np.load(root / SERVE_REF)
+    images = [serve_image(h, w, s) for h, w, s in SERVE_IMAGES]
+    if (ref["images"].tolist() != [list(x) for x in SERVE_IMAGES]
+            or list(ref["sha1"]) != [hashlib.sha1(im.tobytes()).hexdigest()
+                                     for im in images]):
+        fail("the serving images differ from the JAX fixture's")
+
+    def jax_mask(i: int, alt: bool) -> np.ndarray:
+        h, w = images[i].shape[:2]
+        return np.unpackbits(ref["mask_alt" if alt else f"mask_{i}"],
+                             count=h * w).reshape(h, w)
+
+    # (a) The recommended server.  Request k: image k % 5; request 5
+    # (image 0) asks for SERVE_ALT_THRESHOLD, request 3 sends JSON.
+    plan = [(k % len(images), k == 5, k == 3) for k in range(SERVE_REQUESTS)]
+    spec = ",".join(str(root / p) for p in DENSE_CHECKPOINTS)
+    t = time.perf_counter()
+    server, batcher = serve.build_server(serve.parse_args(
+        ["--checkpoint", spec, "--port", "0", "--batch-wait-ms",
+         str(SERVE_WAIT_MS)] + SERVE_FLAGS))
+    startup = time.perf_counter() - t
+    # References before the server takes requests: one thread at a time
+    # drives the pipeline.
+    refs = {}
+    for i, alt in sorted({(i, alt) for i, alt, _ in plan}):
+        refs[i, alt] = serve_reference(
+            batcher, images[i],
+            SERVE_ALT_THRESHOLD if alt else batcher.defaults["threshold"])
+    groups, splits, segment_batch = [], [], batcher.pipe.segment_batch
+
+    def recording(imgs, **kw):
+        groups.append(len(imgs))
+        out = segment_batch(imgs, **kw)
+        splits.append(split(out[0].timing))
+        return out
+    batcher.pipe.segment_batch = recording
+
+    requests = []
+    for i, alt, as_json in plan:
+        body, ctype = png_bytes(images[i]), "image/png"
+        if as_json:
+            body = json.dumps({"image_b64": base64.b64encode(body).decode()
+                               }).encode()
+            ctype = "application/json"
+        path = f"/segment?threshold={SERVE_ALT_THRESHOLD}" if alt \
+            else "/segment"
+        requests.append((path, body, ctype))
+    work: queue.Queue = queue.Queue()
+    for k in range(len(plan)):
+        work.put(k)
+    answers = [None] * len(plan)
+
+    def client():
+        while True:
+            try:
+                k = work.get_nowait()
+            except queue.Empty:
+                return
+            answers[k] = http(port, *requests[k])
+
+    with serving(server, batcher) as port:
+        t = time.perf_counter()
+        clients = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        if any(c.is_alive() for c in clients):
+            fail("a serving client did not finish")
+        health = http(port, "/healthz")
+        undecodable = http(port, "/segment", b"not an image")
+        unknown = http(port, "/nowhere")
+        served = batcher.served
+
+    lat = np.array([a[2] for a in answers])
+    ious_ref, ious_jax, exact, fgs = [], [], 0, []
+    for k, ((i, alt, _), (code, payload, _)) in enumerate(zip(plan,
+                                                              answers)):
+        if code != 200:
+            fail(f"request {k} answered {code}: {payload}")
+        mask = served_mask(payload)
+        if mask.shape != images[i].shape[:2]:
+            fail(f"request {k}: mask {mask.shape}, image "
+                 f"{images[i].shape[:2]}")
+        if not set(np.unique(mask).tolist()) <= {0, 255}:
+            fail(f"request {k}: mask values {np.unique(mask)}")
+        want = refs[i, alt][1]
+        ious_ref.append(iou(mask, want))
+        exact += bool(((mask > 0) == (want > 0)).all())
+        ious_jax.append(iou(mask, jax_mask(i, alt)))
+        fgs.append(payload["fg_ratio"])
+    timings = sorted({a[1]["timing_ms"] for a in answers})
+    print(f"serving (a), the recommended ensemble ({DENSE_HW} px canvas, "
+          f"K={refs[0, False][0].probs.shape[0]}, bgc x3, --batch 8, "
+          f"--batch-wait-ms {SERVE_WAIT_MS}; {card}): start-up (load + "
+          f"warm-up) {startup:.3f} s; {len(plan)} requests from "
+          f"{SERVE_CLIENTS} clients in {wall:.3f} s = "
+          f"{len(plan) / wall:.4f} requests/s; latency p50 "
+          f"{np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f}"
+          f" s, max {lat.max():.3f} s; groups {groups} (mean "
+          f"{np.mean(groups):.2f}); batch timing_ms {timings}; FG "
+          f"{min(fgs):.4f}-{max(fgs):.4f}; each group's stage split "
+          f"(unsynchronised): {' | '.join(splits)}", flush=True)
+    print(f"serving (a) masks: IoU vs segment_batch min {min(ious_ref):.6f} "
+          f"({exact} of {len(plan)} exact), vs JAX min {min(ious_jax):.6f} "
+          f"(mean {np.mean(ious_jax):.6f}); healthz {health[1]}; "
+          f"undecodable {undecodable[0]}, unknown path {unknown[0]}",
+          flush=True)
+    if min(ious_ref) < SERVE_MIN_IOU:
+        fail(f"a served mask has IoU {min(ious_ref):.6f} against "
+             "segment_batch")
+    if min(ious_jax) < SERVE_MIN_IOU:
+        fail(f"a served mask has IoU {min(ious_jax):.6f} against JAX's")
+    if served != len(plan) or health[1].get("served") != len(plan):
+        fail(f"served {served} (healthz {health[1]}) of {len(plan)}")
+    if undecodable[0] != 400 or unknown[0] != 404:
+        fail(f"undecodable -> {undecodable[0]}, unknown path -> "
+             f"{unknown[0]}")
+    if sum(groups) != len(plan) or max(groups) < 2:
+        fail(f"groups {groups}: no call coalesced requests")
+
+    # (b) The large server: K1 on every request.
+    large = serve_image(IMAGE_HW, IMAGE_HW, 5)
+    t = time.perf_counter()
+    server, batcher = serve.build_server(serve.parse_args(
+        ["--checkpoint", str(root / SERVE_LARGE_CHECKPOINT), "--port", "0",
+         "--size", str(IMAGE_HW), "--n-segments", str(N_SEGMENTS),
+         "--batch", "1"]))
+    startup = time.perf_counter() - t
+    want = serve_reference(batcher, large, batcher.defaults["threshold"])[1]
+    with serving(server, batcher) as port, \
+            tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for traced in (False, True):
+            banded_spmm.kernel_launches = 0
+            t = time.perf_counter()
+            with profile_trace(tmp if traced else None):
+                code, payload, seconds = http(port, "/segment",
+                                              png_bytes(large))
+            runs.append((time.perf_counter() - t, seconds,
+                         banded_spmm.kernel_launches, code, payload))
+        traces = list(Path(tmp).glob("*.pt.trace.json"))
+        size = sum(p.stat().st_size for p in traces)
+        t = time.perf_counter()
+        events = [e for p in traces
+                  for e in json.loads(p.read_text())["traceEvents"]]
+        parse_s = time.perf_counter() - t
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = sum("banded_spmm" in n for n in kernels)
+    for (wall, seconds, launches, code, payload), name in zip(
+            runs, ("plain", "under profile_trace")):
+        if code != 200:
+            fail(f"the large server answered {code}: {payload}")
+        mask = served_mask(payload)
+        print(f"serving (b), ResGCNNet at {IMAGE_HW}^2 / {N_SEGMENTS} "
+              f"({SERVE_LARGE_CHECKPOINT}; {card}), one request {name}: "
+              f"{wall:.3f} s (HTTP {seconds:.3f} s, batch timing_ms "
+              f"{payload['timing_ms']}); banded_spmm launches {launches}; "
+              f"IoU vs segment_batch {iou(mask, want):.6f}; FG "
+              f"{payload['fg_ratio']:.4f}", flush=True)
+        if launches != N_LAYERS + 1:
+            fail(f"the large request launched banded_spmm {launches} "
+                 f"times, expected {N_LAYERS + 1}")
+        if mask.shape != large.shape[:2] or iou(mask, want) < SERVE_MIN_IOU:
+            fail("the large server's mask disagrees with segment_batch")
+    print(f"serving (b): start-up {startup:.3f} s; profile_trace wrote "
+          f"{len(traces)} file(s), {size / 2**20:.1f} MiB, {len(events)} "
+          f"events ({len(kernels)} kernels, {k1} banded_spmm), parsed in "
+          f"{parse_s:.1f} s", flush=True)
+    if len(traces) != 1 or not kernels or k1 < N_LAYERS + 1:
+        fail("the profiler trace lacks the card's kernels or K1")
+
+    # (c) Tooling on (a)'s results.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = FrameworkConfig.load(overrides={
+            "superpixels.n_segments": DENSE_SEGMENTS,
+            "superpixels.bg_connectivity": True,
+            "inference.threshold": 0.65, "inference.filter_radius": 4})
+        cfg.save(Path(tmp) / "serve.json")
+        if FrameworkConfig.load(Path(tmp) / "serve.json").to_dict() \
+                != cfg.to_dict():
+            fail("FrameworkConfig does not survive a JSON round trip")
+        report = Path(tmp) / "report.png"
+        gt.save_research_report(
+            [dict(image=serve._letterbox(images[i], DENSE_HW)[0],
+                  trimap=res.trimap, binary_mask=res.binary_mask,
+                  title=f"image {i}{' alt' if alt else ''}")
+             for (i, alt), (res, _) in sorted(refs.items())], report)
+        grid = cv2.imread(str(report))
+        if grid is None or grid.std() == 0:
+            fail("save_research_report wrote no image")
+        print(f"serving (c): FrameworkConfig JSON round trip equal; "
+              f"save_research_report {grid.shape[1]}x{grid.shape[0]} px, "
+              f"{report.stat().st_size} bytes", flush=True)
+
+
 def check_keep_largest_repeats(dev) -> None:
     """Keep-largest's component sums run in a fixed order: repeated runs
     on one mask give bit-identical sums and masks."""
@@ -1775,6 +2107,7 @@ def main() -> None:
     evaluated = timed("eval cli", run_eval_cli, card)
     timed("inference cli", run_inference_cli, evaluated, card)
     timed("variants", run_variants, dev, card, graphs)
+    timed("serving", run_serving, card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)

@@ -19,11 +19,20 @@ It trains and evaluates: the data generators and graph preparation
 graph cache), the losses, the `Trainer` with the optax chain of the JAX
 package (AdamW or SGD-nesterov, SGDR / one-cycle / plateau), checkpoints
 either package reads, and the CLIs ``python -m gcn_grabcut_torch.cli.
-{train,prepare_graphs,evaluate,inference}``.  Entry points run on the
-card unless the caller passes device="cpu" (the CLIs: --cpu).
+{train,prepare_graphs,evaluate,inference}``.  It serves: ``python -m
+gcn_grabcut_torch.cli.serve`` answers HTTP requests through a
+micro-batcher in front of `segment_batch`.  Around it: `FrameworkConfig`
+(``config.py``), `StageTimer` and `profile_trace` on torch.profiler
+(``utils.py``), and the plots of ``visualise.py``.  The top level exports
+every public name of the JAX package's.  Entry points run on the card
+unless the caller passes device="cpu" (the CLIs: --cpu).
 """
 
-from .core.graph import GraphBatch, make_graph_batch, pad_graph, stack_graphs
+from .core.graph import (CLASS_BG, CLASS_FG, CLASS_UNK, N_EDGE_FEATS,
+                         N_IMAGE_FEATS, N_NODE_FEATS, N_PRIOR_FEATS,
+                         TRIMAP_BG, TRIMAP_FG, TRIMAP_PROB_BG,
+                         TRIMAP_PROB_FG, GraphBatch, Label, make_graph_batch,
+                         pad_graph, single_graph, stack_graphs)
 from .data.dataset import (augment_sample, derive_trimap_labels,
                            load_image_mask_dataset,
                            make_hard_synthetic_dataset,
@@ -40,9 +49,9 @@ from .metrics import (SegmentationMetrics, TrimapMetrics, boundary_f1,
 from .models.convert import model_from_jax, resgcn_from_jax
 from .models.factory import (ModelEnsemble, ResGCNEnsemble, apply_model,
                              build_model, init_model, init_model_numpy,
-                             predict_probs,
+                             is_ensemble, predict_probs,
                              probs_to_node_trimap, probs_to_trimap,
-                             project_to_pixels)
+                             project_to_pixels, stack_variables)
 from .models.gat import GATTrimapNet
 from .models.gcn import GCNTrimapNet
 from .models.large import apply_large
@@ -60,8 +69,17 @@ from .train.checkpoints import (load_ensemble_from_checkpoints,
 from .train.losses import (FocalLoss, LabelSmoothingCE, TrimapLoss,
                            focal_loss, label_smoothing_ce, trimap_loss)
 from .train.trainer import TrainConfig, Trainer
+from .visualise import (plot_confusion_matrix, plot_superpixel_graph,
+                        plot_training_curves, plot_trimap_comparison,
+                        save_research_report)
 
 __all__ = [
+    "CLASS_BG", "CLASS_FG", "CLASS_UNK", "Label", "N_EDGE_FEATS",
+    "N_IMAGE_FEATS", "N_NODE_FEATS", "N_PRIOR_FEATS", "TRIMAP_BG",
+    "TRIMAP_FG", "TRIMAP_PROB_BG", "TRIMAP_PROB_FG", "is_ensemble",
+    "plot_confusion_matrix", "plot_superpixel_graph", "plot_training_curves",
+    "plot_trimap_comparison", "save_research_report", "single_graph",
+    "stack_variables", "visualise",
     "FocalLoss", "GATTrimapNet", "GCNGrabCutPipeline", "GCNTrimapNet",
     "GrabCut", "GrabCutConfig",
     "GrabCutSnapshot", "GraphBatch", "GraphBuilder", "GraphMesh",

@@ -1,9 +1,10 @@
 """Padded, fixed-shape graph containers and shared constants.
 
 Counterpart of ``gcn_grabcut_tpu/core/graph.py`` (constants, ``GraphBatch``,
-``make_graph_batch``) and of ``core/scatter.masked_softmax``.  Every graph is
-padded to a static (N, E) budget and batches are dense (G, N, F) stacks;
-padded edges have src == dst == 0 and edge_mask == 0.
+``make_graph_batch``, ``single_graph``, ``Label``) and of
+``core/scatter.masked_softmax``.  Every graph is padded to a static (N, E)
+budget and batches are dense (G, N, F) stacks; padded edges have src ==
+dst == 0 and edge_mask == 0.
 
 Conventions: trimap labels match OpenCV (BG=0, FG=1, PR_BG=2, PR_FG=3);
 node classes BG=0, UNK=1, FG=2; 16 image + 3 prior node features; 5 edge
@@ -13,6 +14,7 @@ features.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional
 
 import torch
@@ -27,6 +29,16 @@ TRIMAP_BG = 0       # cv2.GC_BGD
 TRIMAP_FG = 1       # cv2.GC_FGD
 TRIMAP_PROB_BG = 2  # cv2.GC_PR_BGD
 TRIMAP_PROB_FG = 3  # cv2.GC_PR_FGD
+
+
+class Label(enum.IntEnum):
+    """Pixel label constants, OpenCV's GrabCut convention (the JAX
+    package's and the reference facade's names and values)."""
+    BG_DEFINITE = TRIMAP_BG
+    FG_DEFINITE = TRIMAP_FG
+    BG_PROBABLE = TRIMAP_PROB_BG
+    FG_PROBABLE = TRIMAP_PROB_FG
+
 
 CLASS_BG = 0
 CLASS_UNK = 1
@@ -106,6 +118,55 @@ def make_graph_batch(x, edge_src, edge_dst, edge_attr, node_mask, edge_mask,
         edge_mask=f32(edge_mask), node_area=f32(node_area),
         fg_ratio=None if fg_ratio is None else f32(fg_ratio),
         y=None if y is None else i64(y))
+
+
+def single_graph(x, edge_src, edge_dst, edge_attr,
+                 n_nodes: Optional[int] = None,
+                 max_nodes: Optional[int] = None,
+                 max_edges: Optional[int] = None,
+                 node_area=None, fg_ratio=None, y=None,
+                 device=None) -> GraphBatch:
+    """Wrap one (possibly unpadded) graph into a G=1 GraphBatch (JAX
+    ``core/graph.py:160``).
+
+    `x` is (n, F), the edges (e,) index vectors, as arrays or tensors.  A
+    `max_nodes` / `max_edges` above the actual sizes pads the graph with
+    masked entries.  `device=None` keeps tensors where they are (numpy
+    inputs land on the CPU)."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    dev = x.device
+    edge_src = torch.as_tensor(edge_src, device=dev).long()
+    edge_dst = torch.as_tensor(edge_dst, device=dev).long()
+    edge_attr = torch.as_tensor(edge_attr, dtype=torch.float32, device=dev)
+    n = x.shape[0] if n_nodes is None else n_nodes
+    e = edge_src.shape[0]
+    N = max_nodes or n
+    E = max_edges or max(e, 1)
+    if n > N or e > E:
+        raise ValueError(f"{n} nodes / {e} edges exceed the budgets "
+                         f"({N}, {E})")
+
+    def pad_rows(a, rows, dtype=None):
+        """(1, rows, ...): `a` with zero rows appended; None stays None."""
+        if a is None:
+            return None
+        a = torch.as_tensor(a, dtype=dtype, device=dev)
+        if a.shape[0] >= rows:
+            return a[None]
+        return torch.cat([a, a.new_zeros((rows - a.shape[0],)
+                                         + a.shape[1:])])[None]
+
+    node_mask = torch.zeros(N, device=dev)
+    node_mask[:n] = 1.0
+    edge_mask = torch.zeros(E, device=dev)
+    edge_mask[:e] = 1.0
+    return make_graph_batch(
+        x=pad_rows(x, N), edge_src=pad_rows(edge_src, E),
+        edge_dst=pad_rows(edge_dst, E), edge_attr=pad_rows(edge_attr, E),
+        node_mask=node_mask[None], edge_mask=edge_mask[None],
+        node_area=pad_rows(node_area, N, torch.float32),
+        fg_ratio=pad_rows(fg_ratio, N, torch.float32),
+        y=pad_rows(y, N, torch.int64))
 
 
 def stack_graphs(graphs: list) -> GraphBatch:

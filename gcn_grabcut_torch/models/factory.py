@@ -128,6 +128,17 @@ class ModelEnsemble(nn.Module):
 ResGCNEnsemble = ModelEnsemble
 
 
+def stack_variables(models) -> ModelEnsemble:
+    """M compatible models as one inference ensemble: the port's
+    counterpart of the JAX package's ``stack_variables``, which stacks M
+    variable trees for its vmapped forward."""
+    return ModelEnsemble(list(models))
+
+
+def is_ensemble(model) -> bool:
+    return isinstance(model, ModelEnsemble)
+
+
 @torch.no_grad()
 def apply_model(model: nn.Module, graph: GraphBatch) -> torch.Tensor:
     """Eval forward: (G, N, n_classes) logits, or the ensemble's log mean
