@@ -102,6 +102,17 @@ Phases, each of which exits non-zero on failure:
      segment_batch; the trace holds the card's kernels and K1's; (c) a
      FrameworkConfig JSON round trip and save_research_report on (a)'s
      results.
+ 11. data-parallel training over 4 logical ranks on the card
+     (make_mesh(n_data=4, devices=[card] * 4)) on phase 8's 8 prepared
+     graphs, ResGCNNet D=128 n=6, fp32, dropout 0.15 and prior dropout
+     0.1: (a) one step from the bgc_s42 weights against the solo
+     Trainer's step (loss, every gradient leaf, InputNorm's running
+     statistics), with the K3 and K2 counts set to 0 just before and read
+     just after (1 and 1: the gradient sum); (b) Trainer.fit for 2 epochs
+     at batch 8, data-parallel against solo, histories and ms per step;
+     (c) a (2, 2) mesh's graph_mesh(0) through mesh_aggregators(allgather,
+     xla) on the main path's graph against apply_large("highest"), and
+     the ring halo refused on the 2-D mesh.
 Phase 1 also reports whether cv2, PIL, networkx, matplotlib and yaml
 import (information only; visualise draws with cv2 without matplotlib).
 Kernel times are device times: the launches run back to back behind a
@@ -252,6 +263,23 @@ SERVE_WAIT_MS = 200      # long enough for concurrent clients to coalesce
 SERVE_MIN_IOU = 0.999    # per mask, against segment_batch and against JAX
 # The large server: one ResGCNNet at 1536^2 / 10 000 superpixels.
 SERVE_LARGE_CHECKPOINT = "examples/flagship_resgcn_d128.msgpack"
+
+# Data-parallel training at the flagship width on the training phase's
+# TRAIN_GRAPHS prepared graphs: DP_RANKS logical ranks on the card
+# (make_mesh(n_data=DP_RANKS, devices=[card] * DP_RANKS)), fp32, ResGCNNet
+# dropout and prior dropout on, so each rank's slice of the masks matters.
+DP_RANKS = 4
+DP_DROPOUT, DP_PRIOR_DROPOUT = 0.15, 0.1
+DP_LOSS_TOL = 1e-5         # the step's loss against the solo step's
+DP_GRAD_TOL = 1e-5         # each gradient leaf, of its scale ...
+# ... floored at this share of the largest: ctx.attn.bias's exact
+# gradient is 0 and either step leaves float noise there.
+DP_GRAD_FLOOR = 1e-2
+DP_FIT_EPOCHS = 2
+# JAX's bars for a data-parallel history against the single-device one.
+DP_FIT_LOSS_RTOL = 2e-4
+DP_SCORE_RTOL, DP_SCORE_ATOL = 2e-3, 2e-4
+MESH_2D = (2, 2)           # (n_data, n_graph) of the 2-D mesh's check
 
 
 def optional_packages() -> str:
@@ -1136,14 +1164,15 @@ def run_predict_probs(card: str) -> None:
         fail("two apply_large runs on the same graph differ")
 
 
-def leaf_errors(got: dict, want: dict) -> tuple[float, str]:
+def leaf_errors(got: dict, want: dict, floor: float = TRAIN_GRAD_FLOOR
+                ) -> tuple[float, str]:
     """(max over gradient leaves of |got - want| / the leaf's scale, the
-    scale floored at TRAIN_GRAD_FLOOR of the largest gradient; the leaf
-    and its scale's share of the largest, as text)."""
+    scale floored at `floor` of the largest gradient; the leaf and its
+    scale's share of the largest, as text)."""
     gmax = max(float(v.abs().max()) for v in want.values())
     errs = []
     for k, v in want.items():
-        scale = max(float(v.abs().max()), TRAIN_GRAD_FLOOR * gmax)
+        scale = max(float(v.abs().max()), floor * gmax)
         errs.append((float((got[k].cpu() - v).abs().max()) / scale, k,
                      float(v.abs().max()) / gmax))
     err, name, share = max(errs)
@@ -1963,6 +1992,203 @@ def run_serving(card: str) -> None:
               f"{report.stat().st_size} bytes", flush=True)
 
 
+def run_data_parallel(dev, card: str, graphs: list, rings: dict,
+                      n_nodes: int) -> None:
+    """Phase 11: data-parallel training over DP_RANKS logical ranks on the
+    card.  (a) One fp32 step from TRAIN_START's weights, dropout on,
+    against the solo Trainer's step (loss, every gradient leaf, InputNorm's
+    running statistics), with K3 and K2 launched once each; (b) a
+    DP_FIT_EPOCHS-epoch fit against the solo fit; (c) the graph axis of a
+    MESH_2D mesh on the main path's graph against apply_large."""
+    import tempfile
+    from pathlib import Path
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.parallel import ring
+    from gcn_grabcut_torch.parallel.data import flat_rows
+    from gcn_grabcut_torch.parallel.mesh import make_mesh
+    from gcn_grabcut_torch.train import trainer as trainer_mod
+
+    root = Path(__file__).resolve().parent
+    mesh = make_mesh(n_data=DP_RANKS, devices=[dev] * DP_RANKS)
+    kw = dict(hidden_channels=HIDDEN, n_layers=N_LAYERS, dropout=DP_DROPOUT)
+    tcfg = trainer_mod.TrainConfig(
+        bf16=False, prior_dropout=DP_PRIOR_DROPOUT, weight_decay=3e-4,
+        batch_size=TRAIN_GRAPHS, verbose=False, n_epochs=DP_FIT_EPOCHS,
+        save_every=100)
+
+    # (a) one step each, after a warm step; the trainer restarts from the
+    # same weights and generator state before the timed one.
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, m in (("solo", None), ("dp", mesh)):
+            tr = trainer_mod.Trainer("resgcn", kw, tcfg, save_dir=tmp,
+                                     device=dev, mesh=m)
+            batch = tr._bucket(graphs)
+            w = torch.ones(batch.n_graphs, device=dev)
+            for timed in (False, True):
+                tr._init_state(1)
+                tr.load(str(root / TRAIN_START))
+                torch.cuda.synchronize()
+                ring.ring_all_gather.kernel_launches = 0
+                ring.ring_reduce_scatter.kernel_launches = 0
+                t = time.perf_counter()
+                loss, grads = tr.loss_and_grads(batch, w)
+                tr.optimizer.step(grads)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t
+                launches = (ring.ring_reduce_scatter.kernel_launches,
+                            ring.ring_all_gather.kernel_launches)
+            out[name] = dict(
+                loss=float(loss), s=s, launches=launches,
+                grads={k: g.cpu() for k, g in grads.items()},
+                mean=tr.model.in_norm.running_mean.cpu(),
+                var=tr.model.in_norm.running_var.cpu(),
+                rows=flat_rows(list(grads.values()), DP_RANKS)[0].shape[0])
+    d, p = out["dp"], out["solo"]
+    loss_err = abs(d["loss"] - p["loss"]) / abs(p["loss"])
+    grad_err, worst = leaf_errors(d["grads"], p["grads"], DP_GRAD_FLOOR)
+    stats_err = max(float((d["mean"] - p["mean"]).abs().max()),
+                    float((d["var"] - p["var"]).abs().max()))
+    k3, k2 = d["launches"]
+    n_params = sum(g.numel() for g in d["grads"].values())
+    rings["K2"]["launches_data_parallel_step"] = k2
+    rings["K3"]["launches_data_parallel_step"] = k3
+    print(f"data-parallel step ({DP_RANKS} ranks on one card x "
+          f"{TRAIN_GRAPHS // DP_RANKS} graphs, {TRAIN_GRAPHS} x {DENSE_HW}^2 "
+          f"hard-synthetic, K={graphs[0].max_nodes}, ResGCNNet D={HIDDEN} "
+          f"n={N_LAYERS} fp32 from {TRAIN_START}, dropout {DP_DROPOUT}, "
+          f"prior dropout {DP_PRIOR_DROPOUT}; {card}): step "
+          f"{1e3 * d['s']:.2f} ms data-parallel, {1e3 * p['s']:.2f} ms solo; "
+          f"gradient sum {n_params} parameters as {d['rows']} x 128 fp32 "
+          f"rows ({d['rows'] // DP_RANKS} per rank); ring_reduce_scatter "
+          f"launches={k3}, ring_all_gather launches={k2} (solo "
+          f"{p['launches']}); loss {d['loss']:.6f} rel err {loss_err:.2e} "
+          f"(tol {DP_LOSS_TOL:.0e}); gradient err {grad_err:.2e} of each "
+          f"leaf's scale (tol {DP_GRAD_TOL:.0e}, floor {DP_GRAD_FLOOR:.0e} "
+          f"of the largest; worst {worst}); running stats |d| "
+          f"{stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e})", flush=True)
+    if (k3, k2) != (1, 1) or p["launches"] != (0, 0):
+        fail(f"the data-parallel step launched K3 {k3} and K2 {k2} times "
+             f"(solo {p['launches']}); expected 1 and 1 (solo 0)")
+    if not (loss_err <= DP_LOSS_TOL and grad_err <= DP_GRAD_TOL
+            and stats_err <= TRAIN_STATS_TOL):
+        fail("the data-parallel step disagrees with the solo step")
+
+    # K3 and K2 at the gradient sum's shapes, against their plain versions.
+    data_ring = mesh.data_mesh(0)
+    chunk = d["rows"] // DP_RANKS
+    gen = torch.Generator(device=dev).manual_seed(4)
+    stacked = torch.randn((DP_RANKS, d["rows"], 128), generator=gen,
+                          device=dev)
+    bufs = list(stacked)
+    parts = ring.ring_reduce_scatter_cuda(bufs, data_ring)
+    exact = all(bool(torch.equal(a, b)) for a, b in zip(
+        parts, ring.ring_reduce_scatter_plain(bufs))) and all(
+        bool(torch.equal(o, torch.cat(parts)))
+        for o in ring.ring_all_gather_cuda(parts, data_ring))
+    whole = torch.cat(parts)
+    times = {
+        "K3": (time_ms(lambda: ring.ring_reduce_scatter_cuda(bufs,
+                                                              data_ring)),
+               time_ms(lambda: ring.ring_reduce_scatter_plain(bufs)),
+               time_ms(lambda: stacked.view(DP_RANKS, DP_RANKS, chunk,
+                                            128).sum(0)),
+               ring_bound(DP_RANKS, chunk, 4, True)[0]),
+        "K2": (time_ms(lambda: ring.ring_all_gather_cuda(parts, data_ring)),
+               time_ms(lambda: ring.ring_all_gather_plain(parts)),
+               time_ms(lambda: whole.expand(DP_RANKS, *whole.shape
+                                            ).contiguous()),
+               ring_bound(DP_RANKS, chunk, 4, False)[0])}
+    print(f"gradient-sum shapes (n={DP_RANKS} chunk={chunk} D=128 fp32; "
+          f"{card}): " + ", ".join(
+              f"{key} {t[0]:.4f} ms (plain {t[1]:.4f}, yardstick "
+              f"{t[2]:.4f}, bound {t[3]:.4f})" for key, t in times.items())
+          + f"; exact against the plain versions {exact}", flush=True)
+    if not exact:
+        fail("K3 or K2 disagrees with its plain version at the gradient "
+             "sum's shapes")
+
+    # (b) the fit, each step timed.
+    step_fn = trainer_mod.Trainer.train_step
+    hist, step_ms, fit_s = {}, {}, {}
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step_fn(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.setdefault(self.mesh is not None, []).append(
+            1e3 * (time.perf_counter() - t))
+        return loss
+
+    trainer_mod.Trainer.train_step = timed_step
+    try:
+        for name, m in (("dp", mesh), ("solo", None)):
+            with tempfile.TemporaryDirectory() as tmp:
+                t = time.perf_counter()
+                hist[name] = trainer_mod.Trainer(
+                    "resgcn", kw, tcfg, save_dir=tmp, device=dev,
+                    mesh=m).fit(graphs, graphs)
+                fit_s[name] = time.perf_counter() - t
+    finally:
+        trainer_mod.Trainer.train_step = step_fn
+    dh, sh = hist["dp"], hist["solo"]
+    loss_err = float(np.max(np.abs(np.subtract(dh["train_loss"],
+                                               sh["train_loss"]))
+                            / np.abs(sh["train_loss"])))
+    score_ok = np.allclose(dh["val_score"], sh["val_score"],
+                           rtol=DP_SCORE_RTOL, atol=DP_SCORE_ATOL)
+    print(f"data-parallel fit ({DP_FIT_EPOCHS} epochs of the {TRAIN_GRAPHS} "
+          f"graphs at batch {TRAIN_GRAPHS}, validated on them; {card}): "
+          f"{fit_s['dp']:.2f} s data-parallel, {fit_s['solo']:.2f} s solo; "
+          f"ms per step {[round(x, 2) for x in step_ms[True]]} "
+          f"data-parallel, {[round(x, 2) for x in step_ms[False]]} solo; "
+          f"train loss {dh['train_loss']} vs {sh['train_loss']} (max rel "
+          f"err {loss_err:.2e}, tol {DP_FIT_LOSS_RTOL:.0e}); val score "
+          f"{dh['val_score']} vs {sh['val_score']} (rtol "
+          f"{DP_SCORE_RTOL:.0e}, atol {DP_SCORE_ATOL:.0e})", flush=True)
+    if not (loss_err <= DP_FIT_LOSS_RTOL and score_ok):
+        fail("the data-parallel history departs from the solo one")
+
+    # (c) a 2-D mesh's graph axis on the main path's graph.
+    cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    g = graph_on_card([make_image(IMAGE_HW)], cfg, dev)
+    if g.max_nodes != n_nodes:
+        fail(f"the graph has {g.max_nodes} nodes, the kernel phase used "
+             f"{n_nodes}")
+    model = gt.ResGCNNet(hidden_channels=HIDDEN, n_layers=N_LAYERS,
+                         generator=torch.Generator().manual_seed(MODEL_SEED)
+                         ).to(dev).eval()
+    mesh2 = make_mesh(*MESH_2D, devices=[dev] * (MESH_2D[0] * MESH_2D[1]))
+    edges = [a[0].cpu().numpy() for a in (g.edge_src, g.edge_dst,
+                                          g.edge_mask)]
+    aggs = gt.mesh_aggregators(mesh2.graph_mesh(0), *edges, g.max_nodes,
+                               method="allgather", halo="xla")
+    try:
+        gt.mesh_aggregators(mesh2, *edges, g.max_nodes, method="allgather",
+                            halo="pallas_ring")
+        fail("the ring halo took a 2-D mesh")
+    except ValueError:
+        pass
+    with torch.no_grad():
+        logits = model(g, aggregators=aggs)
+        ref = apply_large(model, g, precision="highest")
+    valid = g.node_mask[0] > 0
+    err = float((logits[0][valid] - ref[0][valid]).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"2-D mesh {mesh2.shape} ({MESH_2D[0] * MESH_2D[1]} ranks on one "
+          f"card): graph_mesh(0) of {mesh2.graph_mesh(0).size} ranks through "
+          f"mesh_aggregators(allgather, xla) at {IMAGE_HW}^2 / K={n_nodes}: "
+          f"max |dlogits| vs apply_large highest={err:.3e} (tol "
+          f"{SHARDED_FWD_TOL * scale:.1e}); the ring halo on the 2-D mesh "
+          f"raises ValueError", flush=True)
+    if err > SHARDED_FWD_TOL * scale or not bool(
+            torch.isfinite(logits).all()):
+        fail("the 2-D mesh's graph axis disagrees with apply_large")
+
+
 def check_keep_largest_repeats(dev) -> None:
     """Keep-largest's component sums run in a fixed order: repeated runs
     on one mask give bit-identical sums and masks."""
@@ -2108,6 +2334,7 @@ def main() -> None:
     timed("inference cli", run_inference_cli, evaluated, card)
     timed("variants", run_variants, dev, card, graphs)
     timed("serving", run_serving, card)
+    timed("data parallel", run_data_parallel, dev, card, graphs, rings, k)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)

@@ -14,7 +14,9 @@ with the device or the native C++ min-cut, `clean_mask`); the metrics;
 and the graph-sharded ResGCNNet forward and its gradient over a ring of
 ranks (`make_graph_mesh`, `mesh_aggregators`), whose halo is the
 hand-written ring all-gather and, backward, the ring reduce-scatter.
-It trains and evaluates: the data generators and graph preparation
+It trains and evaluates, on one device or data-parallel over the "data"
+axis of a mesh (`make_mesh`, `Trainer(mesh=...)`, `init_distributed` for
+a job of several processes): the data generators and graph preparation
 (`make_hard_synthetic_dataset`, `prepare_dataset` with the JAX package's
 graph cache), the losses, the `Trainer` with the optax chain of the JAX
 package (AdamW or SGD-nesterov, SGDR / one-cycle / plateau), checkpoints
@@ -59,7 +61,8 @@ from .models.resgcn import ResGCNNet
 from .ops.connected import clean_mask
 from .ops.image import guided_filter
 from .ops.prior import compute_auto_prior
-from .parallel.mesh import GraphMesh, make_graph_mesh
+from .parallel.mesh import (GraphMesh, Mesh, init_distributed,
+                            make_graph_mesh, make_mesh, shard_graph_batch)
 from .parallel.partition import mesh_aggregators, sharded_scatter_add
 from .parallel.ring import ring_all_gather, ring_reduce_scatter
 from .pipeline import (GCNGrabCutPipeline, SegmentationResult, colour_trimap,
@@ -82,7 +85,7 @@ __all__ = [
     "stack_variables", "visualise",
     "FocalLoss", "GATTrimapNet", "GCNGrabCutPipeline", "GCNTrimapNet",
     "GrabCut", "GrabCutConfig",
-    "GrabCutSnapshot", "GraphBatch", "GraphBuilder", "GraphMesh",
+    "GrabCutSnapshot", "GraphBatch", "GraphBuilder", "GraphMesh", "Mesh",
     "LabelSmoothingCE", "RegionGraph", "ResGCNEnsemble", "ResGCNNet",
     "SegmentationMetrics", "SegmentationResult", "SuperpixelGraph",
     "SuperpixelGraphConfig", "TrainConfig", "Trainer", "TrimapLoss",
@@ -91,9 +94,10 @@ __all__ = [
     "clean_mask", "colour_trimap", "compute_auto_prior",
     "derive_trimap_labels", "encode_user_hints", "evaluate",
     "evaluate_batch", "evaluate_trimap", "focal_loss", "guided_filter",
-    "init_model", "init_model_numpy", "label_smoothing_ce", "load_ensemble_from_checkpoints",
+    "init_distributed", "init_model", "init_model_numpy", "label_smoothing_ce", "load_ensemble_from_checkpoints",
     "load_image_mask_dataset", "load_model_auto",
     "load_model_from_checkpoint", "make_graph_batch", "make_graph_mesh",
+    "make_mesh",
     "make_hard_synthetic_dataset", "make_photo_synthetic_dataset",
     "make_synthetic_dataset", "mesh_aggregators", "model_from_jax",
     "ModelEnsemble", "pad_graph",
@@ -101,5 +105,5 @@ __all__ = [
     "probs_to_node_trimap", "probs_to_trimap", "project_to_pixels",
     "refine_trimap", "resgcn_from_jax", "ring_all_gather",
     "ring_reduce_scatter", "sample_clicks", "seed_from_prior",
-    "sharded_scatter_add", "split_dataset", "stack_graphs", "trimap_loss",
+    "shard_graph_batch", "sharded_scatter_add", "split_dataset", "stack_graphs", "trimap_loss",
 ]

@@ -9,6 +9,11 @@ python -m gcn_grabcut_torch.cli.train --synthetic 64 --epochs 5 --batch 8
 # DUTS-style directory layout
 python -m gcn_grabcut_torch.cli.train --images data/DUTS-TR/imgs \\
     --masks data/DUTS-TR/masks --epochs 60 --cache-dir cache/
+
+# data-parallel over two processes (gloo on the CPU; one card each
+# without --cpu, over NCCL)
+torchrun --standalone --nproc_per_node 2 -m gcn_grabcut_torch.cli.train \\
+    --synthetic 64 --epochs 5 --devices 2 --cpu
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 
 def parse_args(argv=None):
@@ -74,18 +80,15 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="train on the CPU (default: the card)")
     p.add_argument("--devices", type=int, default=0,
-                   help="data-parallel training over N devices (not "
-                        "ported yet: N > 1 raises)")
+                   help="data-parallel training over N devices: the "
+                        "processes under torchrun, else the visible cards")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 (data-parallel training) comes with ROADMAP "
-            "queue 1 item 8 (distribution)")
     from ..core.device import resolve_device
+    from ..parallel.mesh import init_distributed, make_mesh, process_count
     from ..data.dataset import (
         list_image_mask_pairs, make_hard_synthetic_dataset,
         make_photo_synthetic_dataset, make_synthetic_dataset,
@@ -93,6 +96,9 @@ def main(argv=None):
     from ..graph_build import SuperpixelGraphConfig
     from ..train.trainer import TrainConfig, Trainer
 
+    if args.devices > 1:
+        # Before the device: under torchrun each process takes its card.
+        init_distributed(device="cpu" if args.cpu else None)
     device = resolve_device("cpu" if args.cpu else None)
     sp_cfg = SuperpixelGraphConfig(n_segments=args.n_segments,
                                    bg_connectivity=args.bg_connectivity)
@@ -139,10 +145,23 @@ def main(argv=None):
         t0=max(args.epochs // 3, 1), seed=args.seed, log_dir=args.log_dir,
         prior_dropout=args.prior_dropout)
 
+    mesh = None
+    if args.devices > 1:
+        # One rank per process under a process group; in one process, one
+        # per visible card (one on the CPU).
+        avail = (process_count() if process_count() > 1 else
+                 1 if device.type == "cpu" else torch.cuda.device_count())
+        if avail < args.devices:
+            raise SystemExit(f"--devices {args.devices} but only {avail} "
+                             "device(s) visible")
+        mesh = make_mesh(n_data=args.devices, n_graph=1,
+                         devices=[device] if process_count() > 1 else None)
+        print(f"[Train] data-parallel over {args.devices} device(s)")
+
     trainer = Trainer(args.model,
                       dict(hidden_channels=args.hidden,
                            n_layers=args.layers, dropout=args.dropout),
-                      cfg, save_dir=args.save_dir, device=device)
+                      cfg, save_dir=args.save_dir, device=device, mesh=mesh)
     history = trainer.fit([r[0] for r in train_recs],
                           [r[0] for r in val_recs],
                           resume_from=args.resume)

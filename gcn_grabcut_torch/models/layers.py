@@ -21,6 +21,7 @@ GCN and GAT variants' per-layer edge gate.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -65,17 +66,27 @@ def layer_norm(features: int) -> LayerNorm:
     return LayerNorm(features, eps=LN_EPS)
 
 
+def uniform(shape, generator=None, device=None) -> torch.Tensor:
+    """U[0, 1) draws of `shape` on `device` from `generator`: a
+    ``torch.Generator`` (torch's default generator when None), or an
+    object with its own ``rand(shape, device)``, such as the data-parallel
+    trainer's per-rank slice of one draw over the whole batch
+    (``parallel/data.py``)."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.rand(shape, generator=generator, device=device)
+    return generator.rand(tuple(shape), device)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
-    1 / (1 - rate); the draws come from `generator` (torch's default
-    generator when None).  Identity outside training."""
+    1 / (1 - rate); the draws come from `generator` (see `uniform`).
+    Identity outside training."""
     if not training or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device
-                      ) < 1.0 - rate
+    keep = uniform(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -348,7 +359,13 @@ class InputNorm(nn.Module):
     variance) and updates the running ones with momentum 0.05 (unbiased
     variance); with fewer than two valid nodes it uses and keeps the
     running statistics.  Evaluation uses the running statistics.  The
-    arithmetic is float32; the output is the compute dtype, else x's."""
+    arithmetic is float32; the output is the compute dtype, else x's.
+
+    Inside `global_statistics(mean, var, count)` training normalises with
+    the given statistics of a batch sharded over ranks and leaves the
+    running ones alone: the data-parallel trainer sums `masked_sums` and
+    then `squared_deviations` over the ranks and calls `update_running`
+    once per step."""
     compute_dtype: torch.dtype | None = None
 
     def __init__(self, n_features: int, momentum: float = 0.05,
@@ -360,28 +377,65 @@ class InputNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_features))
         self.register_buffer("running_mean", torch.zeros(n_features))
         self.register_buffer("running_var", torch.ones(n_features))
+        self._global = None
+
+    @contextlib.contextmanager
+    def global_statistics(self, mean: torch.Tensor, var: torch.Tensor,
+                          count: torch.Tensor):
+        """Normalise training forwards with these (biased) statistics over
+        `count` valid nodes in all."""
+        self._global = (mean, var, count)
+        try:
+            yield
+        finally:
+            self._global = None
+
+    @staticmethod
+    def masked_sums(x, node_mask) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sum of x over valid nodes (F,), valid-node count (1,)), float32:
+        the first of the two passes."""
+        m = node_mask.float()[..., None]
+        return (x.float() * m).sum(dim=(0, 1)), m.sum(dim=(0, 1))
+
+    @staticmethod
+    def squared_deviations(x, node_mask, mean) -> torch.Tensor:
+        """The sum of (x - mean)^2 over valid nodes (F,): the second pass."""
+        m = node_mask.float()[..., None]
+        return (((x.float() - mean) ** 2) * m).sum(dim=(0, 1))
+
+    def select(self, mean, var, count):
+        """The statistics a training forward uses: the batch's, or the
+        running ones below two valid nodes."""
+        use_batch = count >= 2.0
+        return (torch.where(use_batch, mean, self.running_mean),
+                torch.where(use_batch, var, self.running_var))
+
+    @torch.no_grad()
+    def update_running(self, mean, var, count) -> None:
+        """One momentum update from a batch's selected statistics."""
+        use_batch = count >= 2.0
+        unbiased = var * count / (count - 1.0).clamp_min(1.0)
+        mo = self.momentum
+        self.running_mean.copy_(torch.where(
+            use_batch, (1 - mo) * self.running_mean + mo * mean,
+            self.running_mean))
+        self.running_var.copy_(torch.where(
+            use_batch, (1 - mo) * self.running_var + mo * unbiased,
+            self.running_var))
 
     def forward(self, x, node_mask=None):
         xf = x.float()
-        if self.training:
+        if self.training and self._global is not None:
+            mean, var = self.select(*self._global)
+        elif self.training:
             if node_mask is None:
                 raise ValueError("InputNorm needs node_mask in training")
-            m = node_mask.float()[..., None]
-            count = m.sum(dim=(0, 1)).clamp_min(1.0)
-            mean = (xf * m).sum(dim=(0, 1)) / count
-            var = (((xf - mean) ** 2) * m).sum(dim=(0, 1)) / count
-            use_batch = count >= 2.0
-            mean = torch.where(use_batch, mean, self.running_mean)
-            var = torch.where(use_batch, var, self.running_var)
-            with torch.no_grad():
-                unbiased = var * count / (count - 1.0).clamp_min(1.0)
-                mo = self.momentum
-                self.running_mean.copy_(torch.where(
-                    use_batch, (1 - mo) * self.running_mean + mo * mean,
-                    self.running_mean))
-                self.running_var.copy_(torch.where(
-                    use_batch, (1 - mo) * self.running_var + mo * unbiased,
-                    self.running_var))
+            total, count = self.masked_sums(xf, node_mask)
+            count = count.clamp_min(1.0)
+            mean = total / count
+            var = self.squared_deviations(xf, node_mask, mean) / count
+            mean, var = self.select(mean, var, count)
+            self.update_running(mean, var, count)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)

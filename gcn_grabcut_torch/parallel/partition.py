@@ -16,6 +16,9 @@ owns:
 The callables take and return whole tensors, as the JAX package's
 ``shard_map``-ed functions do; the blocks are views of them.  They are
 differentiable: the halo's gradient is the ring reduce-scatter (K3).
+Each takes a `GraphMesh`, or the "graph" axis of a 2-D ("data", "graph")
+`Mesh`, where the data axis replicates the aggregation (its first row
+runs it); as in the JAX package, the ring halo takes a graph-only mesh.
 
 The host-side edge partitioners are the JAX package's, copied (numpy).
 """
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mesh import GraphMesh
+from .mesh import GraphMesh, Mesh
 from .ring import ring_all_gather
 
 HALOS = ("xla", "pallas_ring")
@@ -90,6 +93,18 @@ def partition_edges_2d(edge_src: np.ndarray, edge_dst: np.ndarray,
     return src, dst, msk
 
 
+def _graph_axis(mesh, halo: str | None = None) -> GraphMesh:
+    """The ring of a mesh's "graph" axis."""
+    if not isinstance(mesh, Mesh):
+        return mesh
+    if halo == "pallas_ring":
+        raise ValueError(
+            "halo='pallas_ring' requires a single-axis ('graph',) mesh; "
+            f"got axes {mesh.axis_names}.  Build the aggregation over the "
+            "graph axis of one data row (mesh.graph_mesh(i))")
+    return mesh.graph_mesh(0)
+
+
 def _blocks(x: torch.Tensor, mesh: GraphMesh, n_nodes: int):
     if x.shape[0] != n_nodes or n_nodes % mesh.size:
         raise ValueError(f"x has {x.shape[0]} rows; expected {n_nodes}, a "
@@ -108,6 +123,7 @@ def sharded_scatter_add(mesh: GraphMesh, n_nodes: int, halo: str = "xla"):
     ``halo="xla"`` with PyTorch's own copies."""
     if halo not in HALOS:
         raise ValueError(f"unknown halo backend: {halo!r}")
+    mesh = _graph_axis(mesh, halo)
 
     def agg(x, src, dst, mask):
         xs = _blocks(x, mesh, n_nodes)
@@ -140,6 +156,8 @@ def ring_scatter_add(mesh: GraphMesh, n_nodes: int):
     package's `lax.ppermute` rotation leaves it, and aggregates bucket
     [i, j].  The JAX package runs no Pallas kernel here, so the rotation is
     plain block indexing."""
+    mesh = _graph_axis(mesh)
+
     def agg(x, src2d, dst2d, mask2d):
         xs = _blocks(x, mesh, n_nodes)
         n, block = mesh.size, xs[0].shape[0]
@@ -159,7 +177,7 @@ def ring_scatter_add(mesh: GraphMesh, n_nodes: int):
     return agg
 
 
-def mesh_aggregators(mesh: GraphMesh, edge_src, edge_dst, edge_mask,
+def mesh_aggregators(mesh: GraphMesh | Mesh, edge_src, edge_dst, edge_mask,
                      n_nodes: int, method: str = "ring", halo: str = "xla"):
     """(gcn_propagate, mean_propagate) callables for
     ``ResGCNNet.forward(g, aggregators)`` that run the neighbourhood
@@ -171,6 +189,7 @@ def mesh_aggregators(mesh: GraphMesh, edge_src, edge_dst, edge_mask,
     `halo` is not used); ``method="allgather"`` assembles the full node
     axis per layer (`sharded_scatter_add` with `halo`).  The edge arrays
     are host arrays; their partitions land on the mesh's device."""
+    mesh = _graph_axis(mesh, halo if method == "allgather" else None)
     n_sh = mesh.size
     block = -(-n_nodes // n_sh)
     n_pad = block * n_sh

@@ -4,6 +4,12 @@ Counterpart of ``gcn_grabcut_tpu/train/losses.py``: the same formulas in
 the same order, float32 whatever the logits' dtype.  Padded nodes
 contribute exactly zero; the per-graph soft Dice is a masked reduction
 over axis 1.
+
+Every loss divides by sums over its whole batch (`batch_totals`).  Given
+``totals=`` (those sums over a larger batch) a loss of one shard of that
+batch is the shard's share of the whole batch's loss, so the shards'
+losses and gradients add up to the whole batch's: the data-parallel
+trainer's objective.
 """
 
 from __future__ import annotations
@@ -34,21 +40,36 @@ def _weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
     return ce
 
 
-def _n_valid(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum().clamp_min(1.0)
+def batch_totals(node_mask, area=None, graph_weight=None) -> torch.Tensor:
+    """(3,) float32: the sums a loss takes over its whole batch -- the
+    valid-node count and the valid nodes' area, both weighted by
+    `graph_weight`, and the graph weights' sum (the graph count without
+    them).  Sums over the shards of a batch give the batch's."""
+    mask = node_mask
+    if graph_weight is not None:
+        mask = mask * graph_weight[:, None]
+    area_sum = (mask.new_zeros(()) if area is None
+                else (area * mask).sum())
+    graphs = (graph_weight.sum() if graph_weight is not None
+              else mask.new_tensor(float(mask.shape[0])))
+    return torch.stack([mask.sum(), area_sum, graphs]).float()
+
+
+def _n_valid(mask: torch.Tensor, totals=None) -> torch.Tensor:
+    return (mask.sum() if totals is None else totals[0]).clamp_min(1.0)
 
 
 def focal_loss(logits, labels, node_mask, gamma: float = 2.0,
-               weight=None) -> torch.Tensor:
+               weight=None, totals=None) -> torch.Tensor:
     """FL = (1 - p_t)^gamma * CE, mean over valid nodes."""
     ce = _weighted_ce(logits, labels, weight)
     p_t = torch.exp(-ce)
     per_node = ((1 - p_t) ** gamma) * ce
-    return (per_node * node_mask).sum() / _n_valid(node_mask)
+    return (per_node * node_mask).sum() / _n_valid(node_mask, totals)
 
 
 def label_smoothing_ce(logits, labels, node_mask, smoothing: float = 0.1,
-                       weight=None) -> torch.Tensor:
+                       weight=None, totals=None) -> torch.Tensor:
     """Cross-entropy against 1 - smoothing on the label and smoothing /
     (C - 1) elsewhere."""
     n_classes = logits.shape[-1]
@@ -61,7 +82,7 @@ def label_smoothing_ce(logits, labels, node_mask, smoothing: float = 0.1,
     weight = _weights(weight, loss)
     if weight is not None:
         loss = loss * weight[labels]
-    return (loss * node_mask).sum() / _n_valid(node_mask)
+    return (loss * node_mask).sum() / _n_valid(node_mask, totals)
 
 
 def trimap_loss(logits, labels, node_mask,
@@ -70,7 +91,8 @@ def trimap_loss(logits, labels, node_mask,
                 gamma: float = 2.0, weight=None, dice_weight: float = 0.5,
                 area_weighted: bool = True,
                 graph_weight: Optional[torch.Tensor] = None,
-                eps: float = 1e-6) -> torch.Tensor:
+                eps: float = 1e-6,
+                totals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Area-weighted focal CE + per-graph soft Dice.
 
     Classification term: focal CE with the focal factor computed from the
@@ -79,11 +101,12 @@ def trimap_loss(logits, labels, node_mask,
     foreground coverage p = P(FG) + 0.5 P(UNK) against `fg_ratio` (or the
     hard labels), accumulated with area weights per graph, then averaged
     over graphs.  `graph_weight` (G,) weights whole graphs (0 for the
-    duplicates that fill the last partial batch)."""
+    duplicates that fill the last partial batch).  `totals`: see
+    `batch_totals`."""
     mask = node_mask
     if graph_weight is not None:
         mask = mask * graph_weight[:, None]
-    n_valid = _n_valid(mask)
+    n_valid = _n_valid(mask, totals)
 
     ce = _weighted_ce(logits, labels, weight)
     if gamma > 0:
@@ -94,7 +117,8 @@ def trimap_loss(logits, labels, node_mask,
 
     if area is not None and area_weighted:
         w = area * mask
-        w = w * (n_valid / w.sum().clamp_min(eps))
+        w_sum = w.sum() if totals is None else totals[1]
+        w = w * (n_valid / w_sum.clamp_min(eps))
         cls_loss = (per_node * w).sum() / n_valid
     else:
         cls_loss = (per_node * mask).sum() / n_valid
@@ -115,7 +139,11 @@ def trimap_loss(logits, labels, node_mask,
     sum_p = (a * pred).sum(dim=1)
     sum_t = (a * target).sum(dim=1)
     per_graph = 1.0 - (2.0 * inter + eps) / (sum_p + sum_t + eps)
-    if graph_weight is not None:
+    if totals is not None:
+        if graph_weight is not None:
+            per_graph = per_graph * graph_weight
+        dice = per_graph.sum() / totals[2].clamp_min(1.0)
+    elif graph_weight is not None:
         dice = ((per_graph * graph_weight).sum()
                 / graph_weight.sum().clamp_min(1.0))
     else:
@@ -127,7 +155,7 @@ def make_loss_fn(loss_fn: str = "trimap", gamma: float = 2.0,
                  dice_weight: float = 0.5, label_smoothing: float = 0.1,
                  class_weights=None):
     """The trainer's criterion: f(logits, labels, node_mask, area=None,
-    fg_ratio=None, graph_weight=None) -> scalar."""
+    fg_ratio=None, graph_weight=None, totals=None) -> scalar."""
     w = None if class_weights is None else torch.as_tensor(
         class_weights, dtype=torch.float32)
 
@@ -138,29 +166,30 @@ def make_loss_fn(loss_fn: str = "trimap", gamma: float = 2.0,
 
     if loss_fn == "trimap":
         def f(logits, labels, node_mask, area=None, fg_ratio=None,
-              graph_weight=None):
+              graph_weight=None, totals=None):
             return trimap_loss(logits, labels, node_mask, area=area,
                                fg_ratio=fg_ratio, gamma=gamma, weight=w,
                                dice_weight=dice_weight,
-                               graph_weight=graph_weight)
+                               graph_weight=graph_weight, totals=totals)
     elif loss_fn == "focal":
         def f(logits, labels, node_mask, area=None, fg_ratio=None,
-              graph_weight=None):
+              graph_weight=None, totals=None):
             return focal_loss(logits, labels,
                               graph_masked(node_mask, graph_weight),
-                              gamma=gamma, weight=w)
+                              gamma=gamma, weight=w, totals=totals)
     elif loss_fn == "smooth_ce":
         def f(logits, labels, node_mask, area=None, fg_ratio=None,
-              graph_weight=None):
+              graph_weight=None, totals=None):
             return label_smoothing_ce(logits, labels,
                                       graph_masked(node_mask, graph_weight),
-                                      smoothing=label_smoothing, weight=w)
+                                      smoothing=label_smoothing, weight=w,
+                                      totals=totals)
     else:  # plain CE
         def f(logits, labels, node_mask, area=None, fg_ratio=None,
-              graph_weight=None):
+              graph_weight=None, totals=None):
             node_mask = graph_masked(node_mask, graph_weight)
             ce = _weighted_ce(logits, labels, w)
-            return (ce * node_mask).sum() / _n_valid(node_mask)
+            return (ce * node_mask).sum() / _n_valid(node_mask, totals)
     return f
 
 

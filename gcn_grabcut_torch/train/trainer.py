@@ -20,7 +20,16 @@ PyTorch on the trainer's device (the card unless ``device="cpu"``):
   prior dropout draw from a ``torch.Generator`` seeded ``seed + 1`` (JAX
   draws from ``jax.random``: the mechanism is the same, the bits are not);
 * ``bf16=True`` runs the model in its bfloat16 compute dtype
-  (``models/layers.py``), with float32 parameters, statistics and loss.
+  (``models/layers.py``), with float32 parameters, statistics and loss;
+* ``mesh=`` trains data-parallel over the mesh's "data" axis, computing
+  the single-device step's function: each global batch is split in order
+  over the data ranks; the sums the objective and InputNorm take over the
+  whole batch are summed over the ranks first (they depend on the data
+  only); each rank draws its slice of the whole batch's dropout masks,
+  runs its forward and backward as its share of the whole batch's loss;
+  the ranks' gradients are summed over the data axis (K3 then K2 on the
+  card, ``parallel/data.py``), and one optimiser step and one update of
+  the running statistics follow.
 """
 
 from __future__ import annotations
@@ -44,9 +53,13 @@ from ..models.convert import (jax_variables_from_state_dict,
                               named_from_params_tree, params_tree,
                               state_dict_from_jax)
 from ..models.factory import build_model, init_model
+from ..models.layers import InputNorm, uniform
 from ..models.resgcn import resgcn_group_scales, resgcn_lr_label
+from ..parallel.data import BatchDraws, sum_gradients, sum_over_data
+from ..parallel.mesh import (batch_sharding, process_count, process_index,
+                             shard_graph_batch)
 from . import checkpoints as ckpt_io
-from .losses import make_loss_fn
+from .losses import batch_totals, make_loss_fn
 
 
 @dataclasses.dataclass
@@ -317,16 +330,32 @@ class Trainer:
     config        : TrainConfig
     save_dir      : checkpoint directory
     device        : where the model and batches live; default the card
+                    (the mesh's device when a mesh is given)
+    mesh          : optional ``parallel.mesh.Mesh`` with a "data" axis --
+                    data-parallel training: each batch's graph axis is
+                    split over "data", the ranks share the parameters,
+                    and the batch size is rounded to a multiple of the
+                    axis size.  Under a process group one process writes
+                    the checkpoints and history while the others wait.
 
-    Data-parallel training (JAX's `mesh=`) is not ported yet (ROADMAP
-    queue 1 item 8).
+    Data-parallel training needs InputNorm on the input alone: the GCN
+    variant's hidden InputNorms normalise activations, whose statistics
+    over several ranks would need a synchronised batch norm.
     """
 
     def __init__(self, model_variant: str = "resgcn",
                  model_kwargs: Optional[dict] = None,
                  config: Optional[TrainConfig] = None,
-                 save_dir: str | Path = "checkpoints", device=None):
+                 save_dir: str | Path = "checkpoints", device=None,
+                 mesh=None):
         self.cfg = config or TrainConfig()
+        self.mesh = mesh
+        self._n_data = int(mesh.shape["data"]) if mesh is not None else 1
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.variant = model_variant
         self.model_kwargs = dict(model_kwargs or {})
@@ -335,6 +364,15 @@ class Trainer:
         self.model = build_model(model_variant, **self.model_kwargs).to(
             self.device)
         self.n_layers = self.model_kwargs.get("n_layers", 6)
+        if self._n_data > 1:
+            norms = [m for m in self.model.modules()
+                     if isinstance(m, InputNorm)]
+            if norms != [self.model.in_norm]:
+                raise NotImplementedError(
+                    f"data-parallel training of '{model_variant}': its "
+                    "hidden InputNorms would need statistics synchronised "
+                    "across ranks in the forward and the backward "
+                    "(ROADMAP, queue 1, item 8)")
         self.save_dir = Path(save_dir)
         self.save_dir.mkdir(parents=True, exist_ok=True)
 
@@ -392,27 +430,38 @@ class Trainer:
             self.cfg.seed + 1)
         self.step = 0
 
-    def train_step(self, batch: GraphBatch, graph_weight: torch.Tensor,
-                   lr_scale: float = 1.0) -> torch.Tensor:
-        """One optimisation step; returns the batch loss (a 0-d tensor)."""
+    def train_step(self, batch, graph_weight, lr_scale: float = 1.0
+                   ) -> torch.Tensor:
+        """One optimisation step; returns the batch loss (a 0-d tensor).
+        With a mesh, `batch` and `graph_weight` may be a global batch or
+        `_batches`' per-rank lists."""
         loss, grads = self.loss_and_grads(batch, graph_weight)
         self.optimizer.step(grads, lr_scale)
         self.step += 1
         return loss
 
-    def loss_and_grads(self, batch: GraphBatch, graph_weight: torch.Tensor
+    def _prior_dropout(self, batch: GraphBatch, generator) -> GraphBatch:
+        """Zero each graph's prior channels with probability
+        cfg.prior_dropout."""
+        p_drop = float(self.cfg.prior_dropout)
+        if p_drop <= 0:
+            return batch
+        keep = (uniform((batch.n_graphs, 1, 1), generator, batch.device)
+                < 1.0 - p_drop).to(batch.x.dtype)
+        return dataclasses.replace(batch, x=torch.cat(
+            [batch.x[..., :-N_PRIOR_FEATS],
+             batch.x[..., -N_PRIOR_FEATS:] * keep], dim=-1))
+
+    def loss_and_grads(self, batch, graph_weight
                        ) -> tuple[torch.Tensor, dict]:
         """The training forward (batch statistics updated, dropout and
-        prior dropout drawn) and the loss's gradient for every parameter."""
-        p_drop = float(self.cfg.prior_dropout)
-        if p_drop > 0:
-            keep = (torch.rand((batch.n_graphs, 1, 1),
-                               generator=self.generator,
-                               device=batch.device) < 1.0 - p_drop
-                    ).to(batch.x.dtype)
-            batch = dataclasses.replace(batch, x=torch.cat(
-                [batch.x[..., :-N_PRIOR_FEATS],
-                 batch.x[..., -N_PRIOR_FEATS:] * keep], dim=-1))
+        prior dropout drawn) and the loss's gradient for every parameter.
+        With a mesh: the whole batch's loss and the gradients summed over
+        the data axis."""
+        if self.mesh is not None:
+            return self._loss_and_grads_sharded(
+                *self._shard(batch, graph_weight))
+        batch = self._prior_dropout(batch, self.generator)
         self.model.train()
         logits = self.model(batch, generator=self.generator)
         loss = self.loss_fn(logits, batch.y, batch.node_mask,
@@ -422,28 +471,106 @@ class Trainer:
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
+    def _shard(self, batch, graph_weight) -> tuple[list, list]:
+        """This process's per-rank (batches, weights) of a global batch;
+        lists pass through."""
+        if isinstance(batch, GraphBatch):
+            return (shard_graph_batch(batch, self.mesh),
+                    batch_sharding(self.mesh).place(graph_weight))
+        return list(batch), list(graph_weight)
+
+    def _loss_and_grads_sharded(self, shards: list, weights: list
+                                ) -> tuple[torch.Tensor, dict]:
+        """The data-parallel step of `loss_and_grads` over this process's
+        ranks: (a) the batch-wide sums, (b) each rank's slice of the whole
+        batch's draws, (c) each rank's forward and backward as its share
+        of the whole batch's loss, (d) the gradients summed over the data
+        axis, (f) one running-statistics update.  The optimiser's step (e)
+        follows in `train_step`."""
+        # (b) every draw is a slice of the whole batch's.
+        draws = BatchDraws(self.generator, self._n_data)
+        gens = [draws.rank(self.mesh.data_offset + i)
+                for i in range(len(shards))]
+        shards = [self._prior_dropout(b, g) for b, g in zip(shards, gens)]
+        norm = self.model.in_norm
+        # (a) InputNorm's masked sum and count, with the objective's
+        # totals, over the whole batch; then the squared deviations from
+        # the whole batch's mean (the single-device two-pass formula).
+        first = sum_over_data(
+            torch.cat([*norm.masked_sums(b.x, b.node_mask),
+                       batch_totals(b.node_mask, b.node_area, w)])
+            for b, w in zip(shards, weights))
+        n_feat = shards[0].x.shape[-1]
+        count = first[n_feat].clamp_min(1.0)
+        totals = first[n_feat + 1:]
+        mean = first[:n_feat] / count
+        var = sum_over_data(norm.squared_deviations(b.x, b.node_mask, mean)
+                            for b in shards) / count
+        # (c) every rank's forward and backward.
+        self.model.train()
+        params = self.optimizer.params
+        losses, per_rank = [], []
+        with norm.global_statistics(mean, var, count):
+            for b, w, gen in zip(shards, weights, gens):
+                logits = self.model(b, generator=gen)
+                loss = self.loss_fn(logits, b.y, b.node_mask,
+                                    area=b.node_area, fg_ratio=b.fg_ratio,
+                                    graph_weight=w, totals=totals)
+                per_rank.append(torch.autograd.grad(loss,
+                                                    list(params.values())))
+                losses.append(loss.detach())
+        # (d) and (f).
+        grads = sum_gradients(per_rank, self.mesh.data_mesh(0))
+        norm.update_running(*norm.select(mean, var, count), count)
+        return sum_over_data(losses), dict(zip(params, grads))
+
     @torch.no_grad()
-    def eval_step(self, batch: GraphBatch, graph_weight: torch.Tensor):
-        """(loss, accuracy, (3, 3) tp/fp/fn counts, weighted node count)."""
+    def eval_step(self, batch, graph_weight):
+        """(loss, accuracy, (3, 3) tp/fp/fn counts, weighted node count);
+        with a mesh, over the whole batch (counts summed over ranks)."""
+        if self.mesh is None:
+            loss, correct, counts, nodes = self._eval_parts(batch,
+                                                            graph_weight)
+        else:
+            shards, weights = self._shard(batch, graph_weight)
+            totals = sum_over_data(batch_totals(b.node_mask, b.node_area, w)
+                                   for b, w in zip(shards, weights))
+            parts = []
+            for b, w in zip(shards, weights):
+                loss, correct, counts, nodes = self._eval_parts(b, w, totals)
+                parts.append(torch.cat([loss[None], correct[None],
+                                        nodes[None], counts.reshape(-1)]))
+            tot = sum_over_data(parts)
+            loss, correct, nodes, counts = (tot[0], tot[1], tot[2],
+                                            tot[3:].view(3, 3))
+        return loss, correct / nodes.clamp_min(1.0), counts, nodes
+
+    def _eval_parts(self, batch: GraphBatch, graph_weight: torch.Tensor,
+                    totals=None):
         self.model.eval()
         logits = self.model(batch)
         loss = self.loss_fn(logits, batch.y, batch.node_mask,
                             area=batch.node_area, fg_ratio=batch.fg_ratio,
-                            graph_weight=graph_weight)
+                            graph_weight=graph_weight, totals=totals)
         preds = logits.argmax(dim=-1)
         mask = batch.node_mask * graph_weight[:, None]
         correct = ((preds == batch.y) * mask).sum()
-        total = mask.sum().clamp_min(1.0)
         counts = per_class_counts(preds, batch.y, mask)
-        return loss, correct / total, counts, mask.sum()
+        return loss, correct, counts, mask.sum()
 
     def _batch_size(self, n: int) -> int:
-        return min(max(1, self.cfg.batch_size), max(n, 1))
+        """Static per-step graph count: capped by the dataset, rounded to a
+        multiple of the mesh's data axis so every shard is non-empty."""
+        bs = min(max(1, self.cfg.batch_size), max(n, 1))
+        if self._n_data > 1:
+            bs = max(self._n_data, (bs // self._n_data) * self._n_data)
+        return bs
 
     def _batches(self, data: GraphBatch, rng: np.random.RandomState,
                  shuffle: bool):
         """Yield (batch, graph_weight) with a static batch size; the last
-        batch wraps with zero-weight duplicates."""
+        batch wraps with zero-weight duplicates.  With a mesh, each is
+        this process's list of per-rank pieces."""
         n = data.n_graphs
         bs = self._batch_size(n)
         order = rng.permutation(n) if shuffle else np.arange(n)
@@ -454,8 +581,12 @@ class Trainer:
                 w[len(idx):] = 0.0
                 idx = np.concatenate([idx, np.resize(order, bs - len(idx))])
             sel = torch.as_tensor(idx, device=self.device)
-            yield (data.map(lambda a: a.index_select(0, sel)),
-                   torch.as_tensor(w, device=self.device))
+            batch = data.map(lambda a: a.index_select(0, sel))
+            w = torch.as_tensor(w, device=self.device)
+            if self.mesh is not None:
+                yield self._shard(batch, w)
+            else:
+                yield batch, w
 
     # ------------------------------------------------------------------
 
@@ -607,12 +738,21 @@ class Trainer:
             base = float(self._schedule(self.step))
         return float(base * self._lr_scale)
 
+    def _write(self, write) -> None:
+        """write() in one process of the job; the others wait for it."""
+        if process_index() == 0:
+            write()
+        if process_count() > 1:
+            import torch.distributed as dist
+            dist.barrier()
+
     def save(self, filename: str, epoch: int = 0,
              score: Optional[float] = None):
         """Checkpoint with the full training state (model, optimiser,
-        config) in the JAX package's format and meta fields."""
+        config) in the JAX package's format and meta fields (one process
+        of a job writes it)."""
         variables = jax_variables_from_state_dict(self.model.state_dict())
-        ckpt_io.save_checkpoint(
+        self._write(lambda: ckpt_io.save_checkpoint(
             self.save_dir / filename,
             params=variables["params"],
             batch_stats=variables["batch_stats"],
@@ -621,7 +761,7 @@ class Trainer:
                       model_kwargs={k: v for k, v in
                                     self.model_kwargs.items()
                                     if k != "dtype"},
-                      config=dataclasses.asdict(self.cfg)))
+                      config=dataclasses.asdict(self.cfg))))
 
     def load(self, filename: str, weights_only: bool = True) -> dict:
         """Restore a checkpoint; with weights_only=False the optimiser
@@ -642,6 +782,9 @@ class Trainer:
 
     def _save_history(self):
         path = self.save_dir / "history.json"
-        with open(path, "w") as f:
-            json.dump(self.history, f, indent=2)
-        print(f"[Trainer] History saved → {path}")
+
+        def write():
+            with open(path, "w") as f:
+                json.dump(self.history, f, indent=2)
+            print(f"[Trainer] History saved → {path}")
+        self._write(write)
