@@ -113,6 +113,28 @@ Phases, each of which exits non-zero on failure:
      (c) a (2, 2) mesh's graph_mesh(0) through mesh_aggregators(allgather,
      xla) on the main path's graph against apply_large("highest"), and
      the ring halo refused on the 2-D mesh.
+ 12. data-parallel GCNTrimapNet (every hidden InputNorm normalised with
+     the whole batch's statistics) and GATTrimapNet at D=128 n=6 with
+     init_model_numpy(8) weights, on phase 11's mesh, graphs, dropout
+     and fp32, after checking that the models' Linear gives a rank's 2
+     graphs the rows the 8-graph batch gets: (a) one step against the solo step (loss, every gradient
+     leaf, every norm's running statistics), K3 and K2 counted as in
+     phase 11 (1 and 1), ms per step beside solo; (b) the 2-epoch fit
+     against solo; (c) ResGCNNet in bfloat16, the 4-rank fit against
+     solo within JAX's 2e-4.
+ 13. multilevel GrabCut on the main path's image and trimap: the
+     solve of segment_batch's GrabCut stage with ml_levels 0, 1 and 2
+     (masks against ml_levels=0, the last cut's energy against the exact
+     cut of the same problem, wall times), and grid_mincut_multilevel
+     (levels 1, 2) against grid_mincut on the first iteration's energy
+     (agreement, cut cost, time).
+ 14. core/scatter.py on the card against the CPU on seeded inputs with
+     empty segments, masked rows and weights: maxima exact, the rest
+     within 1e-6.
+Phase 9 also holds augment_sample's arrays, drawn here, to the sha1s of
+the JAX package's run with OpenCV 5.0 (tests/data/torch_eval_jax_ref.npz):
+augment_sample warps in numpy, so they must be equal whichever OpenCV the
+card's machine has.
 Phase 1 also reports whether cv2, PIL, networkx, matplotlib and yaml
 import (information only; visualise draws with cv2 without matplotlib).
 Kernel times are device times: the launches run back to back behind a
@@ -125,6 +147,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -280,6 +303,14 @@ DP_FIT_EPOCHS = 2
 DP_FIT_LOSS_RTOL = 2e-4
 DP_SCORE_RTOL, DP_SCORE_ATOL = 2e-3, 2e-4
 MESH_2D = (2, 2)           # (n_data, n_graph) of the 2-D mesh's check
+# Phase 12: the variants over the same mesh; GCNTrimapNet's hidden
+# InputNorms are synchronised over the ranks.
+DP_VARIANTS = ("gcn", "gat")
+# Phase 13: the banded coarse-to-fine min-cut's levels.
+ML_LEVELS = (1, 2)
+# Phase 14: core/scatter.py at the large graph's scale.
+SCATTER_ROWS, SCATTER_SEGMENTS, SCATTER_COLS = 200_000, N_SEGMENTS, 16
+SCATTER_TOL = 1e-6
 
 
 def optional_packages() -> str:
@@ -698,6 +729,7 @@ def run_main_path(dev, record: dict) -> None:
           f"(tol {FORWARD_TOL * scale:.1e})", flush=True)
     if err > FORWARD_TOL * scale:
         fail("the card's forward disagrees with the plain CPU forward")
+    return img, res.trimap
 
 
 def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
@@ -1167,16 +1199,19 @@ def run_predict_probs(card: str) -> None:
 def leaf_errors(got: dict, want: dict, floor: float = TRAIN_GRAD_FLOOR
                 ) -> tuple[float, str]:
     """(max over gradient leaves of |got - want| / the leaf's scale, the
-    scale floored at `floor` of the largest gradient; the leaf and its
-    scale's share of the largest, as text)."""
+    scale floored at `floor` of the largest gradient; the three worst
+    leaves with their errors and scales' shares of the largest, as
+    text)."""
     gmax = max(float(v.abs().max()) for v in want.values())
     errs = []
     for k, v in want.items():
         scale = max(float(v.abs().max()), floor * gmax)
         errs.append((float((got[k].cpu() - v).abs().max()) / scale, k,
                      float(v.abs().max()) / gmax))
-    err, name, share = max(errs)
-    return err, f"{name}, |grad| {share:.1e} of the largest"
+    errs.sort(reverse=True)
+    return errs[0][0], "; ".join(
+        f"{name} {err:.1e}, |grad| {share:.1e} of the largest"
+        for err, name, share in errs[:3])
 
 
 def run_train_step(dev, card: str, variant: str = "resgcn",
@@ -1453,15 +1488,21 @@ def run_eval_cli(card: str, limit: int = EVAL_LIMIT) -> list:
           f"JAX's {jax_mean:.6f} on the same {limit} (tol "
           f"{EVAL_REPORT_TOL}); JAX's report on all {EVAL_N}: mean_iou "
           f"{jax_report['mean_iou']:.6f}", flush=True)
-    if "other_sha1" in ref:
-        # Information only: whether this machine's OpenCV draws the other
-        # generators' and augment_sample's pixels as the JAX package's run.
-        others = other_generator_outputs(ds)
-        differ = [name for (name, a), h in zip(others, ref["other_sha1"])
-                  if sha1(a) != h]
-        print(f"other generators and augment_sample vs the JAX run's sha1s: "
-              f"{len(others) - len(differ)}/{len(others)} equal; differ: "
-              f"{differ}", flush=True)
+    # Whether this machine's OpenCV draws the other generators' pixels and
+    # its raw cv2 calls as the JAX package's run did (information), and
+    # augment_sample's arrays, which the port warps in numpy (gated).
+    others = other_generator_outputs(ds)
+    differ = [name for (name, a), h in zip(others, ref["other_sha1"])
+              if sha1(a) != h]
+    augment = [name for name, _ in others if name.startswith("augment_")]
+    print(f"other generators and augment_sample vs the JAX run's sha1s: "
+          f"{len(others) - len(differ)}/{len(others)} equal; differ: "
+          f"{differ}; augment_sample arrays equal "
+          f"{len([n for n in augment if n not in differ])}/{len(augment)}",
+          flush=True)
+    if any(name in differ for name in augment):
+        fail("augment_sample's arrays differ from the JAX run's with "
+             "OpenCV 5.0")
     if len(made) != EVAL_N or not (all(img_same) and all(mask_same)):
         bad = [i for i, (a, b) in enumerate(zip(img_same, mask_same))
                if not (a and b)]
@@ -2111,46 +2152,7 @@ def run_data_parallel(dev, card: str, graphs: list, rings: dict,
              "sum's shapes")
 
     # (b) the fit, each step timed.
-    step_fn = trainer_mod.Trainer.train_step
-    hist, step_ms, fit_s = {}, {}, {}
-
-    def timed_step(self, *args, **kwargs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loss = step_fn(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        step_ms.setdefault(self.mesh is not None, []).append(
-            1e3 * (time.perf_counter() - t))
-        return loss
-
-    trainer_mod.Trainer.train_step = timed_step
-    try:
-        for name, m in (("dp", mesh), ("solo", None)):
-            with tempfile.TemporaryDirectory() as tmp:
-                t = time.perf_counter()
-                hist[name] = trainer_mod.Trainer(
-                    "resgcn", kw, tcfg, save_dir=tmp, device=dev,
-                    mesh=m).fit(graphs, graphs)
-                fit_s[name] = time.perf_counter() - t
-    finally:
-        trainer_mod.Trainer.train_step = step_fn
-    dh, sh = hist["dp"], hist["solo"]
-    loss_err = float(np.max(np.abs(np.subtract(dh["train_loss"],
-                                               sh["train_loss"]))
-                            / np.abs(sh["train_loss"])))
-    score_ok = np.allclose(dh["val_score"], sh["val_score"],
-                           rtol=DP_SCORE_RTOL, atol=DP_SCORE_ATOL)
-    print(f"data-parallel fit ({DP_FIT_EPOCHS} epochs of the {TRAIN_GRAPHS} "
-          f"graphs at batch {TRAIN_GRAPHS}, validated on them; {card}): "
-          f"{fit_s['dp']:.2f} s data-parallel, {fit_s['solo']:.2f} s solo; "
-          f"ms per step {[round(x, 2) for x in step_ms[True]]} "
-          f"data-parallel, {[round(x, 2) for x in step_ms[False]]} solo; "
-          f"train loss {dh['train_loss']} vs {sh['train_loss']} (max rel "
-          f"err {loss_err:.2e}, tol {DP_FIT_LOSS_RTOL:.0e}); val score "
-          f"{dh['val_score']} vs {sh['val_score']} (rtol "
-          f"{DP_SCORE_RTOL:.0e}, atol {DP_SCORE_ATOL:.0e})", flush=True)
-    if not (loss_err <= DP_FIT_LOSS_RTOL and score_ok):
-        fail("the data-parallel history departs from the solo one")
+    dp_fit_against_solo("resgcn", kw, tcfg, mesh, graphs, dev, card)
 
     # (c) a 2-D mesh's graph axis on the main path's graph.
     cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
@@ -2187,6 +2189,331 @@ def run_data_parallel(dev, card: str, graphs: list, rings: dict,
     if err > SHARDED_FWD_TOL * scale or not bool(
             torch.isfinite(logits).all()):
         fail("the 2-D mesh's graph axis disagrees with apply_large")
+
+
+def dp_fit_against_solo(variant: str, kw: dict, tcfg, mesh, graphs: list,
+                        dev, card: str, rtol: float = DP_FIT_LOSS_RTOL
+                        ) -> None:
+    """Trainer.fit of `variant` for tcfg.n_epochs epochs on `graphs`
+    (validated on them), over `mesh` and solo, each step timed: the
+    histories must agree within `rtol` (train loss) and JAX's val-score
+    bars."""
+    import tempfile
+
+    from gcn_grabcut_torch.train import trainer as trainer_mod
+
+    step_fn = trainer_mod.Trainer.train_step
+    hist, step_ms, fit_s = {}, {}, {}
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step_fn(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.setdefault(self.mesh is not None, []).append(
+            1e3 * (time.perf_counter() - t))
+        return loss
+
+    trainer_mod.Trainer.train_step = timed_step
+    try:
+        for name, m in (("dp", mesh), ("solo", None)):
+            with tempfile.TemporaryDirectory() as tmp:
+                t = time.perf_counter()
+                hist[name] = trainer_mod.Trainer(
+                    variant, kw, tcfg, save_dir=tmp, device=dev,
+                    mesh=m).fit(graphs, graphs)
+                fit_s[name] = time.perf_counter() - t
+    finally:
+        trainer_mod.Trainer.train_step = step_fn
+    dh, sh = hist["dp"], hist["solo"]
+    loss_err = float(np.max(np.abs(np.subtract(dh["train_loss"],
+                                               sh["train_loss"]))
+                            / np.abs(sh["train_loss"])))
+    score_ok = np.allclose(dh["val_score"], sh["val_score"],
+                           rtol=DP_SCORE_RTOL, atol=DP_SCORE_ATOL)
+    dtype = "bf16" if tcfg.bf16 else "fp32"
+    print(f"data-parallel fit ({variant} {dtype}, {tcfg.n_epochs} epochs of "
+          f"the {len(graphs)} graphs at batch {tcfg.batch_size}, validated "
+          f"on them; {card}): {fit_s['dp']:.2f} s data-parallel, "
+          f"{fit_s['solo']:.2f} s solo; ms per step "
+          f"{[round(x, 2) for x in step_ms[True]]} data-parallel, "
+          f"{[round(x, 2) for x in step_ms[False]]} solo; train loss "
+          f"{dh['train_loss']} vs {sh['train_loss']} (max rel err "
+          f"{loss_err:.2e}, tol {rtol:.0e}); val score {dh['val_score']} vs "
+          f"{sh['val_score']} (rtol {DP_SCORE_RTOL:.0e}, atol "
+          f"{DP_SCORE_ATOL:.0e})", flush=True)
+    if not (loss_err <= rtol and score_ok):
+        fail(f"the data-parallel {variant} {dtype} history departs from the "
+             "solo one")
+
+
+def check_graph_products(dev, card: str) -> None:
+    """The models' Linear computes graph by graph (one batched product):
+    a rank's graphs must get the rows the whole batch gets.  Each
+    (N, K) -> O layer shape of the variants on DP_RANKS' share of
+    TRAIN_GRAPHS graphs against all of them; F.linear's one product
+    alongside, for information."""
+    import torch.nn.functional as F
+
+    from gcn_grabcut_torch.models.layers import Linear
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    share = TRAIN_GRAPHS // DP_RANKS
+    parts, same = [], True
+    for k, o in ((19, HIDDEN), (HIDDEN, HIDDEN), (HIDDEN * (N_LAYERS + 1),
+                                                  HIDDEN), (HIDDEN // 2, 3)):
+        x = torch.randn(TRAIN_GRAPHS, DENSE_SEGMENTS, k, generator=gen,
+                        device=dev)
+        layer = Linear(k, o).to(dev)
+        with torch.no_grad():
+            ours = bool(torch.equal(layer(x[:share]), layer(x)[:share]))
+            plain = bool(torch.equal(
+                F.linear(x[:share], layer.weight, layer.bias),
+                F.linear(x, layer.weight, layer.bias)[:share]))
+        same &= ours
+        parts.append(f"({DENSE_SEGMENTS}, {k}) -> {o}: {ours} (F.linear "
+                     f"{plain})")
+    print(f"Linear rows of {share} graphs vs the same graphs in a batch of "
+          f"{TRAIN_GRAPHS}, bitwise equal ({card}): " + "; ".join(parts),
+          flush=True)
+    if not same:
+        fail("a Linear's rows depend on the number of graphs in its batch")
+
+
+def run_data_parallel_variants(dev, card: str, graphs: list,
+                               rings: dict) -> None:
+    """Phase 12: data-parallel GCNTrimapNet and GATTrimapNet over phase
+    11's mesh and graphs, and ResGCNNet's bf16 fit (see the docstring)."""
+    import tempfile
+
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.parallel import ring
+    from gcn_grabcut_torch.parallel.mesh import make_mesh
+    from gcn_grabcut_torch.train import trainer as trainer_mod
+
+    check_graph_products(dev, card)
+    mesh = make_mesh(n_data=DP_RANKS, devices=[dev] * DP_RANKS)
+    kw = dict(hidden_channels=HIDDEN, n_layers=N_LAYERS, dropout=DP_DROPOUT)
+    tcfg = trainer_mod.TrainConfig(
+        bf16=False, prior_dropout=DP_PRIOR_DROPOUT, weight_decay=3e-4,
+        batch_size=TRAIN_GRAPHS, verbose=False, n_epochs=DP_FIT_EPOCHS,
+        save_every=100)
+    for variant in DP_VARIANTS:
+        # (a) one step each from VARIANT_SEED's weights, after a warm step.
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, m in (("solo", None), ("dp", mesh)):
+                tr = trainer_mod.Trainer(variant, kw, tcfg, save_dir=tmp,
+                                         device=dev, mesh=m)
+                batch = tr._bucket(graphs)
+                w = torch.ones(batch.n_graphs, device=dev)
+                for timed in (False, True):
+                    tr._init_state(1)
+                    gt.init_model_numpy(tr.model, VARIANT_SEED)
+                    torch.cuda.synchronize()
+                    ring.ring_all_gather.kernel_launches = 0
+                    ring.ring_reduce_scatter.kernel_launches = 0
+                    t = time.perf_counter()
+                    loss, grads = tr.loss_and_grads(batch, w)
+                    tr.optimizer.step(grads)
+                    torch.cuda.synchronize()
+                    s = time.perf_counter() - t
+                    launches = (ring.ring_reduce_scatter.kernel_launches,
+                                ring.ring_all_gather.kernel_launches)
+                out[name] = dict(
+                    loss=float(loss), s=s, launches=launches,
+                    grads={k: g.cpu() for k, g in grads.items()},
+                    stats={k: b.cpu() for k, b in
+                           tr.model.named_buffers()})
+        d, p = out["dp"], out["solo"]
+        loss_err = abs(d["loss"] - p["loss"]) / abs(p["loss"])
+        grad_err, worst = leaf_errors(d["grads"], p["grads"], DP_GRAD_FLOOR)
+        stats_err = max(float((d["stats"][k] - b).abs().max())
+                        for k, b in p["stats"].items())
+        k3, k2 = d["launches"]
+        rings["K2"][f"launches_data_parallel_step_{variant}"] = k2
+        rings["K3"][f"launches_data_parallel_step_{variant}"] = k3
+        print(f"data-parallel step, {variant} ({DP_RANKS} ranks on one "
+              f"card x {TRAIN_GRAPHS // DP_RANKS} graphs, K="
+              f"{graphs[0].max_nodes}, D={HIDDEN} n={N_LAYERS} fp32 from "
+              f"init_model_numpy({VARIANT_SEED}), dropout {DP_DROPOUT}, "
+              f"prior dropout {DP_PRIOR_DROPOUT}; {card}): step "
+              f"{1e3 * d['s']:.2f} ms data-parallel, {1e3 * p['s']:.2f} ms "
+              f"solo; ring_reduce_scatter launches={k3}, ring_all_gather "
+              f"launches={k2} (solo {p['launches']}); loss {d['loss']:.6f} "
+              f"rel err {loss_err:.2e} (tol {DP_LOSS_TOL:.0e}); gradient "
+              f"err {grad_err:.2e} of each leaf's scale (tol "
+              f"{DP_GRAD_TOL:.0e}, floor {DP_GRAD_FLOOR:.0e} of the "
+              f"largest; worst {worst}); running stats of "
+              f"{len(p['stats']) // 2} norms |d| {stats_err:.2e} (tol "
+              f"{TRAIN_STATS_TOL:.0e})", flush=True)
+        if (k3, k2) != (1, 1) or p["launches"] != (0, 0):
+            fail(f"the data-parallel {variant} step launched K3 {k3} and K2 "
+                 f"{k2} times (solo {p['launches']}); expected 1 and 1")
+        if not (loss_err <= DP_LOSS_TOL and grad_err <= DP_GRAD_TOL
+                and stats_err <= TRAIN_STATS_TOL):
+            fail(f"the data-parallel {variant} step disagrees with the solo "
+                 "step")
+        # (b)
+        dp_fit_against_solo(variant, kw, tcfg, mesh, graphs, dev, card)
+    # (c) ResGCNNet in bfloat16 (fault 6: float32 weight gradients).
+    dp_fit_against_solo("resgcn", kw, dataclasses.replace(tcfg, bf16=True),
+                        mesh, graphs, dev, card)
+
+
+def cut_energy(excess: torch.Tensor, caps: tuple, fg: torch.Tensor
+               ) -> float:
+    """The cost of the 8-lattice cut `fg` (True on the source side), in
+    float64 on the tensors' device."""
+    from gcn_grabcut_torch.ops.maxflow import OFFSETS_8
+    e = excess.double()
+    cost = e.clamp_min(0)[~fg].sum() + (-e).clamp_min(0)[fg].sum()
+    H, W = fg.shape
+    for c, (dy, dx) in zip(caps, OFFSETS_8):
+        q = fg[max(0, dy):H + min(0, dy), max(0, dx):W + min(0, dx)]
+        p = (slice(max(0, -dy), H + min(0, -dy)),
+             slice(max(0, -dx), W + min(0, -dx)))
+        cost = cost + (c[p].double() * (q != fg[p])).sum()
+    return float(cost)
+
+
+def run_multilevel(dev, card: str, img: np.ndarray,
+                   trimap: np.ndarray) -> None:
+    """Phase 13: the banded coarse-to-fine min-cut on the main path's
+    image and trimap (see the docstring).  Reports; fails on a non-finite
+    energy, a banded cut cheaper than the exact one on its own problem, or
+    a mask of the wrong shape."""
+    from gcn_grabcut_torch import grabcut as gc
+    from gcn_grabcut_torch.core.graph import TRIMAP_FG, TRIMAP_PROB_FG
+    from gcn_grabcut_torch.ops import gmm as gmm_ops
+    from gcn_grabcut_torch.ops import maxflow as mf
+
+    cfg = gc.GrabCutConfig()
+    k = cfg.n_components
+    tri, degenerate = gc._repair(torch.as_tensor(trimap, device=dev).to(
+        torch.uint8))
+    if degenerate:
+        fail("the main path's trimap is one-sided")
+    pix = gc.preprocess_device(torch.as_tensor(img, device=dev).float(),
+                               cfg.color_space)
+    fg_sel = (tri == TRIMAP_FG) | (tri == TRIMAP_PROB_FG)
+    comp0 = torch.where(fg_sel, gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0),
+                        gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1))
+    solve = gc.grid_mincut_multilevel
+    problems, masks, secs = {}, {}, {}
+
+    def recording(excess, caps, **kwargs):
+        fg = solve(excess, caps, **kwargs)
+        problems[level].append((excess, caps, fg))
+        return fg
+
+    gc.grid_mincut_multilevel = recording
+    try:
+        for level in (0,) + ML_LEVELS:
+            problems[level] = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mask, _ = gc._grabcut_solve(pix, tri, comp0, cfg.gamma,
+                                        cfg.n_iter, k, ml_levels=level)
+            torch.cuda.synchronize()
+            secs[level] = time.perf_counter() - t
+            masks[level] = (mask == TRIMAP_FG) | (mask == TRIMAP_PROB_FG)
+    finally:
+        gc.grid_mincut_multilevel = solve
+    ok = True
+    parts = [f"ml_levels=0 {secs[0]:.3f} s"]
+    for level in ML_LEVELS:
+        agree = float((masks[level] == masks[0]).float().mean())
+        excess, caps, fg = problems[level][-1]
+        exact = mf.grid_mincut(excess, caps)
+        ratio = cut_energy(excess, caps, fg) / cut_energy(excess, caps,
+                                                          exact)
+        ok &= (masks[level].shape == masks[0].shape and np.isfinite(ratio)
+               and ratio >= 1.0 - 1e-6 and len(problems[level]) == cfg.n_iter)
+        parts.append(f"ml_levels={level} {secs[level]:.3f} s, mask agreement "
+                     f"with ml_levels=0 {agree:.6f}, last cut's energy / the "
+                     f"exact cut's {ratio:.6f}")
+    print(f"multilevel GrabCut ({IMAGE_HW}^2 main-path image and trimap, "
+          f"{cfg.n_iter} iterations; {card}): " + "; ".join(parts),
+          flush=True)
+    # The first iteration's energy, solved alone by each solver.
+    excess, caps, _ = problems[ML_LEVELS[0]][0]
+
+    def timed_cut(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fg = fn()
+        torch.cuda.synchronize()
+        return fg, time.perf_counter() - t
+
+    exact, s_exact = timed_cut(lambda: mf.grid_mincut(excess, caps))
+    e_exact = cut_energy(excess, caps, exact)
+    parts = [f"grid_mincut {s_exact:.3f} s"]
+    for level in ML_LEVELS:
+        fg, s_ml = timed_cut(lambda: mf.grid_mincut_multilevel(
+            excess, caps, levels=level))
+        ratio = cut_energy(excess, caps, fg) / e_exact
+        ok &= bool(np.isfinite(ratio)) and ratio >= 1.0 - 1e-6
+        parts.append(f"levels={level} {s_ml:.3f} s, agreement "
+                     f"{float((fg == exact).float().mean()):.6f}, cut cost "
+                     f"/ exact {ratio:.6f}")
+    print(f"grid_mincut_multilevel on the first iteration's energy "
+          f"({IMAGE_HW}^2; {card}): " + "; ".join(parts), flush=True)
+    if not ok:
+        fail("the multilevel min-cut gave a cut cheaper than the exact one, "
+             "a non-finite energy or a mask of the wrong shape")
+
+
+def run_scatter(dev, card: str) -> None:
+    """Phase 14: core/scatter.py on the card against the CPU."""
+    from gcn_grabcut_torch.core import scatter as sc
+
+    r = np.random.RandomState(14)
+    idx = r.randint(0, SCATTER_SEGMENTS, SCATTER_ROWS)
+    idx[idx % 97 == 5] += 1                     # empty segments
+    vals = (r.randn(SCATTER_ROWS, SCATTER_COLS) * 3).astype(np.float32)
+    w = (r.rand(SCATTER_ROWS) * (r.rand(SCATTER_ROWS) > 0.3)
+         ).astype(np.float32)
+    mask = (r.rand(SCATTER_ROWS) > 0.25).astype(np.float32)
+    h = (r.randn(TRAIN_GRAPHS, DENSE_SEGMENTS, HIDDEN) * 2 + 1
+         ).astype(np.float32)
+    hm = (r.rand(TRAIN_GRAPHS, DENSE_SEGMENTS) > 0.2).astype(np.float32)
+    n = SCATTER_SEGMENTS
+    cases = {
+        "scatter_add": lambda t: sc.scatter_add(t["v"], t["i"], n),
+        "scatter_mean": lambda t: sc.scatter_mean(t["v"], t["i"], n,
+                                                  t["w"]),
+        "scatter_max": lambda t: sc.scatter_max(t["v"], t["i"], n),
+        "scatter_softmax": lambda t: sc.scatter_softmax(t["v"][:, 0],
+                                                        t["i"], n, t["m"]),
+        "masked_mean": lambda t: sc.masked_mean(t["h"], t["hm"]),
+        "masked_softmax": lambda t: sc.masked_softmax(t["h"][..., 0],
+                                                      t["hm"]),
+        "masked_var": lambda t: torch.cat([
+            x.reshape(-1) for x in sc.masked_var(t["h"], t["hm"],
+                                                 axis=(0, 1))]),
+    }
+    arrays = dict(v=vals, i=idx, w=w, m=mask, h=h, hm=hm)
+    on = {d: {k: torch.as_tensor(a, device=d) for k, a in arrays.items()}
+          for d in (dev, "cpu")}
+    errs, ok = {}, True
+    for name, fn in cases.items():
+        got, want = fn(on[dev]).cpu(), fn(on["cpu"])
+        if name == "scatter_max":
+            ok &= bool(torch.equal(got, want))
+            errs[name] = "exact" if torch.equal(got, want) else "differs"
+            continue
+        err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        ok &= err <= SCATTER_TOL
+        errs[name] = f"{err:.1e}"
+    empty = int((np.bincount(idx, minlength=n) == 0).sum())
+    print(f"core/scatter.py card vs CPU ({SCATTER_ROWS} rows into "
+          f"{SCATTER_SEGMENTS} segments, {empty} empty; ({TRAIN_GRAPHS}, "
+          f"{DENSE_SEGMENTS}, {HIDDEN}) masked; "
+          f"{card}): " + ", ".join(f"{k} {v}" for k, v in errs.items())
+          + f" (tol {SCATTER_TOL:.0e}, max exact)", flush=True)
+    if not ok:
+        fail("core/scatter.py on the card disagrees with the CPU")
 
 
 def check_keep_largest_repeats(dev) -> None:
@@ -2320,7 +2647,7 @@ def main() -> None:
     record = timed("kernels", check_banded_spmm, dev)
     rings = timed("rings", check_ring_collectives, dev, k)
     timed("ring stress", stress_ring_collectives, dev, k)
-    timed("main path", run_main_path, dev, record)
+    main_image = timed("main path", run_main_path, dev, record)
     timed("sharded", run_sharded_path, dev, rings, k)
     timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
@@ -2335,6 +2662,10 @@ def main() -> None:
     timed("variants", run_variants, dev, card, graphs)
     timed("serving", run_serving, card)
     timed("data parallel", run_data_parallel, dev, card, graphs, rings, k)
+    timed("data parallel variants", run_data_parallel_variants, dev, card,
+          graphs, rings)
+    timed("multilevel", run_multilevel, dev, card, *main_image)
+    timed("scatter", run_scatter, dev, card)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)

@@ -1,8 +1,9 @@
 """Padded, fixed-shape graph containers and shared constants.
 
 Counterpart of ``gcn_grabcut_tpu/core/graph.py`` (constants, ``GraphBatch``,
-``make_graph_batch``, ``single_graph``, ``Label``) and of
-``core/scatter.masked_softmax``.  Every graph is padded to a static (N, E)
+``make_graph_batch``, ``single_graph``, ``Label``); `NEG_INF` and
+`masked_softmax` are ``core/scatter.py``'s, imported here for the code
+that takes them from this module.  Every graph is padded to a static (N, E)
 budget and batches are dense (G, N, F) stacks; padded edges have src ==
 dst == 0 and edge_mask == 0.
 
@@ -19,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from .scatter import NEG_INF, masked_softmax  # noqa: F401 -- re-exported
 
 N_IMAGE_FEATS = 16
 N_PRIOR_FEATS = 3
@@ -43,9 +46,6 @@ class Label(enum.IntEnum):
 CLASS_BG = 0
 CLASS_UNK = 1
 CLASS_FG = 2
-
-NEG_INF = -1e30
-
 
 @dataclasses.dataclass
 class GraphBatch:
@@ -209,19 +209,3 @@ def pad_graph(g: GraphBatch, max_nodes: int, max_edges: int) -> GraphBatch:
         node_mask=pad(g.node_mask, dn), edge_mask=pad(g.edge_mask, de),
         node_area=pad(g.node_area, dn), fg_ratio=pad(g.fg_ratio, dn),
         y=pad(g.y, dn))
-
-
-def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = 1
-                   ) -> torch.Tensor:
-    """Softmax over `dim` with masked entries forced to probability 0,
-    computed in float32 (core/scatter.py:97-111)."""
-    dtype = scores.dtype
-    s = scores.float()
-    m = mask.to(s.dtype)
-    while m.dim() < s.dim():
-        m = m[..., None]
-    s = torch.where(m > 0, s, torch.full_like(s, NEG_INF))
-    s = s - s.amax(dim=dim, keepdim=True).detach()
-    ex = torch.exp(s) * m
-    tot = ex.sum(dim=dim, keepdim=True)
-    return (ex / (tot + 1e-12)).to(dtype)

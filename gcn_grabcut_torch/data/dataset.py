@@ -62,11 +62,12 @@ def augment_sample(image: np.ndarray, mask: np.ndarray,
         rot = cv2.getRotationMatrix2D((W / 2.0, H / 2.0),
                                       rng.uniform(-15.0, 15.0), 1.0)
 
-        def warp(a, interp):
-            return cv2.warpAffine(a, rot, (W, H), flags=interp,
-                                  borderMode=cv2.BORDER_REFLECT)
-        return warp(img, cv2.INTER_LINEAR), warp(msk.astype(np.uint8),
-                                                 cv2.INTER_NEAREST)
+        # cv2.warpAffine with BORDER_REFLECT, linear for the pixels and
+        # nearest for the labels, in OpenCV 5.0's arithmetic whichever
+        # OpenCV is installed (its versions part here).
+        return (warp_affine_linear_reflect(img, rot, (W, H)),
+                warp_affine_nearest(msk.astype(np.uint8), rot, (W, H),
+                                    reflect=True))
 
     def recolor(img, msk):
         return _photometric_jitter(img, rng), msk
@@ -496,21 +497,17 @@ def _paint_ops(img: np.ndarray, mask: np.ndarray, ops,
             cv2.ellipse(mask, centre, axes, angle, 0, 360, int(label), -1)
 
 
-def warp_affine_nearest(src: np.ndarray, M, dsize: tuple) -> np.ndarray:
-    """``cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST)`` of a
-    single-channel image with its zero border, in numpy, in the arithmetic
-    of OpenCV 5.0 with 16-lane float vectors.  OpenCV versions part here
-    (4.x maps pixels in 10-bit fixed point, 5.0 in float32, and boundary
-    pixels of a rotated rectangle move), so the hard-synthetic generator
-    warps this way and gives the same pixels whichever OpenCV is
-    installed.  With the inverse map m in float64, the source x is
-    fma(float32(m00), x, r) rounded once to float32, where the row term r
-    is m01 * y + m02 in float32 arithmetic on float32(m) for the 16-pixel
-    vectors and float32(m01 * y + m02) in float64 for the last W % 16
-    pixels of a row; likewise y; both round half to even."""
-    if src.ndim != 2:
-        raise ValueError(f"a single-channel image is needed, got "
-                         f"{src.shape}")
+def _warp_source(M, dsize: tuple, linear: bool):
+    """(sx, sy): the float32 source coordinates of every destination pixel
+    of ``cv2.warpAffine(src, M, dsize)`` in the arithmetic of OpenCV 5.0
+    with 16-lane float vectors.  With the inverse map m in float64 and f =
+    float32(m), the source x of the 16-pixel vectors is fma(f00, x, r),
+    with the row term r = f01 * y + f02 in float32 arithmetic; for the
+    last W % 16 pixels of a row it is fma(f00, x, float32(m01 * y + m02))
+    (the row term in float64) when interpolating nearest, and
+    (fma(f00, x, f01 * y) + f02) in float32 when linear; likewise y.  A
+    float32 product is exact in float64, so one rounding there is a
+    fma's."""
     W, H = dsize
     M = np.asarray(M, np.float64)
     det = M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0]
@@ -519,23 +516,89 @@ def warp_affine_nearest(src: np.ndarray, M, dsize: tuple) -> np.ndarray:
     a21, a22 = -M[1, 0] * det, M[0, 0] * det
     inv = np.array([[a11, a12, -a11 * M[0, 2] - a12 * M[1, 2]],
                     [a21, a22, -a21 * M[0, 2] - a22 * M[1, 2]]])
-    inv32 = inv.astype(np.float32)
+    f = inv.astype(np.float32)
     xs = np.arange(W, dtype=np.float64)[None, :]
+    ys = np.arange(H)
     in_vectors = xs < W - W % 16
 
-    def source(r):
-        vec_row = inv32[r, 1] * np.arange(H, dtype=np.float32) + inv32[r, 2]
-        tail_row = (inv[r, 1] * np.arange(H) + inv[r, 2]).astype(np.float32)
-        row = np.where(in_vectors, vec_row[:, None], tail_row[:, None])
-        # A float32 product is exact in float64: one rounding, as a fma.
-        return np.rint((np.float64(inv32[r, 0]) * xs + row.astype(np.float64)
-                        ).astype(np.float32)).astype(np.int64)
+    def fma_x(r, row):
+        return (np.float64(f[r, 0]) * xs
+                + row.astype(np.float64)[:, None]).astype(np.float32)
 
-    sx, sy = source(0), source(1)
-    inside = (sx >= 0) & (sx < src.shape[1]) & (sy >= 0) & (sy < src.shape[0])
-    out = np.zeros((H, W), src.dtype)
+    def source(r):
+        vec = fma_x(r, f[r, 1] * ys.astype(np.float32) + f[r, 2])
+        if linear:
+            tail = fma_x(r, (np.float64(f[r, 1]) * ys).astype(np.float32)
+                         ) + f[r, 2]
+        else:
+            tail = fma_x(r, (inv[r, 1] * ys + inv[r, 2]).astype(np.float32))
+        return np.where(in_vectors, vec, tail)
+    return source(0), source(1)
+
+
+def _reflect(i: np.ndarray, n: int) -> np.ndarray:
+    """OpenCV's BORDER_REFLECT index (fedcba|abcdefgh|hgfedcb)."""
+    if n == 1:
+        return np.zeros_like(i)
+    i = i.copy()
+    while True:
+        lo, hi = i < 0, i >= n
+        if not (lo.any() or hi.any()):
+            return i
+        i[lo] = -i[lo] - 1
+        i[hi] = 2 * n - 1 - i[hi]
+
+
+def warp_affine_nearest(src: np.ndarray, M, dsize: tuple,
+                        reflect: bool = False) -> np.ndarray:
+    """``cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST)`` of a
+    single-channel image, with its zero border or with ``borderMode=
+    cv2.BORDER_REFLECT``, in numpy, in the arithmetic of OpenCV 5.0
+    (`_warp_source`; coordinates round half to even).  OpenCV versions
+    part here (4.x maps pixels in 10-bit fixed point, 5.0 in float32, and
+    boundary pixels of a rotated rectangle move), so the generators and
+    `augment_sample` warp this way and give the same pixels whichever
+    OpenCV is installed."""
+    if src.ndim != 2:
+        raise ValueError(f"a single-channel image is needed, got "
+                         f"{src.shape}")
+    sx, sy = (np.rint(a).astype(np.int64)
+              for a in _warp_source(M, dsize, linear=False))
+    h, w = src.shape
+    if reflect:
+        return src[_reflect(sy, h), _reflect(sx, w)]
+    inside = (sx >= 0) & (sx < w) & (sy >= 0) & (sy < h)
+    out = np.zeros(sx.shape, src.dtype)
     out[inside] = src[sy[inside], sx[inside]]
     return out
+
+
+def warp_affine_linear_reflect(src: np.ndarray, M, dsize: tuple
+                               ) -> np.ndarray:
+    """``cv2.warpAffine(src, M, dsize, flags=cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_REFLECT)`` of a uint8 image of any channels, in
+    numpy, in the arithmetic of OpenCV 5.0: the source coordinates of
+    `_warp_source`, their fractions a = s - floor(s) in float32, the four
+    reflected neighbours p blended in float32 as v0 = fma(ax, p01 - p00,
+    p00), v1 = fma(ax, p11 - p10, p10), v = fma(ay, v1 - v0, v0), rounded
+    half to even and saturated."""
+    sx, sy = _warp_source(M, dsize, linear=True)
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax, ay = sx - x0, sy - y0
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    h, w = src.shape[:2]
+    xa, xb = _reflect(x0, w), _reflect(x0 + 1, w)
+    ya, yb = _reflect(y0, h), _reflect(y0 + 1, h)
+    p = src.astype(np.float32)
+    if src.ndim == 3:
+        ax, ay = ax[..., None], ay[..., None]
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+    v0 = fma(ax, p[ya, xb] - p[ya, xa], p[ya, xa])
+    v1 = fma(ax, p[yb, xb] - p[yb, xa], p[yb, xa])
+    v = fma(ay, v1 - v0, v0)
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)
 
 
 def make_synthetic_dataset(n: int = 200, size: int = 128, seed: int = 42

@@ -28,7 +28,8 @@ from .core.device import resolve_device
 from .core.graph import TRIMAP_BG, TRIMAP_FG, TRIMAP_PROB_BG, TRIMAP_PROB_FG
 from .ops import gmm as gmm_ops
 from .ops import image as im
-from .ops.maxflow import OFFSETS_8, _fresh_residuals, grid_mincut_stateful
+from .ops.maxflow import (OFFSETS_8, _fresh_residuals, grid_mincut_multilevel,
+                          grid_mincut_stateful)
 
 
 @dataclasses.dataclass
@@ -85,11 +86,14 @@ def _pairwise_caps(pix: torch.Tensor, gamma: float):
 
 def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
                    comp0: torch.Tensor, gamma: float, n_iter: int,
-                   n_components: int):
-    """The iterated optimisation on one image with the exact flow-recycled
-    min-cut (the JAX package's ml_levels=0).  pix (H, W, 3) float32, mask
+                   n_components: int, ml_levels: int = 0):
+    """The iterated optimisation on one image.  pix (H, W, 3) float32, mask
     (H, W) uint8 OpenCV labels, comp0 (H, W) initial components.  Returns
-    (mask, comp)."""
+    (mask, comp).  Each iteration's min-cut is the exact flow-recycled
+    solve, or with `ml_levels` > 0 the coarse-to-fine banded one
+    (``ops.maxflow.grid_mincut_multilevel``), solved afresh each time with
+    no carried residuals, as in the JAX package; it is approximate, and no
+    entry point sets it."""
     pix = pix.float()
     caps, _ = _pairwise_caps(pix, gamma)
     lam = 9.0 * gamma
@@ -101,7 +105,8 @@ def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
     fg_sel, bg_sel = class_masks(mask)
     fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp0, n_components)
     bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp0, n_components)
-    r_fwd, r_bwd = _fresh_residuals(caps, OFFSETS_8)
+    if ml_levels <= 0:
+        r_fwd, r_bwd = _fresh_residuals(caps, OFFSETS_8)
     e_carry = torch.zeros_like(pix[..., 0])
     E_prev = torch.zeros_like(pix[..., 0])
     comp = comp0
@@ -118,9 +123,13 @@ def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
                    - gmm_ops.gmm_log_prob(pix, bg_gmm)).clamp(-lam, lam)
         E_t = torch.where(mask == TRIMAP_FG, lam,
                           torch.where(mask == TRIMAP_BG, -lam, unknown))
-        # Flow recycling: add the terminal delta to the carried excess.
-        fg_side, e_carry, r_fwd, r_bwd = grid_mincut_stateful(
-            e_carry + (E_t - E_prev), r_fwd, r_bwd, connectivity=8)
+        if ml_levels > 0:
+            fg_side = grid_mincut_multilevel(E_t, caps, connectivity=8,
+                                             levels=ml_levels)
+        else:
+            # Flow recycling: add the terminal delta to the carried excess.
+            fg_side, e_carry, r_fwd, r_bwd = grid_mincut_stateful(
+                e_carry + (E_t - E_prev), r_fwd, r_bwd, connectivity=8)
         E_prev = E_t
         probable = (mask == TRIMAP_PROB_BG) | (mask == TRIMAP_PROB_FG)
         relabel = torch.where(fg_side, TRIMAP_PROB_FG, TRIMAP_PROB_BG

@@ -21,14 +21,13 @@ GCN and GAT variants' per-layer edge gate.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.graph import NEG_INF, masked_softmax
+from ..core.scatter import NEG_INF, masked_softmax
 from ..ops.region import segment_max, segment_sum
 from ..ops.sddmm import banded_gat_attention
 
@@ -39,16 +38,136 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1]).float()
+
+
+# A parameter's gradient is a sum over the batch's rows.  Where a layer
+# computes in bfloat16, autograd would round each data-parallel rank's sum
+# to bfloat16 before the ranks' gradients are added; the functions below
+# take those sums in float32 (products of bfloat16 values are exact
+# there), so one rank's step and several ranks' compute one function.
+# Outputs and the gradients of activations are autograd's own.
+
+def _graph_matmul(a: torch.Tensor, b: torch.Tensor, bias=None):
+    """a (..., K) @ b (K, O) (+ bias), a's leading (graph) axis as the
+    batch of one batched product: each graph's rows go through a product
+    of the same shape whatever the number of graphs.  cuBLAS picks its
+    kernel, and so its order of adds, by the whole product's shape: one
+    product over 2 graphs' rows can round them otherwise than one over 8
+    graphs (``chip_smoke.py`` phase 12 checks both forms on the card), and
+    the data-parallel ranks must round as the single-device step does."""
+    if a.dim() < 3:
+        out = a.matmul(b)
+        return out if bias is None else out + bias
+    G = a.shape[0]
+    a3, b3 = a.reshape(G, -1, a.shape[-1]), b.expand(G, *b.shape)
+    out = torch.bmm(a3, b3) if bias is None else torch.baddbmm(bias, a3, b3)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _Linear(torch.autograd.Function):
+    """F.linear with input, weight and bias cast to the compute dtype `dt`
+    (None: the input's), graph by graph (`_graph_matmul`); the weight's
+    and bias's gradients are float32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dt):
+        xc, wc = (x, weight) if dt is None else (x.to(dt), weight.to(dt))
+        ctx.save_for_backward(xc, wc)
+        ctx.x_dtype, ctx.has_bias = x.dtype, bias is not None
+        return _graph_matmul(xc, wc.t(),
+                             None if bias is None else bias.to(wc.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = _graph_matmul(g, wc).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            gw = _rows(g).t().mm(_rows(xc))
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = _rows(g).sum(0)
+        return gx, gw, gb, None
+
+
+def add_bias(out: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """out + bias in out's dtype; bias's gradient a float32 sum."""
+    if out.dtype == bias.dtype:
+        return out + bias
+    return _AddBias.apply(out, bias)
+
+
+class _AddBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, bias):
+        return out + bias.to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, _rows(g).sum(0)
+
+
+def head_scores(z: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    """GATv2's per-head scores sum_f z[..., h, f] att[h, f] in z's dtype;
+    att's gradient a float32 sum."""
+    if z.dtype == att.dtype:
+        return torch.einsum("...hf,hf->...h", z, att)
+    return _HeadScores.apply(z, att)
+
+
+class _HeadScores(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, att):
+        ac = att.to(z.dtype)
+        ctx.save_for_backward(z, ac)
+        return torch.einsum("...hf,hf->...h", z, ac)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, ac = ctx.saved_tensors
+        H, Fh = ac.shape
+        gatt = (z.reshape(-1, H, Fh).float()
+                * g.reshape(-1, H, 1).float()).sum(0)
+        return g[..., None] * ac, gatt
+
+
+def weighted_sum(w: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+    """sum_k w[k] stack[k] in stack's dtype; in another compute dtype than
+    w's, w is rounded to it, the sum taken in float32 element by element
+    and w's gradient is a float32 sum."""
+    if w.dtype == stack.dtype:
+        return torch.einsum("k,k...->...", w, stack)
+    return _WeightedSum.apply(w, stack)
+
+
+class _WeightedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, stack):
+        wc = w.to(stack.dtype)
+        ctx.save_for_backward(wc, stack)
+        wf = wc.float()
+        acc = wf[0] * stack[0].float()
+        for k in range(1, stack.shape[0]):
+            acc = acc + wf[k] * stack[k].float()
+        return acc.to(stack.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        wc, stack = ctx.saved_tensors
+        k = stack.shape[0]
+        gs = wc.view(k, *([1] * g.dim())) * g
+        return stack.reshape(k, -1).float().mv(g.reshape(-1).float()), gs
+
+
 class Linear(nn.Linear):
-    """nn.Linear in a compute dtype (flax ``nn.Dense(dtype=...)``)."""
+    """nn.Linear in a compute dtype (flax ``nn.Dense(dtype=...)``), graph
+    by graph, its parameter gradients float32 sums (`_Linear`)."""
     compute_dtype: torch.dtype | None = None
 
     def forward(self, x):
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
+        return _Linear.apply(x, self.weight, self.bias, self.compute_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -176,8 +295,7 @@ class GCNConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, propagate):
-        out = propagate(self.lin(x))
-        return out + self.bias.to(out.dtype)
+        return add_bias(propagate(self.lin(x)), self.bias)
 
 
 class SAGEConv(nn.Module):
@@ -248,7 +366,7 @@ class GATv2Conv(nn.Module):
                                        self.att, node_mask[0],
                                        negative_slope=slope,
                                        precision=plan_precision)
-            return out.reshape(1, N, H * Fh) + self.bias.to(out.dtype)
+            return add_bias(out.reshape(1, N, H * Fh), self.bias)
 
         em = edge_mask[..., None]
         attr_mean = ((edge_attr * em).sum(dim=1, keepdim=True)
@@ -262,10 +380,9 @@ class GATv2Conv(nn.Module):
         xl_f = xl.reshape(G * N, H, Fh)
         z = xl_f[src] + xr.reshape(G * N, H, Fh)[dst] + ea.reshape(-1, H, Fh)
         z = F.leaky_relu(z, slope)
-        att = self.att.to(z.dtype)
-        score = torch.einsum("ehf,hf->eh", z, att)
+        score = head_scores(z, self.att)
         zl = F.leaky_relu(xl + xr + ea_loop, slope)
-        sl = torch.einsum("gnhf,hf->gnh", zl, att).float().reshape(G * N, H)
+        sl = head_scores(zl, self.att).float().reshape(G * N, H)
         nm = node_mask.reshape(-1, 1)
         sl = torch.where(nm > 0, sl, NEG_INF)
         m = edge_mask.reshape(-1, 1)
@@ -282,8 +399,7 @@ class GATv2Conv(nn.Module):
         msg = (xl_f[src] * alpha[..., None]).reshape(-1, H * Fh)
         out = segment_sum(dst, msg, G * N, is_sorted=True).reshape(
             G * N, H, Fh) + xl_f * alpha_l[..., None]
-        out = out.reshape(G, N, H * Fh)
-        return out + self.bias.to(out.dtype)
+        return add_bias(out.reshape(G, N, H * Fh), self.bias)
 
 
 class EdgeInjection(nn.Module):
@@ -345,7 +461,7 @@ class GlobalContext(nn.Module):
         self.expand = Linear(hidden_dim // 2, hidden_dim)
 
     def forward(self, x, node_mask):
-        w = masked_softmax(self.attn(x)[..., 0], node_mask, dim=1)[..., None]
+        w = masked_softmax(self.attn(x)[..., 0], node_mask, axis=1)[..., None]
         g = (w.to(x.dtype) * x).sum(dim=1, keepdim=True)    # (G, 1, D)
         g = torch.sigmoid(self.expand(torch.relu(self.compress(g))))
         return x * g
@@ -361,11 +477,15 @@ class InputNorm(nn.Module):
     running statistics.  Evaluation uses the running statistics.  The
     arithmetic is float32; the output is the compute dtype, else x's.
 
-    Inside `global_statistics(mean, var, count)` training normalises with
-    the given statistics of a batch sharded over ranks and leaves the
-    running ones alone: the data-parallel trainer sums `masked_sums` and
-    then `squared_deviations` over the ranks and calls `update_running`
-    once per step."""
+    The statistics are taken in two passes, the masked sum and count and
+    then the squared deviations from the mean, each summed in float64 and
+    rounded once: so they do not depend on the order of the sum, and a
+    batch split over data ranks, each summing its shard, normalises with
+    the single-device statistics to the bit (the bfloat16 roundings of the
+    output then agree too).  A data-parallel step sets `total` to the sum
+    of a pass over every rank (``parallel/data.py`` `LockStep`), through
+    which the gradient reaches every rank's activations, as in a
+    synchronised batch norm."""
     compute_dtype: torch.dtype | None = None
 
     def __init__(self, n_features: int, momentum: float = 0.05,
@@ -377,31 +497,21 @@ class InputNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_features))
         self.register_buffer("running_mean", torch.zeros(n_features))
         self.register_buffer("running_var", torch.ones(n_features))
-        self._global = None
+        self.total = None
 
-    @contextlib.contextmanager
-    def global_statistics(self, mean: torch.Tensor, var: torch.Tensor,
-                          count: torch.Tensor):
-        """Normalise training forwards with these (biased) statistics over
-        `count` valid nodes in all."""
-        self._global = (mean, var, count)
-        try:
-            yield
-        finally:
-            self._global = None
-
-    @staticmethod
-    def masked_sums(x, node_mask) -> tuple[torch.Tensor, torch.Tensor]:
-        """(sum of x over valid nodes (F,), valid-node count (1,)), float32:
-        the first of the two passes."""
-        m = node_mask.float()[..., None]
-        return (x.float() * m).sum(dim=(0, 1)), m.sum(dim=(0, 1))
-
-    @staticmethod
-    def squared_deviations(x, node_mask, mean) -> torch.Tensor:
-        """The sum of (x - mean)^2 over valid nodes (F,): the second pass."""
-        m = node_mask.float()[..., None]
-        return (((x.float() - mean) ** 2) * m).sum(dim=(0, 1))
+    def batch_statistics(self, x, node_mask):
+        """(mean, biased variance, count) of float32 `x` over the valid
+        nodes of the batch: of every rank's shard inside a data-parallel
+        step."""
+        total = self.total or (lambda t: t)
+        m = node_mask.double()[..., None]
+        first = total(torch.cat([(x.double() * m).sum(dim=(0, 1)),
+                                 m.sum(dim=(0, 1))]))
+        count = first[-1:].clamp_min(1.0)
+        mean = (first[:-1] / count).float()
+        dev = (((x - mean) ** 2) * m.float()).double().sum(dim=(0, 1))
+        var = (total(dev) / count).float()
+        return mean, var, count.float()
 
     def select(self, mean, var, count):
         """The statistics a training forward uses: the batch's, or the
@@ -425,15 +535,10 @@ class InputNorm(nn.Module):
 
     def forward(self, x, node_mask=None):
         xf = x.float()
-        if self.training and self._global is not None:
-            mean, var = self.select(*self._global)
-        elif self.training:
+        if self.training:
             if node_mask is None:
                 raise ValueError("InputNorm needs node_mask in training")
-            total, count = self.masked_sums(xf, node_mask)
-            count = count.clamp_min(1.0)
-            mean = total / count
-            var = self.squared_deviations(xf, node_mask, mean) / count
+            mean, var, count = self.batch_statistics(xf, node_mask)
             mean, var = self.select(mean, var, count)
             self.update_running(mean, var, count)
         else:

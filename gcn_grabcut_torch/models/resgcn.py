@@ -21,7 +21,7 @@ from torch import nn
 from ..core.graph import GraphBatch, N_PRIOR_FEATS
 from .layers import (EdgeContext, GCNConv, GlobalContext, InputNorm, Linear,
                      SAGEConv, dense_aggregators, dropout, gelu, layer_norm,
-                     reset_parameters, set_compute_dtype)
+                     reset_parameters, set_compute_dtype, weighted_sum)
 
 
 class ResGCNNet(nn.Module):
@@ -88,8 +88,8 @@ class ResGCNNet(nn.Module):
         sage = gelu(self.sage_norm(self.sage(h, adj_mean)))
         states.append(sage)
 
-        w = torch.softmax(self.jk_logits.float(), dim=0).to(h.dtype)
-        h_jk = torch.einsum("k,kgnd->gnd", w, torch.stack(states))
+        h_jk = weighted_sum(torch.softmax(self.jk_logits.float(), dim=0),
+                            torch.stack(states))
         h_jk = self.ctx(h_jk, g.node_mask)
         out = drop(gelu(self.fuse_fc(self.fuse_ln(h_jk))))
         return self.head(out)

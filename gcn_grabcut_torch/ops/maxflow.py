@@ -188,6 +188,110 @@ def grid_mincut(excess: torch.Tensor, caps: tuple, connectivity: int = 8,
     return solve(excess, r_fwd, r_bwd)[0]
 
 
+def _coarsen_problem(excess: torch.Tensor, caps: tuple, connectivity: int):
+    """Contract 2x2 pixel blocks into one node (an exact graph
+    contraction; odd shapes are padded with zeros).  Block excesses sum;
+    each coarse neighbour arc is the sum of the fine arcs crossing the
+    block boundary, assigned by parity so that each fine arc lands in
+    exactly one coarse arc (intra-block arcs vanish).  The coarse min-cut
+    is the fine problem's best block-aligned cut."""
+    H, W = excess.shape
+    Hp, Wp = H + (H & 1), W + (W & 1)
+
+    def pad(a):
+        return F.pad(a, (0, Wp - W, 0, Hp - H))
+
+    offsets = OFFSETS_8 if connectivity == 8 else OFFSETS_4
+    e = pad(excess.float())
+    c = [pad(_zero_border(x.float(), dy, dx))
+         for x, (dy, dx) in zip(caps, offsets)]
+    e_c = e.reshape(Hp // 2, 2, Wp // 2, 2).sum(dim=(1, 3))
+
+    def s(a, oy, ox):
+        return a[oy::2, ox::2]
+
+    # Offsets W, N, NW, NE: W arcs cross at even x, N arcs at even y.
+    c_w = s(c[0], 0, 0) + s(c[0], 1, 0)
+    c_n = s(c[1], 0, 0) + s(c[1], 0, 1)
+    if connectivity == 4:
+        return e_c, (c_w, c_n)
+    # NW at (odd y, even x) crosses westwards, at (even y, odd x)
+    # northwards, at (even, even) diagonally; (odd, odd) is intra-block.
+    c_w = c_w + s(c[2], 1, 0)
+    c_n = c_n + s(c[2], 0, 1) + s(c[3], 0, 0)
+    # NE at (odd y, odd x) joins block (Y, X) to (Y, X + 1): shifted one
+    # column right, it lands on the receiving block's W arc.
+    ne_shift = F.pad(c[3], (1, 0))[:, :-1]
+    c_w = c_w + s(ne_shift, 1, 0)
+    return e_c, (c_w, c_n, s(c[2], 0, 0), s(c[3], 0, 1))
+
+
+def _boundary_band(fg: torch.Tensor, radius: int) -> torch.Tensor:
+    """True within `radius` (Chebyshev) of a label boundary: a max and a
+    min over (2 radius + 1)^2 windows, "SAME"-padded with -inf / +inf."""
+    f = fg.float()[None, None]
+    k = 2 * radius + 1
+    mx = F.max_pool2d(f, k, stride=1, padding=radius)
+    mn = -F.max_pool2d(-f, k, stride=1, padding=radius)
+    return (mx > mn)[0, 0]
+
+
+def _fold_clamps(excess, caps, band, fg_up, offsets):
+    """Restrict the problem to the band: clamped (out-of-band) pixels are
+    contracted into the terminals.  An arc from a band pixel to a clamped
+    foreground neighbour becomes source capacity (+cap on the excess), to
+    a clamped background one sink capacity (-cap).  Arcs not incident to
+    the band are zeroed, so every push and relabel stays inside it."""
+    e = torch.where(band, excess, 0.0)
+    bandp, fgp = _pad(band, False), _pad(fg_up, False)
+    folded = []
+    for (dy, dx), c in zip(offsets, caps):
+        c = _zero_border(c.float(), dy, dx)
+        band_q, fg_q = _view(bandp, dy, dx), _view(fgp, dy, dx)
+        # p in the band, q clamped: a terminal arc at p.
+        e = e + torch.where(band & ~band_q, torch.where(fg_q, c, -c), 0.0)
+        # p clamped, q in the band: a terminal arc at q.
+        contrib = torch.where(~band & band_q, torch.where(fg_up, c, -c), 0.0)
+        e = e + _view(_pad(contrib, 0.0), -dy, -dx)
+        folded.append(torch.where(band & band_q, c, 0.0))
+    return e, tuple(folded)
+
+
+def grid_mincut_multilevel(excess: torch.Tensor, caps: tuple,
+                           connectivity: int = 8, levels: int = 1,
+                           band_radius: int = 8, max_outer: int = 400,
+                           sweeps_per_round: int = 48, unroll: int = 4
+                           ) -> torch.Tensor:
+    """Coarse-to-fine banded min-cut (Lombaert et al. 2005).  Contracts
+    2x2 blocks `levels` times, solves the coarsest problem exactly, then at
+    each finer level re-solves only a band of `band_radius` pixels around
+    the upsampled cut, everything outside it folded into the terminals
+    (`_fold_clamps`).  A banded solve converges in steps of the band's
+    width, not the image's diameter.
+
+    Approximate: the result is the best cut within `band_radius` of the
+    coarse one, so finer deviations further out are lost.  `levels=0` is
+    `grid_mincut`; use it where the exact cut is needed."""
+    if levels <= 0:
+        return grid_mincut(excess, caps, connectivity=connectivity,
+                           max_outer=max_outer,
+                           sweeps_per_round=sweeps_per_round, unroll=unroll)
+    H, W = excess.shape
+    offsets = OFFSETS_8 if connectivity == 8 else OFFSETS_4
+    e_c, caps_c = _coarsen_problem(excess, caps, connectivity)
+    fg_c = grid_mincut_multilevel(
+        e_c, caps_c, connectivity=connectivity, levels=levels - 1,
+        band_radius=band_radius, max_outer=max_outer,
+        sweeps_per_round=sweeps_per_round, unroll=unroll)
+    fg_up = fg_c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:H, :W]
+    band = _boundary_band(fg_up, band_radius)
+    e_b, caps_b = _fold_clamps(excess.float(), caps, band, fg_up, offsets)
+    fg_b = grid_mincut(e_b, caps_b, connectivity=connectivity,
+                       max_outer=max_outer,
+                       sweeps_per_round=sweeps_per_round, unroll=unroll)
+    return torch.where(band, fg_b, fg_up)
+
+
 def grid_mincut_stateful(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
                          connectivity: int = 8, max_outer: int = 400,
                          sweeps_per_round: int = 48,

@@ -39,7 +39,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..core.graph import NEG_INF
+from ..core.scatter import NEG_INF
 from .region import segment_max, segment_sum
 
 

@@ -6,9 +6,14 @@ device step's function.  The port runs each data rank's forward and
 backward on its own shard, so it makes the same function in three pieces:
 
 * `sum_over_data` sums small tensors over the ranks, in rank order within
-  a process and then over processes (``torch.distributed.all_reduce``):
-  the batch-wide sums the objective and InputNorm take (data only, no
-  gradient), the loss, the evaluation counts;
+  a process and then over processes (``torch.distributed.all_reduce``,
+  whose gradient is the all-reduced gradient of the sum): the batch-wide
+  sums the objective takes, the loss, the evaluation counts, and through
+  `LockStep` InputNorm's statistics;
+* `LockStep` runs the process's ranks' forwards one at a time in rank
+  order, each in a thread of its own, so that they meet at every
+  InputNorm and normalise with the whole batch's statistics; the step then
+  takes one backward of the ranks' summed losses, in the calling thread;
 * `BatchDraws` hands each rank its slice of one draw over the whole batch
   from the trainer's generator, so dropout sees the single-device masks;
 * `sum_gradients` sums the ranks' gradients: one flattened float32 buffer
@@ -18,6 +23,9 @@ backward on its own shard, so it makes the same function in three pieces:
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -39,14 +47,106 @@ def over_processes(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+class _OverProcesses(torch.autograd.Function):
+    """`over_processes` with its gradient: the gradient of the job's sum
+    with respect to each process's term is the sum of every process's
+    gradient of it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return over_processes(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return over_processes(g.clone())
+
+
 def sum_over_data(ts) -> torch.Tensor:
     """The sum of one tensor per local data rank, in rank order, then over
-    processes."""
+    processes; differentiable."""
     ts = list(ts)
-    acc = ts[0].clone()
+    acc = ts[0]
     for t in ts[1:]:
         acc = acc + t
-    return over_processes(acc)
+    return _OverProcesses.apply(acc) if process_count() > 1 else acc
+
+
+class _Aborted(Exception):
+    """Another rank's forward failed."""
+
+
+class LockStep:
+    """One function per local data rank, each run in a thread of its own,
+    one at a time in rank order: rank r runs until it calls `total(r, t)`,
+    rank r + 1 then runs to the same call, and the last rank's call sums
+    the ranks' tensors (`sum_over_data`: in rank order, then over
+    processes) and hands the sum to every rank, rank 0 first.  So the
+    ranks' forwards meet at each synchronised norm and autograd records
+    the sums that join them; the gradient is one backward in the calling
+    thread (no thread waits in a backward, which on a card would block its
+    autograd device thread).  The ranks run in one order on every run, so
+    their operations do too.  The turn passes as a lock that rank r + 1
+    waits on and rank r releases: one thread wakes at each hand-off."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._turn = [threading.Lock() for _ in range(n)]
+        for lock in self._turn:
+            lock.acquire()
+        self._parts: list[torch.Tensor] = []
+        self._sum = None
+        self._error = None
+
+    def _wait_turn(self, r: int) -> None:
+        self._turn[r].acquire()
+        if self._error is not None:
+            raise _Aborted
+
+    def _pass(self, r: int) -> None:
+        self._turn[(r + 1) % self.n].release()
+
+    def total(self, r: int, t: torch.Tensor) -> torch.Tensor:
+        """Rank r's term; returns the sum over every rank of the job."""
+        self._parts.append(t)
+        if r == self.n - 1:
+            if len(self._parts) != self.n:
+                raise RuntimeError("the ranks' forwards met at different "
+                                   "norms")
+            self._sum, self._parts = sum_over_data(self._parts), []
+        self._pass(r)
+        self._wait_turn(r)
+        return self._sum
+
+    def run(self, fn) -> list:
+        """[fn(0), ..., fn(n - 1)], each in its own thread, in lock step;
+        an exception in any of them is raised here."""
+        out = [None] * self.n
+        grad = torch.is_grad_enabled()
+
+        def body(r):
+            try:
+                self._wait_turn(r)
+                with torch.set_grad_enabled(grad):
+                    out[r] = fn(r)
+                self._pass(r)
+            except _Aborted:
+                pass
+            except BaseException as e:          # noqa: BLE001 -- re-raised
+                self._error = self._error or e
+                for lock in self._turn:         # wake every waiting rank
+                    with contextlib.suppress(RuntimeError):
+                        lock.release()
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        self._turn[0].release()
+        for t in threads:
+            t.join()
+        if self._error is not None:
+            raise self._error
+        return out
 
 
 def flat_rows(ts, n: int) -> tuple[torch.Tensor, int]:

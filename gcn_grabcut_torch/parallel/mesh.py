@@ -26,7 +26,7 @@ calls on one mesh must be ordered on one CUDA stream.
 Every rank a process holds lives on one device: a ring of n logical ranks
 on one card runs the same kernel code and signalling that peer pointers
 over NVLink would use.  Ranks on several cards of one process need those
-peer pointers, which are not built yet (ROADMAP, queue 1, item 8).
+peer pointers, which are not built yet (ROADMAP, queue 1, item 4).
 Processes on cards sum over NCCL, which has not run yet; over gloo on
 the CPU they are tested.
 """
@@ -44,7 +44,7 @@ from ..core.device import resolve_device
 #: Signal words per (rank, phase): the most thread blocks a rank may run.
 SIGNAL_BLOCKS = 1024
 _SEVERAL_CARDS = ("a mesh over several devices in one process needs peer "
-                  "pointers between cards (ROADMAP, queue 1, item 8, "
+                  "pointers between cards (ROADMAP, queue 1, item 4, "
                   "'meshes over several cards'); every rank of a process "
                   "lives on one device for now")
 

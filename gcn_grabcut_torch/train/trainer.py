@@ -23,17 +23,23 @@ PyTorch on the trainer's device (the card unless ``device="cpu"``):
   (``models/layers.py``), with float32 parameters, statistics and loss;
 * ``mesh=`` trains data-parallel over the mesh's "data" axis, computing
   the single-device step's function: each global batch is split in order
-  over the data ranks; the sums the objective and InputNorm take over the
-  whole batch are summed over the ranks first (they depend on the data
-  only); each rank draws its slice of the whole batch's dropout masks,
-  runs its forward and backward as its share of the whole batch's loss;
-  the ranks' gradients are summed over the data axis (K3 then K2 on the
-  card, ``parallel/data.py``), and one optimiser step and one update of
-  the running statistics follow.
+  over the data ranks; the sums the objective takes over the whole batch
+  are summed over the ranks first (they depend on the data only); each
+  rank draws its slice of the whole batch's dropout masks and runs its
+  forward on a replica of the model whose parameters are its own leaves
+  over the model's storage; the forwards run in lock step and meet at
+  every InputNorm, which normalises with the whole batch's statistics
+  (a synchronised batch norm, as XLA's psums make it in the JAX
+  package); one backward of the ranks' losses, each its share of the
+  whole batch's loss, gives each rank's leaves its gradient, cross-rank
+  terms included; the ranks' gradients are summed over the data axis (K3
+  then K2 on the card, ``parallel/data.py``), and one optimiser step
+  follows.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import ctypes.util
 import dataclasses
@@ -55,7 +61,8 @@ from ..models.convert import (jax_variables_from_state_dict,
 from ..models.factory import build_model, init_model
 from ..models.layers import InputNorm, uniform
 from ..models.resgcn import resgcn_group_scales, resgcn_lr_label
-from ..parallel.data import BatchDraws, sum_gradients, sum_over_data
+from ..parallel.data import (BatchDraws, LockStep, sum_gradients,
+                             sum_over_data)
 from ..parallel.mesh import (batch_sharding, process_count, process_index,
                              shard_graph_batch)
 from . import checkpoints as ckpt_io
@@ -337,10 +344,6 @@ class Trainer:
                     and the batch size is rounded to a multiple of the
                     axis size.  Under a process group one process writes
                     the checkpoints and history while the others wait.
-
-    Data-parallel training needs InputNorm on the input alone: the GCN
-    variant's hidden InputNorms normalise activations, whose statistics
-    over several ranks would need a synchronised batch norm.
     """
 
     def __init__(self, model_variant: str = "resgcn",
@@ -364,15 +367,7 @@ class Trainer:
         self.model = build_model(model_variant, **self.model_kwargs).to(
             self.device)
         self.n_layers = self.model_kwargs.get("n_layers", 6)
-        if self._n_data > 1:
-            norms = [m for m in self.model.modules()
-                     if isinstance(m, InputNorm)]
-            if norms != [self.model.in_norm]:
-                raise NotImplementedError(
-                    f"data-parallel training of '{model_variant}': its "
-                    "hidden InputNorms would need statistics synchronised "
-                    "across ranks in the forward and the backward "
-                    "(ROADMAP, queue 1, item 8)")
+        self._replicas: list[tuple] = []    # (model, parameters, buffers)
         self.save_dir = Path(save_dir)
         self.save_dir.mkdir(parents=True, exist_ok=True)
 
@@ -479,50 +474,74 @@ class Trainer:
                     batch_sharding(self.mesh).place(graph_weight))
         return list(batch), list(graph_weight)
 
+    def _rank_replicas(self, n: int) -> list[torch.nn.Module]:
+        """n training-mode copies of the model for the local ranks: each
+        parameter a leaf of its own over the model's storage (so a rank's
+        gradient is its leaf's, and the optimiser's in-place update
+        reaches every copy), each buffer a copy of the model's."""
+        while len(self._replicas) < n:
+            rep = copy.deepcopy(self.model).train()
+            self._replicas.append((rep, list(rep.parameters()),
+                                   list(rep.buffers())))
+        params, buffers = (list(self.model.parameters()),
+                           list(self.model.buffers()))
+        with torch.no_grad():
+            for _, rps, rbs in self._replicas[:n]:
+                for rp, mp in zip(rps, params):
+                    rp.data = mp.data
+                for rb, mb in zip(rbs, buffers):
+                    rb.copy_(mb)
+        return [rep for rep, _, _ in self._replicas[:n]]
+
     def _loss_and_grads_sharded(self, shards: list, weights: list
                                 ) -> tuple[torch.Tensor, dict]:
         """The data-parallel step of `loss_and_grads` over this process's
-        ranks: (a) the batch-wide sums, (b) each rank's slice of the whole
-        batch's draws, (c) each rank's forward and backward as its share
-        of the whole batch's loss, (d) the gradients summed over the data
-        axis, (f) one running-statistics update.  The optimiser's step (e)
-        follows in `train_step`."""
-        # (b) every draw is a slice of the whole batch's.
+        ranks: (a) the objective's batch-wide sums, (b) each rank's slice
+        of the whole batch's draws, (c) the ranks' forwards in lock step,
+        every InputNorm's statistics summed over the data axis, and one
+        backward of their losses, (d) the gradients summed over the data
+        axis, (f) the running statistics, updated alike in every replica,
+        back into the model.  The optimiser's step (e) follows in
+        `train_step`."""
+        # (a) and (b): every draw is a slice of the whole batch's.
         draws = BatchDraws(self.generator, self._n_data)
         gens = [draws.rank(self.mesh.data_offset + i)
                 for i in range(len(shards))]
         shards = [self._prior_dropout(b, g) for b, g in zip(shards, gens)]
-        norm = self.model.in_norm
-        # (a) InputNorm's masked sum and count, with the objective's
-        # totals, over the whole batch; then the squared deviations from
-        # the whole batch's mean (the single-device two-pass formula).
-        first = sum_over_data(
-            torch.cat([*norm.masked_sums(b.x, b.node_mask),
-                       batch_totals(b.node_mask, b.node_area, w)])
-            for b, w in zip(shards, weights))
-        n_feat = shards[0].x.shape[-1]
-        count = first[n_feat].clamp_min(1.0)
-        totals = first[n_feat + 1:]
-        mean = first[:n_feat] / count
-        var = sum_over_data(norm.squared_deviations(b.x, b.node_mask, mean)
-                            for b in shards) / count
-        # (c) every rank's forward and backward.
-        self.model.train()
-        params = self.optimizer.params
-        losses, per_rank = [], []
-        with norm.global_statistics(mean, var, count):
-            for b, w, gen in zip(shards, weights, gens):
-                logits = self.model(b, generator=gen)
-                loss = self.loss_fn(logits, b.y, b.node_mask,
-                                    area=b.node_area, fg_ratio=b.fg_ratio,
-                                    graph_weight=w, totals=totals)
-                per_rank.append(torch.autograd.grad(loss,
-                                                    list(params.values())))
-                losses.append(loss.detach())
+        totals = sum_over_data(batch_totals(b.node_mask, b.node_area, w)
+                               for b, w in zip(shards, weights))
+        # (c)
+        reps = self._rank_replicas(len(shards))
+        step = LockStep(len(shards))
+        for r, rep in enumerate(reps):
+            for m in rep.modules():
+                if isinstance(m, InputNorm):
+                    m.total = functools.partial(step.total, r)
+
+        def forward(r):
+            b = shards[r]
+            return self.loss_fn(reps[r](b, generator=gens[r]), b.y,
+                                b.node_mask, area=b.node_area,
+                                fg_ratio=b.fg_ratio, graph_weight=weights[r],
+                                totals=totals)
+        try:
+            losses = step.run(forward)
+        finally:
+            for rep in reps:
+                for m in rep.modules():
+                    if isinstance(m, InputNorm):
+                        m.total = None
+        leaves = [list(rep.parameters()) for rep in reps]
+        flat = torch.autograd.grad(sum(losses), sum(leaves, []))
+        n_p = len(leaves[0])
+        per_rank = [flat[i * n_p:(i + 1) * n_p] for i in range(len(reps))]
         # (d) and (f).
         grads = sum_gradients(per_rank, self.mesh.data_mesh(0))
-        norm.update_running(*norm.select(mean, var, count), count)
-        return sum_over_data(losses), dict(zip(params, grads))
+        with torch.no_grad():
+            for mb, rb in zip(self.model.buffers(), reps[0].buffers()):
+                mb.copy_(rb)
+        return (sum_over_data(loss.detach() for loss in losses),
+                dict(zip(self.optimizer.params, grads)))
 
     @torch.no_grad()
     def eval_step(self, batch, graph_weight):

@@ -2,8 +2,9 @@
 evaluate, inference} against the JAX package's CLIs with the same flags on
 the CPU -- the files each writes, what the other package reads back, the
 evaluation report and the inference masks; cli.train --model gcn|gat.
-Plus the CLIs' refusals: --devices > 1 raises naming its ROADMAP item,
-and without CUDA every CLI needs --cpu.  Images are 64-128 px.
+Plus ``cli.train --model gcn --devices 2`` under torchrun against the
+single-process CLI, the CLIs' refusals (--devices 2 in one process on
+the CPU), and without CUDA every CLI needs --cpu.  Images are 64-128 px.
 """
 
 import json
@@ -175,6 +176,35 @@ def test_train_cli_trains_variants(tmp_path, variant):
         tmp_path / "final_model.msgpack")
     assert type(jmodel).__name__ == {"gcn": "GCNTrimapNet",
                                      "gat": "GATTrimapNet"}[variant]
+
+
+def test_train_cli_gcn_data_parallel_matches_solo(tmp_path):
+    """cli.train --model gcn --devices 2 --cpu under torchrun: two gloo
+    processes train GCNTrimapNet with its hidden InputNorms synchronised,
+    and reproduce the single-process CLI's history (fp32, dropout on)."""
+    import os
+    import subprocess
+    import sys
+    args = ["--synthetic", "8", "--epochs", "2", "--hidden", "16",
+            "--layers", "2", "--n-segments", "64", "--batch", "4", "--cpu",
+            "--no-bf16", "--model", "gcn", "--prior-dropout", "0.2"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "gcn_grabcut_torch.cli.train", *args,
+         "--devices", "2", "--save-dir", str(tmp_path / "dp")],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=240,
+        check=False)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-3000:]
+    assert res.stdout.count("data-parallel over 2 device(s)") == 2
+    ttrain.main(args + ["--save-dir", str(tmp_path / "solo")])
+    dp, solo = (json.loads((tmp_path / d / "history.json").read_text())
+                for d in ("dp", "solo"))
+    # JAX's data-parallel bars (tests/test_losses_trainer.py).
+    np.testing.assert_allclose(dp["train_loss"], solo["train_loss"],
+                               rtol=2e-4)
+    np.testing.assert_allclose(dp["val_score"], solo["val_score"],
+                               rtol=2e-3, atol=2e-4)
 
 
 @pytest.mark.parametrize("cli, args", [

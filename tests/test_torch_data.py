@@ -72,6 +72,46 @@ def test_warp_affine_nearest_matches_cv2(seed):
             cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST))
 
 
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("seed", range(4))
+def test_warp_affine_reflect_matches_cv2(seed, channels):
+    """augment_sample's numpy warps equal this OpenCV's (5.x) warpAffine
+    with BORDER_REFLECT byte for byte: linear on uint8 images of 1 and 3
+    channels, nearest on labels, on any affine map, size and shape
+    (including maps that reach far outside the source)."""
+    r = np.random.RandomState(100 + seed)
+    for t in range(30):
+        h, w = r.randint(20, 200, 2)
+        shape = (h, w, channels) if channels > 1 else (h, w)
+        src = (r.rand(*shape) * 255).astype(np.uint8)
+        M = cv2.getRotationMatrix2D((float(r.uniform(0, w)),
+                                     float(r.uniform(0, h))),
+                                    r.uniform(-180, 180), r.uniform(0.3, 3))
+        M = M + r.randn(2, 3) * (0.01 if t % 2 else 0.0)
+        dsize = (int(r.randint(20, 200)), int(r.randint(20, 200)))
+        np.testing.assert_array_equal(
+            tds.warp_affine_linear_reflect(src, M, dsize),
+            cv2.warpAffine(src, M, dsize, flags=cv2.INTER_LINEAR,
+                           borderMode=cv2.BORDER_REFLECT))
+        if channels == 1:
+            np.testing.assert_array_equal(
+                tds.warp_affine_nearest(src, M, dsize, reflect=True),
+                cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST,
+                               borderMode=cv2.BORDER_REFLECT))
+
+
+def test_augment_sample_makes_no_warp_affine_call(monkeypatch):
+    """augment_sample warps in numpy: its pixels do not depend on the
+    installed OpenCV's warpAffine."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("cv2.warpAffine called")
+    monkeypatch.setattr(cv2, "warpAffine", refuse)
+    s = jds.make_hard_synthetic_dataset(n=1, size=96, seed=0)[0]
+    tds.augment_sample(s["image"], s["gt_mask"], np.random.RandomState(0),
+                       prob_flip=1.0, prob_rotate=1.0, prob_color=1.0,
+                       prob_crop=1.0)
+
+
 def test_real_texture_bank_matches():
     tb, jb = tds._real_texture_bank(), jds._real_texture_bank()
     assert len(tb) == len(jb)

@@ -4,8 +4,8 @@ processes, and ``cli.train --devices 2`` under torchrun.
 
 Each run starts its processes with `subprocess` and bounds them with a
 timeout, so a hang fails the test.  The graphs are the port's own
-(make_synthetic_dataset at 64 px, n_segments=40), ResGCNNet D=16,
-n_layers=2, fp32.
+(make_synthetic_dataset at 64 px, n_segments=40), ResGCNNet and
+GCNTrimapNet at D=16, n_layers=2, fp32.
 """
 
 import json
@@ -52,16 +52,17 @@ def child_env() -> dict:
         [str(ROOT), str(ROOT / "tests")]))
 
 
-def train_two_steps(mesh, graphs, save_dir) -> Trainer:
-    tr = Trainer("resgcn", dict(MODEL_KW), TrainConfig(**CFG),
+def train_two_steps(mesh, graphs, save_dir, variant="resgcn") -> Trainer:
+    tr = Trainer(variant, dict(MODEL_KW), TrainConfig(**CFG),
                  save_dir=save_dir, mesh=mesh)
     tr.fit(graphs[:4], graphs[4:6])           # batch 2: two steps
     return tr
 
 
-def worker(rank: int, world: int, port: int, tmp: str) -> None:
+def worker(rank: int, world: int, port: int, tmp: str,
+           variant: str = "resgcn") -> None:
     """One process of the job: join, check that a second join returns
-    quietly, train two steps, save the parameters."""
+    quietly, train two steps, save the parameters and statistics."""
     torch.set_num_threads(1)
     init_distributed(f"localhost:{port}", num_processes=world,
                      process_id=rank, device="cpu")
@@ -71,7 +72,7 @@ def worker(rank: int, world: int, port: int, tmp: str) -> None:
     graphs = torch.load(Path(tmp) / "graphs.pt", weights_only=False)
     mesh = make_mesh(n_data=world, devices=["cpu"])
     assert mesh.local_data == 1 and mesh.data_offset == rank
-    tr = train_two_steps(mesh, graphs, Path(tmp) / "ckpt")
+    tr = train_two_steps(mesh, graphs, Path(tmp) / "ckpt", variant)
     torch.save({k: v.detach() for k, v in tr.model.state_dict().items()},
                Path(tmp) / f"state{rank}.pt")
     import torch.distributed as dist
@@ -86,15 +87,14 @@ def graphs():
         device="cpu")]
 
 
-def test_two_processes_match_one(graphs, tmp_path):
-    """Two gloo processes, one data rank each, end with identical
-    parameters, equal to one process holding both ranks."""
+def two_processes_match_one(graphs, tmp_path, variant):
     torch.save(graphs, tmp_path / "graphs.pt")
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c",
          "import sys, test_torch_distributed as t; "
-         f"t.worker({r}, 2, {port}, sys.argv[1])", str(tmp_path)],
+         f"t.worker({r}, 2, {port}, sys.argv[1], {variant!r})",
+         str(tmp_path)],
         env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
     outs = []
@@ -110,10 +110,24 @@ def test_two_processes_match_one(graphs, tmp_path):
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
         "best_model.msgpack", "final_model.msgpack", "history.json"]
     one = train_two_steps(make_mesh(n_data=2, devices=["cpu"] * 2), graphs,
-                          tmp_path / "one").model.state_dict()
+                          tmp_path / "one", variant).model.state_dict()
     for k, v in states[0].items():
         assert torch.equal(v, states[1][k]), k
         torch.testing.assert_close(v, one[k], rtol=0, atol=PARAM_TOL)
+
+
+def test_two_processes_match_one(graphs, tmp_path):
+    """Two gloo processes, one data rank each, end with identical
+    parameters, equal to one process holding both ranks."""
+    two_processes_match_one(graphs, tmp_path, "resgcn")
+
+
+def test_two_processes_match_one_gcn(graphs, tmp_path):
+    """GCNTrimapNet over two gloo processes: every hidden InputNorm's
+    statistics are all-reduced in the forward and their gradients in the
+    backward; the parameters and running statistics equal one process
+    holding both ranks."""
+    two_processes_match_one(graphs, tmp_path, "gcn")
 
 
 def test_init_distributed_is_a_no_op_outside_a_cluster(monkeypatch):
