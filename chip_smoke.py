@@ -131,6 +131,17 @@ Phases, each of which exits non-zero on failure:
  14. core/scatter.py on the card against the CPU on seeded inputs with
      empty segments, masked rows and weights: maxima exact, the rest
      within 1e-6.
+ 15. the lock-step batched GrabCut (what segment_batch runs up to its
+     pixel budget) against the plain image-by-image version on phase 6's
+     8 images and the trimaps the bgc ensemble gave them: masks bit for
+     bit at every B (else at B=8 each image's differing pixels and the
+     largest difference of its first GMM fit, and a failure); the GrabCut
+     stage's wall s of both at B = 1, 2, 4, 8 (the loop's, the sum of its
+     images' solves, each timed once); per image outer rounds and push
+     sweeps of both, relabel relaxation steps and solver host syncs per
+     image for the loop and per batch for the lock step; the lock step's
+     peak memory at B=8.  Phases 6 and 10 run the lock step through
+     segment_batch.
 Phase 9 also holds augment_sample's arrays, drawn here, to the sha1s of
 the JAX package's run with OpenCV 5.0 (tests/data/torch_eval_jax_ref.npz):
 augment_sample warps in numpy, so they must be equal whichever OpenCV the
@@ -311,6 +322,9 @@ ML_LEVELS = (1, 2)
 # Phase 14: core/scatter.py at the large graph's scale.
 SCATTER_ROWS, SCATTER_SEGMENTS, SCATTER_COLS = 200_000, N_SEGMENTS, 16
 SCATTER_TOL = 1e-6
+# Phase 15: the lock-step GrabCut at these batch sizes (of the dense
+# phase's DENSE_IMAGES images).
+LOCK_STEP_BATCHES = (1, 2, 4, 8)
 
 
 def optional_packages() -> str:
@@ -803,10 +817,9 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
     # ctx.attn.bias shifts every score of a softmax alike: its exact
     # gradient is 0, so a parameter's scale is floored at 1e-3 of the
     # model's largest gradient.
-    floor = 1e-3 * max(float(v.abs().max()) for v in xla_grads.values())
-    grad_err = max(float((grads[k] - v).abs().max())
-                   / max(float(v.abs().max()), floor)
-                   for k, v in xla_grads.items())
+    grad_err, worst = leaf_errors({k: v.cpu() for k, v in grads.items()},
+                                  {k: v.cpu() for k, v in xla_grads.items()},
+                                  floor=1e-3)
     print(f"sharded path ({PATH_RANKS} ranks of {g.max_nodes // PATH_RANKS}"
           f" nodes, ResGCNNet D={HIDDEN} n={N_LAYERS}, fp32): forward "
           f"{fwd_s * 1e3:.2f} ms, backward {bwd_s * 1e3:.2f} ms (plain halo:"
@@ -817,8 +830,8 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
           f"ring_reduce_scatter launches={k3} ({k3_fwd} in the forward); "
           f"max |dlogits| vs apply_large highest={err:.3e} (tol "
           f"{SHARDED_FWD_TOL * scale:.1e}); worst gradient error vs plain "
-          f"halo={grad_err:.3e} of max|grad| (tol {SHARDED_GRAD_TOL:.0e})",
-          flush=True)
+          f"halo={grad_err:.3e} of max|grad| (tol {SHARDED_GRAD_TOL:.0e}; "
+          f"worst leaves {worst})", flush=True)
     if k2_fwd != N_LAYERS + 1 or k2 != k2_fwd:
         fail(f"ring_all_gather launched {k2_fwd} times in the forward and "
              f"{k2 - k2_fwd} in the backward, expected {N_LAYERS + 1} and 0")
@@ -947,6 +960,107 @@ def run_dense_path(dev, card: str) -> None:
         fail(f"mean mask IoU against JAX {mean_iou:.4f} < {DENSE_MIN_IOU}")
     if worst_dp > DENSE_JAX_TOL:
         fail("posteriors disagree with JAX where the labels agree")
+    return images, [r.trimap for r in res]
+
+
+def solver_tally(mf, b: int) -> dict:
+    """The device solver's counts since the last reset, for a batch of
+    `b`: per image (summed over the calls, each of the whole batch) outer
+    rounds and push sweeps; relabel relaxation steps and host syncs in
+    all.  An image that was not solved counts 0."""
+    c = mf.counts
+    return dict(rounds=np.sum([np.zeros(b, int), *c.rounds], axis=0).tolist(),
+                sweeps=np.sum([np.zeros(b, int), *c.sweeps], axis=0).tolist(),
+                relabel_steps=c.relabel_steps, syncs=c.syncs)
+
+
+def run_lock_step(dev, card: str, images: list, trimaps: list) -> None:
+    """Phase 15: the lock-step batched GrabCut (grabcut_batch_device, the
+    whole batch as (B, H, W) tensors) against the plain image-by-image
+    version (grabcut_batch_loop) on the dense phase's images and the
+    trimaps the bgc ensemble gave them: masks bit for bit at every B, the
+    GrabCut stage's wall s of each at B = 1, 2, 4, 8, the solver's counts
+    and the lock step's peak memory at B=8."""
+    from gcn_grabcut_torch import grabcut as gc
+    from gcn_grabcut_torch.core.graph import TRIMAP_FG, TRIMAP_PROB_FG
+    from gcn_grabcut_torch.ops import gmm as gmm_ops
+    from gcn_grabcut_torch.ops import maxflow as mf
+
+    rgb = torch.as_tensor(np.stack(images), device=dev).float()
+    tri = torch.as_tensor(np.stack(trimaps), device=dev)
+    n = max(LOCK_STEP_BATCHES)
+    # The loop solves each image alone, so its wall at B is the sum of its
+    # first B images' walls: each image is timed once.
+    loop, image_walls, per_image = [], [], []
+    for i in range(n):
+        mf.counts.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop.append(gc.grabcut_batch_loop(rgb[i:i + 1], tri[i:i + 1]))
+        torch.cuda.synchronize()
+        image_walls.append(time.perf_counter() - t)
+        per_image.append(solver_tally(mf, 1))
+    loop = torch.cat(loop)
+    walls, lock_tallies, out, peaks = {}, {}, {}, {}
+    for b in LOCK_STEP_BATCHES:
+        torch.cuda.synchronize()
+        mf.counts.reset()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out[b] = gc.grabcut_batch_device(rgb[:b], tri[:b])
+        torch.cuda.synchronize()
+        walls["lock", b] = time.perf_counter() - t
+        walls["loop", b] = sum(image_walls[:b])
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+        lock_tallies[b] = solver_tally(mf, b)
+        print(f"  lock-step GrabCut B={b}: lock step {walls['lock', b]:.4f} s,"
+              f" image by image {walls['loop', b]:.4f} s ({card})",
+              flush=True)
+    lock = out[n]
+    differ = [int((lock[i] != loop[i]).sum()) for i in range(n)]
+    # Every smaller batch: the loop's masks of its images.
+    other = [b for b, lk in out.items() if not torch.equal(lk, loop[:b])]
+    lt = lock_tallies[n]
+    print(f"lock-step GrabCut counts at B={n}: per image outer rounds "
+          f"{lt['rounds']}, push sweeps {lt['sweeps']}; per batch relabel "
+          f"steps {lt['relabel_steps']}, solver host syncs {lt['syncs']}",
+          flush=True)
+    print("image by image, per image: outer rounds "
+          f"{[t['rounds'][0] for t in per_image]}, push sweeps "
+          f"{[t['sweeps'][0] for t in per_image]}, relabel steps "
+          f"{[t['relabel_steps'] for t in per_image]}, solver host syncs "
+          f"{[t['syncs'] for t in per_image]} (sums "
+          f"{sum(t['relabel_steps'] for t in per_image)} / "
+          f"{sum(t['syncs'] for t in per_image)})", flush=True)
+    print(f"lock-step GrabCut ({n} x {DENSE_HW}^2, bgc trimaps; {card}): "
+          f"wall s lock step / image by image " + ", ".join(
+              f"B={b} {walls['lock', b]:.4f} / {walls['loop', b]:.4f}"
+              for b in LOCK_STEP_BATCHES)
+          + f"; peak memory at B={n} {peaks[n] / 2**20:.1f} MiB; masks differ "
+          f"from the loop's on {differ} pixels (B={n}), smaller batches "
+          f"differ at B={other}; FG "
+          f"{[round(float(m.float().mean()), 4) for m in lock]}", flush=True)
+    if any(differ):
+        # Where the bits part: the k-means seeding and the first GMM fits.
+        k = gc.GrabCutConfig().n_components
+        t, _ = gc._repair(tri[:n].to(torch.uint8))
+        fg = (t == TRIMAP_FG) | (t == TRIMAP_PROB_FG)
+        comp = gc._initial_components(rgb[:n], fg, k)
+        fits = gmm_ops.fit_gmm(rgb[:n], fg.float(), comp, k)
+        for i in range(n):
+            comp1 = gc._initial_components(rgb[i], fg[i], k)
+            fit1 = gmm_ops.fit_gmm(rgb[i], fg[i].float(), comp[i], k)
+            d = max(float((fits[name][i] - a).abs().max())
+                    for name, a in fit1.items())
+            print(f"  image {i}: {differ[i]} pixels differ; k-means labels "
+                  f"differ on {int((comp1 != comp[i]).sum())}; largest |d| "
+                  f"of the first fit's GMM parameters {d:.3e}", flush=True)
+        fail("the lock-step GrabCut's masks differ from the loop's")
+    if other:
+        fail(f"the lock step's masks at B={other} differ from the loop's")
+    if not all(np.isfinite(list(walls.values()))) or lock.shape != loop.shape:
+        fail("the lock-step phase gave no masks or times")
 
 
 def unpack_mask(packed: np.ndarray, hw: int) -> np.ndarray:
@@ -2649,7 +2763,7 @@ def main() -> None:
     timed("ring stress", stress_ring_collectives, dev, k)
     main_image = timed("main path", run_main_path, dev, record)
     timed("sharded", run_sharded_path, dev, rings, k)
-    timed("dense", run_dense_path, dev, card)
+    dense = timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
     timed("flat colour", run_flat_colour, card)
     timed("staged", run_staged_paths, card)
@@ -2666,6 +2780,7 @@ def main() -> None:
           graphs, rings)
     timed("multilevel", run_multilevel, dev, card, *main_image)
     timed("scatter", run_scatter, dev, card)
+    timed("lock step", run_lock_step, dev, card, *dense)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)

@@ -18,9 +18,9 @@ without --cpu, `build_server` raises.
 The one departure from the JAX package: a group runs at its own size.
 JAX pads every group to --batch by repeating its last image, so that one
 compiled program serves every call; the port compiles nothing per shape,
-and its GrabCut solves image by image, so each padded image would cost a
-whole solve.  An image's mask does not depend on the other images in its
-batch, so clients see the same masks.
+and each padded image would add its pixels to every sweep of the group's
+lock-step GrabCut.  An image's mask does not depend on the other images
+in its batch (bit for bit), so clients see the same masks.
 
 Protocol (JSON out; stdlib only on both sides):
 

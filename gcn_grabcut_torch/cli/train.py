@@ -87,8 +87,26 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from ..parallel.mesh import init_distributed
+
+    # Before the device: under torchrun each process takes its card.
+    joined = args.devices > 1 and init_distributed(
+        device="cpu" if args.cpu else None)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            # Leave the group before the interpreter exits: left to
+            # interpreter teardown, gloo's threads can be destroyed while
+            # still running, which aborts the process (SIGABRT) after a
+            # finished run.
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args):
     from ..core.device import resolve_device
-    from ..parallel.mesh import init_distributed, make_mesh, process_count
+    from ..parallel.mesh import make_mesh, process_count
     from ..data.dataset import (
         list_image_mask_pairs, make_hard_synthetic_dataset,
         make_photo_synthetic_dataset, make_synthetic_dataset,
@@ -96,9 +114,6 @@ def main(argv=None):
     from ..graph_build import SuperpixelGraphConfig
     from ..train.trainer import TrainConfig, Trainer
 
-    if args.devices > 1:
-        # Before the device: under torchrun each process takes its card.
-        init_distributed(device="cpu" if args.cpu else None)
     device = resolve_device("cpu" if args.cpu else None)
     sp_cfg = SuperpixelGraphConfig(n_segments=args.n_segments,
                                    bg_connectivity=args.bg_connectivity)

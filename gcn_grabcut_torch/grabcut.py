@@ -9,9 +9,12 @@ cut from the previous flow (flow recycling); the "native" backend keeps
 the GMM steps on the device and solves each cut on the host with the C++
 push-relabel (``native/``).
 
-`grabcut_batch_device` is the batched core of ``segment_batch``; the
-`GrabCut` class is the interactive API (bounding box or trimap, further
-refinement rounds, a snapshot history, overlays).
+`grabcut_batch_device` is the batched core of ``segment_batch``: the
+batch's images iterate in lock step, as (B, H, W) tensors, each min-cut
+stopping when its image converges (`_grabcut_solve_batch`, the JAX
+package's vmapped solve).  The `GrabCut` class is the interactive API
+(bounding box or trimap, further refinement rounds, a snapshot history,
+overlays), one image at a time.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from .core.device import resolve_device
 from .core.graph import TRIMAP_BG, TRIMAP_FG, TRIMAP_PROB_BG, TRIMAP_PROB_FG
 from .ops import gmm as gmm_ops
 from .ops import image as im
-from .ops.maxflow import (OFFSETS_8, _fresh_residuals, grid_mincut_multilevel,
-                          grid_mincut_stateful)
+from .ops.maxflow import (OFFSETS_8, _fresh_residuals, grid_mincut_batch,
+                          grid_mincut_multilevel)
 
 
 @dataclasses.dataclass
@@ -58,24 +61,27 @@ class GrabCutSnapshot:
 
 def _pairwise_caps(pix: torch.Tensor, gamma: float):
     """8-neighbour smoothness capacities gamma/dist · exp(-beta·|dz|^2) and
-    beta = 1 / (2 <|dz|^2>) over all neighbour pairs (cv2's calcBeta)."""
+    beta = 1 / (2 <|dz|^2>) over all neighbour pairs (cv2's calcBeta), for
+    (..., H, W, 3) pixels: leading dimensions are a batch, with a beta per
+    image.  The |dz|^2 total is summed in float64 and rounded once (exact
+    for RGB), so an image's beta does not depend on its batch."""
     diffs = []
     for dy, dx in OFFSETS_8:
-        sh = torch.roll(pix, (-dy, -dx), dims=(0, 1))
-        d2 = ((pix - sh) ** 2).sum(dim=-1)
+        sh = torch.roll(pix, (-dy, -dx), dims=(-3, -2))
+        d2 = gmm_ops._channel_sum((pix - sh) ** 2)
         if dy == -1:
-            d2[0, :] = 0.0
+            d2[..., 0, :] = 0.0
         if dx == -1:
-            d2[:, 0] = 0.0
+            d2[..., :, 0] = 0.0
         if dx == 1:
-            d2[:, -1] = 0.0
+            d2[..., :, -1] = 0.0
         diffs.append(d2)
-    H, W = pix.shape[:2]
-    total = sum(d.sum() for d in diffs)
+    H, W = pix.shape[-3:-1]
+    total = sum(d.double().sum(dim=(-2, -1)) for d in diffs).float()
     n_pairs = 4 * H * W - 3 * (H + W) + 2
     beta_inv = 2.0 * total / n_pairs
     beta = torch.where(beta_inv > 1e-12, 1.0 / beta_inv,
-                       torch.zeros_like(beta_inv))
+                       torch.zeros_like(beta_inv))[..., None, None]
     # gamma / dist rounded as the JAX package computes it, in float32.
     caps = tuple(float(np.float32(gamma) / np.float32(math.sqrt(dy * dy
                                                                 + dx * dx)))
@@ -84,25 +90,24 @@ def _pairwise_caps(pix: torch.Tensor, gamma: float):
     return caps, beta
 
 
-def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
-                   comp0: torch.Tensor, gamma: float, n_iter: int,
-                   n_components: int, ml_levels: int = 0):
-    """The iterated optimisation on one image.  pix (H, W, 3) float32, mask
-    (H, W) uint8 OpenCV labels, comp0 (H, W) initial components.  Returns
-    (mask, comp).  Each iteration's min-cut is the exact flow-recycled
-    solve, or with `ml_levels` > 0 the coarse-to-fine banded one
-    (``ops.maxflow.grid_mincut_multilevel``), solved afresh each time with
-    no carried residuals, as in the JAX package; it is approximate, and no
-    entry point sets it."""
+def _class_masks(m: torch.Tensor):
+    fg = (m == TRIMAP_FG) | (m == TRIMAP_PROB_FG)
+    return fg.float(), (~fg).float()
+
+
+def _iterate(pix: torch.Tensor, mask: torch.Tensor, comp0: torch.Tensor,
+             gamma: float, n_iter: int, n_components: int,
+             ml_levels: int = 0):
+    """The iterated optimisation on a batch of same-size images in lock
+    step: pix (B, H, W, 3) float32, mask (B, H, W) uint8 OpenCV labels,
+    comp0 (B, H, W) initial components; returns (masks, comps).  Each
+    image has its own beta, GMMs and carried flow, and ends bit for bit
+    where it would alone."""
     pix = pix.float()
     caps, _ = _pairwise_caps(pix, gamma)
     lam = 9.0 * gamma
 
-    def class_masks(m):
-        fg = (m == TRIMAP_FG) | (m == TRIMAP_PROB_FG)
-        return fg.float(), (~fg).float()
-
-    fg_sel, bg_sel = class_masks(mask)
+    fg_sel, bg_sel = _class_masks(mask)
     fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp0, n_components)
     bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp0, n_components)
     if ml_levels <= 0:
@@ -111,7 +116,7 @@ def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
     E_prev = torch.zeros_like(pix[..., 0])
     comp = comp0
     for _ in range(n_iter):
-        fg_sel, bg_sel = class_masks(mask)
+        fg_sel, bg_sel = _class_masks(mask)
         # cv2 order: assign under the carried GMMs, then one re-fit.
         comp = torch.where(fg_sel > 0, gmm_ops.assign_components(pix, fg_gmm),
                            gmm_ops.assign_components(pix, bg_gmm))
@@ -124,11 +129,13 @@ def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
         E_t = torch.where(mask == TRIMAP_FG, lam,
                           torch.where(mask == TRIMAP_BG, -lam, unknown))
         if ml_levels > 0:
-            fg_side = grid_mincut_multilevel(E_t, caps, connectivity=8,
-                                             levels=ml_levels)
+            fg_side = torch.stack([
+                grid_mincut_multilevel(E_t[b], tuple(c[b] for c in caps),
+                                       connectivity=8, levels=ml_levels)
+                for b in range(E_t.shape[0])])
         else:
             # Flow recycling: add the terminal delta to the carried excess.
-            fg_side, e_carry, r_fwd, r_bwd = grid_mincut_stateful(
+            fg_side, e_carry, r_fwd, r_bwd = grid_mincut_batch(
                 e_carry + (E_t - E_prev), r_fwd, r_bwd, connectivity=8)
         E_prev = E_t
         probable = (mask == TRIMAP_PROB_BG) | (mask == TRIMAP_PROB_FG)
@@ -136,6 +143,32 @@ def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
                               ).to(mask.dtype)
         mask = torch.where(probable, relabel, mask)
     return mask, comp
+
+
+def _grabcut_solve(pix: torch.Tensor, mask: torch.Tensor,
+                   comp0: torch.Tensor, gamma: float, n_iter: int,
+                   n_components: int, ml_levels: int = 0):
+    """The iterated optimisation on one image.  pix (H, W, 3) float32, mask
+    (H, W) uint8 OpenCV labels, comp0 (H, W) initial components.  Returns
+    (mask, comp).  Each iteration's min-cut is the exact flow-recycled
+    solve, or with `ml_levels` > 0 the coarse-to-fine banded one
+    (``ops.maxflow.grid_mincut_multilevel``), solved afresh each time with
+    no carried residuals, as in the JAX package; it is approximate, and no
+    entry point sets it."""
+    mask, comp = _iterate(pix[None], mask[None], comp0[None], gamma, n_iter,
+                          n_components, ml_levels)
+    return mask[0], comp[0]
+
+
+def _grabcut_solve_batch(pix: torch.Tensor, masks: torch.Tensor,
+                         comps: torch.Tensor, gamma: float, n_iter: int,
+                         n_components: int):
+    """`_grabcut_solve` over a batch of same-size images in lock step (the
+    JAX package's vmapped solve, its batched-inference configuration):
+    pix (B, H, W, 3), masks and comps (B, H, W) -> (masks, comps).  Every
+    image's GMM fits, capacities and push-relabel sweeps run together;
+    each image's min-cut stops when it converges.  The exact cut only."""
+    return _iterate(pix, masks, comps, gamma, n_iter, n_components)
 
 
 def _grabcut_solve_native(pix: torch.Tensor, mask: np.ndarray,
@@ -193,15 +226,26 @@ def preprocess_device(rgb: torch.Tensor, color_space: str) -> torch.Tensor:
 
 
 def _repair(t: torch.Tensor):
-    """Promote probable labels to definite when a definite class is
-    missing; report whether the trimap stays one-sided."""
-    if not bool((t == TRIMAP_FG).any()):
-        t = torch.where(t == TRIMAP_PROB_FG, TRIMAP_FG, t).to(t.dtype)
-    if not bool((t == TRIMAP_BG).any()):
-        t = torch.where(t == TRIMAP_PROB_BG, TRIMAP_BG, t).to(t.dtype)
-    degenerate = not (bool((t == TRIMAP_FG).any())
-                      and bool((t == TRIMAP_BG).any()))
+    """Promote probable labels to definite where a definite class is
+    missing, branchlessly, for (..., H, W) trimaps; also return whether
+    each stays one-sided ((...,) bool)."""
+    def has(label):
+        return (t == label).flatten(-2).any(-1)[..., None, None]
+
+    t = torch.where(~has(TRIMAP_FG) & (t == TRIMAP_PROB_FG), TRIMAP_FG, t
+                    ).to(t.dtype)
+    t = torch.where(~has(TRIMAP_BG) & (t == TRIMAP_PROB_BG), TRIMAP_BG, t
+                    ).to(t.dtype)
+    degenerate = ~(has(TRIMAP_FG) & has(TRIMAP_BG))[..., 0, 0]
     return t, degenerate
+
+
+def _initial_components(pix: torch.Tensor, fg_sel: torch.Tensor, k: int
+                        ) -> torch.Tensor:
+    """initGMMs: seeded k-means per class (seeds 0 / 1)."""
+    fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
+    bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
+    return torch.where(fg_sel, fg_comp, bg_comp)
 
 
 def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,
@@ -209,38 +253,60 @@ def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,
                          comp0: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """(B, H, W, 3) float32 RGB + (B, H, W) uint8 trimaps -> (B, H, W)
-    uint8 binary masks, with the device solver on the tensors' device.
+    uint8 binary masks, with the device solver on the tensors' device: the
+    whole batch in lock step (`_grabcut_solve_batch`), as the JAX
+    package's ``_grabcut_batch_jit``.
 
-    Degenerate trimaps are repaired as in the JAX package; an image whose
-    trimap stays one-sided keeps its own labelling.  Initial components
-    come from seeded k-means per class (seeds 0 / 1) unless `comp0`
-    (B, H, W) is given."""
+    Degenerate trimaps are repaired branchlessly as in the JAX package;
+    an image whose trimap stays one-sided is solved with the others and
+    keeps its own labelling.  Initial components come from seeded k-means
+    per class (seeds 0 / 1) over the batch unless `comp0` (B, H, W) is
+    given."""
+    config = config or GrabCutConfig()
+    k = config.n_components
+    t, degenerate = _repair(trimaps.to(torch.uint8))
+    fg_sel = (t == TRIMAP_FG) | (t == TRIMAP_PROB_FG)
+    pix = preprocess_device(rgb.float(), config.color_space)
+    if comp0 is None:
+        comp0 = _initial_components(pix, fg_sel, k)
+    masks, _ = _grabcut_solve_batch(pix, t, comp0.long(), config.gamma,
+                                    config.n_iter, k)
+    solved = ((masks == TRIMAP_FG) | (masks == TRIMAP_PROB_FG)
+              ).to(torch.uint8)
+    return torch.where(degenerate[:, None, None], fg_sel.to(torch.uint8),
+                       solved)
+
+
+def grabcut_batch_loop(rgb: torch.Tensor, trimaps: torch.Tensor,
+                       config: Optional[GrabCutConfig] = None,
+                       comp0: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The plain version of `grabcut_batch_device`: the same masks, image
+    by image (repair, k-means and `_grabcut_solve` per image, a one-sided
+    trimap not solved).  The oracle of the lock-step solve; no entry point
+    calls it."""
     config = config or GrabCutConfig()
     k = config.n_components
     out = []
     for b in range(rgb.shape[0]):
         t, degenerate = _repair(trimaps[b].to(torch.uint8))
         fg_sel = (t == TRIMAP_FG) | (t == TRIMAP_PROB_FG)
-        if degenerate:
+        if bool(degenerate):
             out.append(fg_sel.to(torch.uint8))
             continue
         pix = preprocess_device(rgb[b].float(), config.color_space)
-        if comp0 is None:
-            fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
-            bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
-            c0 = torch.where(fg_sel, fg_comp, bg_comp)
-        else:
-            c0 = comp0[b].long()
+        c0 = (_initial_components(pix, fg_sel, k) if comp0 is None
+              else comp0[b].long())
         mask, _ = _grabcut_solve(pix, t, c0, config.gamma, config.n_iter, k)
         out.append(((mask == TRIMAP_FG) | (mask == TRIMAP_PROB_FG)
                     ).to(torch.uint8))
     return torch.stack(out)
 
 
-
-#: Above this many pixels in a batch, `run_batch_with_trimaps` solves the
-#: images one by one through the GrabCut class (the JAX package's bound on
-#: its vmapped solve's memory; kept so the two choose alike).
+#: Above this many pixels in a batch, `segment_batch` and
+#: `run_batch_with_trimaps` solve the images one by one through the GrabCut
+#: class instead of in lock step (the JAX package's bound on its vmapped
+#: solve's memory; kept so the two choose alike).
 BATCH_SOLVE_PIXEL_BUDGET = 33_554_432
 
 
@@ -367,12 +433,8 @@ class GrabCut:
         fg_sel = torch.as_tensor((trimap == TRIMAP_FG)
                                  | (trimap == TRIMAP_PROB_FG),
                                  device=self.device)
-        # initGMMs: k-means per class seeds the components.
-        k = self.config.n_components
-        fg_comp = gmm_ops.kmeans(self._proc, fg_sel.float(), k, seed=0)
-        bg_comp = gmm_ops.kmeans(self._proc, (~fg_sel).float(), k, seed=1)
-        self._solve(trimap, torch.where(fg_sel, fg_comp, bg_comp),
-                    self.config.n_iter)
+        self._solve(trimap, _initial_components(
+            self._proc, fg_sel, self.config.n_components), self.config.n_iter)
         return self._binary()
 
     # ------------------------------------------------------------------

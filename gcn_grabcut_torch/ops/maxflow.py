@@ -10,7 +10,10 @@ the final exact relabel -- the minimal source set, so tied cuts resolve as
 in the JAX package.
 
 Port notes.  The JAX while loops become Python loops that test convergence
-once per block of steps (one host sync each).  Arrays that are read shifted
+once per block of steps (one host sync each).  The solver runs a batch of
+same-size lattices in lock step (``grid_mincut_batch``, the JAX package's
+``vmap`` of the solve): each image stops when it converges, and the batch
+pays one sync per block, not one per image.  Arrays that are read shifted
 (heights, backward residuals, the flow being pushed) live in buffers padded
 by one pixel whose border holds the out-of-image fill value, so a shift is
 a view rather than a copy; updates go to the interiors in place, with the
@@ -19,6 +22,7 @@ same float32 operations in the same order as the JAX stencils.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,26 +33,28 @@ OFFSETS_8 = ((0, -1), (-1, 0), (-1, -1), (-1, 1))
 
 
 def _pad(a: torch.Tensor, fill) -> torch.Tensor:
+    """Pad the last two dimensions by one pixel of `fill`."""
     return F.pad(a, (1, 1, 1, 1), value=fill)
 
 
 def _view(ap: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[p] = a[p + (dy, dx)] for a one-pixel padded buffer `ap` whose
-    border holds the fill value: the JAX package's _shift_from(a, dy, dx,
-    fill) as a view, and _shift_to(a, dy, dx) as _view(ap, -dy, -dx)."""
-    H, W = ap.shape[0] - 2, ap.shape[1] - 2
-    return ap[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+    """out[..., p] = a[..., p + (dy, dx)] for a one-pixel padded buffer
+    `ap` (..., H + 2, W + 2) whose border holds the fill value: the JAX
+    package's _shift_from(a, dy, dx, fill) as a view, and _shift_to(a, dy,
+    dx) as _view(ap, -dy, -dx)."""
+    H, W = ap.shape[-2] - 2, ap.shape[-1] - 2
+    return ap[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
 
 
 def _zero_border(cap: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """Zero the capacity of arcs that would cross the image border."""
     cap = cap.clone()
     if dy == -1:
-        cap[0, :] = 0.0
+        cap[..., 0, :] = 0.0
     if dx == -1:
-        cap[:, 0] = 0.0
+        cap[..., :, 0] = 0.0
     if dx == 1:
-        cap[:, -1] = 0.0
+        cap[..., :, -1] = 0.0
     return cap
 
 
@@ -67,22 +73,55 @@ def _resolve_params(H, W, connectivity, relabel_iters):
     return offsets, relabel_iters
 
 
+class SolverCounts:
+    """The device solver's work since `reset()`, tallied on the host (no
+    syncs of its own): per call, each image's outer rounds and push
+    sweeps; in all, the global relabel's relaxation steps (each over the
+    call's whole working set) and the host syncs."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.rounds: list = []      # one (B,) array per call
+        self.sweeps: list = []      # one (B,) array per call
+        self.relabel_steps = 0
+        self.syncs = 0
+
+
+#: Tallies of every solve in this process (``counts.reset()`` to start).
+counts = SolverCounts()
+
+
 def _build_solver(H: int, W: int, offsets, max_outer: int,
                   sweeps_per_round: int, relabel_iters: int,
                   unroll: int = 4):
-    """solve(e, r_fwd, r_bwd) -> (fg, e', r_fwd', r_bwd').
+    """solve(e, r_fwd, r_bwd) -> (fg, e', r_fwd', r_bwd') on a batch of B
+    lattices in lock step: `e` and every residual plane (B, H, W).
+
+    Each image's outer loop runs while that image has an active pixel
+    (the JAX package's ``outer_cond`` under ``vmap``).  An image that has
+    converged is frozen -- its excess and residuals are written back and
+    it leaves the working set -- because sweeping it further could still
+    move flow (a pixel with 0 < e <= 1e-6 pushes) and so change the flow
+    its next solve resumes from.  Every stencil is elementwise, so each
+    image ends bit for bit where a solve of it alone ends.  One host sync
+    per outer round and one per relabel block, for the whole batch.
 
     Arbitrary starting residuals allow flow recycling across GrabCut
     iterations (Kohli & Torr): only the terminal capacities move, so the
     previous flow stays a valid preflow."""
     INF = H * W + 1
+    n_sweeps = max(1, sweeps_per_round // unroll) * unroll
 
     def global_relabel(e, r_fwd, rbp):
         """Padded heights: distance to the nearest deficit pixel along
         residual arcs, by min-plus relaxation to the fixpoint (at most
         relabel_iters steps).  Each arc's 'plus one' is folded into an
         addend that is 1 where the arc is usable and INF where not: the
-        candidate is then >= INF and never wins, as the JAX where does."""
+        candidate is then >= INF and never wins, as the JAX where does.
+        The batch relaxes until its last image's fixpoint, where the
+        others' heights no longer move."""
         arcs = []
         for d, (dy, dx) in enumerate(offsets):
             arcs.append(((dy, dx), torch.where(r_fwd[d] > 0, 1, INF
@@ -90,9 +129,9 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
             arcs.append(((-dy, -dx), torch.where(
                 _view(rbp[d], -dy, -dx) > 0, 1, INF).to(torch.int32)))
         h0 = torch.where(e < 0, 0, INF).to(torch.int32)
-        bufs = [_pad(h0, INF), torch.full((H + 2, W + 2), INF,
+        bufs = [_pad(h0, INF), torch.full(rbp[0].shape, INF,
                                           dtype=torch.int32, device=e.device)]
-        tmp = torch.empty((H, W), dtype=torch.int32, device=e.device)
+        tmp = torch.empty(e.shape, dtype=torch.int32, device=e.device)
         cur, it = 0, 0
         while it < relabel_iters:
             for _ in range(unroll):
@@ -104,6 +143,8 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
                     torch.minimum(new, tmp, out=new)
                 cur = 1 - cur
             it += unroll
+            counts.relabel_steps += unroll
+            counts.syncs += 1
             # Relaxation is monotone: a step that changes nothing is the
             # fixpoint, so testing the last step ends where the JAX block
             # test does.
@@ -152,20 +193,72 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
         e = excess.float().clone()
         r_fwd = [r.float().clone() for r in r_fwd]
         rbp = [_pad(r.float(), 0.0) for r in r_bwd]
-        fp = torch.zeros((H + 2, W + 2), device=e.device)
+        B, dev = e.shape[0], e.device
+        rounds = np.zeros(B, np.int64)
+        # The working set: the images still active, by batch index, and
+        # their state (the whole batch's tensors until one converges).
+        live = np.arange(B)
+        we, wrf, wrbp = e, r_fwd, rbp
+        fp = torch.zeros(rbp[0].shape, device=dev)
+
+        def write_back(sel):
+            """Copy the working images `sel` (host bool) into the batch."""
+            if we is e:
+                return
+            src = torch.as_tensor(np.flatnonzero(sel), device=dev)
+            at = torch.as_tensor(live[sel], device=dev)
+            for full, part in zip([e, *r_fwd, *rbp], [we, *wrf, *wrbp]):
+                full.index_copy_(0, at, part.index_select(0, src))
+
         hp = global_relabel(e, r_fwd, rbp)
         for _ in range(max_outer):
-            h = _view(hp, 0, 0)
-            if not bool(((e > 1e-6) & (h < INF)).any()):
-                break
-            hp = global_relabel(e, r_fwd, rbp)
-            for _ in range(max(1, sweeps_per_round // unroll) * unroll):
-                push_sweep(e, hp, r_fwd, rbp, fp)
+            active = ((we > 1e-6) & (_view(hp, 0, 0) < INF)
+                      ).flatten(1).any(1).cpu().numpy()
+            counts.syncs += 1
+            if not active.all():
+                # Freeze the converged images: back into the batch, out of
+                # the working set.
+                write_back(~active)
+                if not active.any():
+                    break
+                keep = torch.as_tensor(np.flatnonzero(active), device=dev)
+                we = we.index_select(0, keep)
+                wrf = [r.index_select(0, keep) for r in wrf]
+                wrbp = [r.index_select(0, keep) for r in wrbp]
+                fp = fp[:len(keep)]
+                live = live[active]
+            rounds[live] += 1
+            hp = global_relabel(we, wrf, wrbp)
+            for _ in range(n_sweeps):
+                push_sweep(we, hp, wrf, wrbp, fp)
+        else:
+            write_back(np.ones(len(live), bool))
+        counts.rounds.append(rounds)
+        counts.sweeps.append(rounds * n_sweeps)
         hp = global_relabel(e, r_fwd, rbp)
         return (_view(hp, 0, 0) >= INF, e, tuple(r_fwd),
                 tuple(_view(r, 0, 0) for r in rbp))
 
     return solve
+
+
+def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
+                      connectivity: int = 8, max_outer: int = 400,
+                      sweeps_per_round: int = 48,
+                      relabel_iters: int | None = None, unroll: int = 4):
+    """`grid_mincut_stateful` on B same-size lattices in lock step:
+    `excess` and every residual plane (B, H, W).  Returns (fg, e', r_fwd',
+    r_bwd') with the same leading B, each image bit for bit its solve
+    alone (the solver's docstring)."""
+    _, H, W = excess.shape
+    offsets, relabel_iters = _resolve_params(H, W, connectivity,
+                                             relabel_iters)
+    if len(r_fwd) != len(offsets) or len(r_bwd) != len(offsets):
+        raise ValueError(f"{len(r_fwd)} / {len(r_bwd)} residual planes for "
+                         f"{connectivity}-connectivity")
+    solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
+                          relabel_iters, unroll)
+    return solve(excess, r_fwd, r_bwd)
 
 
 def grid_mincut(excess: torch.Tensor, caps: tuple, connectivity: int = 8,
@@ -176,16 +269,14 @@ def grid_mincut(excess: torch.Tensor, caps: tuple, connectivity: int = 8,
     cap_snk; `caps` one (H, W) undirected capacity per direction of
     OFFSETS_4 / OFFSETS_8.  Returns (H, W) bool, True on the source
     (foreground) side."""
-    H, W = excess.shape
-    offsets, relabel_iters = _resolve_params(H, W, connectivity,
-                                             relabel_iters)
+    offsets = OFFSETS_8 if connectivity == 8 else OFFSETS_4
     if len(caps) != len(offsets):
         raise ValueError(f"{len(caps)} capacity planes for "
                          f"{connectivity}-connectivity")
-    solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
-                          relabel_iters, unroll)
     r_fwd, r_bwd = _fresh_residuals(caps, offsets)
-    return solve(excess, r_fwd, r_bwd)[0]
+    return grid_mincut_stateful(excess, r_fwd, r_bwd, connectivity,
+                                max_outer, sweeps_per_round, relabel_iters,
+                                unroll)[0]
 
 
 def _coarsen_problem(excess: torch.Tensor, caps: tuple, connectivity: int):
@@ -298,10 +389,9 @@ def grid_mincut_stateful(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
                          relabel_iters: int | None = None, unroll: int = 4):
     """Warm start from carried residuals (flow recycling): `excess` is the
     carried excess plus the terminal-capacity delta.  Returns (fg, e',
-    r_fwd', r_bwd')."""
-    H, W = excess.shape
-    offsets, relabel_iters = _resolve_params(H, W, connectivity,
-                                             relabel_iters)
-    solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
-                          relabel_iters, unroll)
-    return solve(excess, r_fwd, r_bwd)
+    r_fwd', r_bwd'), each (H, W): `grid_mincut_batch` with B = 1."""
+    fg, e, r_fwd, r_bwd = grid_mincut_batch(
+        excess[None], tuple(r[None] for r in r_fwd),
+        tuple(r[None] for r in r_bwd), connectivity, max_outer,
+        sweeps_per_round, relabel_iters, unroll)
+    return fg[0], e[0], tuple(r[0] for r in r_fwd), tuple(r[0] for r in r_bwd)

@@ -110,10 +110,12 @@ def process_index() -> int:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     device=None) -> None:
+                     device=None) -> bool:
     """Join a ``torch.distributed`` process group when the job runs more
-    than one process.  Safe to call unconditionally: with no arguments and
-    no cluster environment it is a no-op, and once the group exists it
+    than one process; True when this call created the group (its owner
+    then leaves it with ``destroy_process_group`` before the process
+    exits).  Safe to call unconditionally: with no arguments and no
+    cluster environment it is a no-op, and once the group exists it
     returns quietly.
 
     `coordinator_address` ("host:port" or a ``tcp://`` URL) is the group's
@@ -127,7 +129,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     if dist is None:
         raise RuntimeError("this torch has no torch.distributed")
     if dist.is_initialized():
-        return
+        return False
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator address needs num_processes "
@@ -143,12 +145,13 @@ def init_distributed(coordinator_address: Optional[str] = None,
                   rank=int(os.environ["RANK"] if process_id is None
                            else process_id))
     else:
-        return
+        return False
     if device is None and "LOCAL_RANK" in os.environ \
             and torch.cuda.is_available():
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     dev = resolve_device(device)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", **kw)
+    return True
 
 
 def _in_cluster_env() -> bool:

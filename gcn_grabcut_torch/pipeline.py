@@ -10,7 +10,8 @@ Counterpart of ``gcn_grabcut_tpu/pipeline.py``.  `segment_batch` (and
      optionally again on the image rescaled (`ms_scales`, dense graphs
      only), the pixel posteriors averaged over the scales;
   3. edge-aware trimap (guided filter) with prior seeding;
-  4. GrabCut (GMMs + push-relabel min-cut);
+  4. GrabCut (GMMs + push-relabel min-cut), the batch in lock step up to
+     BATCH_SOLVE_PIXEL_BUDGET pixels, above it image by image;
   5. connected-component clean-up and bit-packed output.
 Stages stay on the device until the one packed pull at the end.
 `segment_stream` keeps two such batches in flight.
@@ -38,7 +39,8 @@ from .core.device import resolve_device, synchronize
 from .core.graph import (CLASS_BG, CLASS_FG, TRIMAP_BG, TRIMAP_FG,
                          TRIMAP_PROB_BG, TRIMAP_PROB_FG, GraphBatch,
                          make_graph_batch)
-from .grabcut import GrabCut, GrabCutConfig, grabcut_batch_device
+from .grabcut import (GrabCut, GrabCutConfig, grabcut_batch_device,
+                      run_batch_with_trimaps)
 from .graph_build import (RegionGraph, SuperpixelGraphConfig,
                           build_graph, build_graph_batch_arrays,
                           num_nodes_for)
@@ -48,6 +50,13 @@ from .models.factory import (apply_model, probs_to_node_trimap,
 from .models.large import apply_large
 from .ops import image as im
 from .ops.connected import _clean_mask, clean_mask
+
+
+def _batch_budget() -> int:
+    """Pixels up to which `segment_batch` solves GrabCut in lock step;
+    above it, image by image (the JAX package's rule)."""
+    from .grabcut import BATCH_SOLVE_PIXEL_BUDGET
+    return BATCH_SOLVE_PIXEL_BUDGET
 
 
 def _write_png(path, img: np.ndarray) -> None:
@@ -526,7 +535,12 @@ class GCNGrabCutPipeline:
         stage_done("gcn_inference", t)
 
         t = time.perf_counter()
-        masks = grabcut_batch_device(rgbs, trimaps, self.gc_config)
+        if len(images) * H * W <= _batch_budget():
+            masks = grabcut_batch_device(rgbs, trimaps, self.gc_config)
+        else:
+            masks = torch.as_tensor(run_batch_with_trimaps(
+                np.stack(images), trimaps.cpu().numpy(), self.gc_config,
+                device=dev), device=dev)
         stage_done("grabcut", t)
 
         t = time.perf_counter()

@@ -163,6 +163,33 @@ def test_dense_ensemble_path_on_card_matches_cpu(cuda):
     assert 0.0 < on_card[0].binary_mask.mean() < 1.0
 
 
+def test_lock_step_grabcut_on_card_matches_loop(cuda):
+    """The lock-step batched GrabCut on the card gives each image the
+    mask of its own solve (the image-by-image plain version), bit for
+    bit, with a one-sided trimap in the batch."""
+    from gcn_grabcut_torch import grabcut as gc
+    r = np.random.RandomState(4)
+    yy, xx = np.mgrid[0:96, 0:96]
+    imgs, tris = [], []
+    for b in range(3):
+        d2 = ((yy - 48 - 4 * b) / 30) ** 2 + ((xx - 44 + 3 * b) / 26) ** 2
+        img = r.rand(96, 96, 3) * 70 + 20 + 20 * b
+        img[d2 < 1] = 150 + r.rand(int((d2 < 1).sum()), 3) * 100
+        tri = np.zeros((96, 96), np.uint8)
+        tri[d2 < 1.8] = 2
+        tri[d2 < 1.1] = 3
+        tri[d2 < 0.15] = 1
+        imgs.append(img.astype(np.uint8))
+        tris.append(tri)
+    tris[1][:] = 3
+    rgb = torch.as_tensor(np.stack(imgs), device=cuda).float()
+    tri = torch.as_tensor(np.stack(tris), device=cuda)
+    lock = gc.grabcut_batch_device(rgb, tri)
+    assert torch.equal(lock, gc.grabcut_batch_loop(rgb, tri))
+    assert bool((lock[1] == 1).all())
+    assert 0.0 < float(lock[0].float().mean()) < 1.0
+
+
 def ring_data(n, chunk, d, dtype, device, seed):
     """Fresh blocks for K2 and per-rank cotangents for K3."""
     gen = torch.Generator(device=device).manual_seed(seed)
