@@ -19,17 +19,36 @@ Phases, each of which exits non-zero on failure:
      one's allocations held to its outputs, then >= 100 calls for each n
      with fresh seeded data and seeded timing skew between ranks, every
      output exact;
+     Then the fixed-order sums: (a) the segment-sum kernel
+     (csrc/segment_sum.cu) against its plain version on the card and on
+     a CPU copy, bit for bit, sums and maxima, on the main path's graph:
+     the edge-list GAT layer's messages (E x 128, sorted; fp32, bf16),
+     the banded SpMM's fallback sum (unsorted, node 0's long segment),
+     region_statistics' 1536^2 x 15 planes (unsorted), two ranks of the
+     sharded aggregation, and a case with empty leading, inner and
+     trailing segments (C = 6 fp32 and bf16, C = 1); (b) its time,
+     L2-warm and cold, alone and with its sort and offsets, beside its
+     bytes bound, the plain version and two one-call yardsticks the port
+     never calls (index_add_, torch.segment_reduce with lengths); (c) no
+     host sync in a call, forward or backward
+     (torch.cuda.set_sync_debug_mode("error")); and the audit of every
+     row gather whose gradient the card computes, each backward twice,
+     bit for bit;
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
-     launch counts set to 0 just before and read just after; the card's
-     forward is then held against the plain forward on the CPU;
+     launch counts set to 0 just before and read just after (K1 and the
+     segment sum); the card's forward is then held against the plain
+     forward on the CPU;
   5. the graph-sharded path on the same graph and model: the forward
      through mesh_aggregators over 4 ranks with the ring halo (K2) and the
-     gradient of sum(logits * c) for every parameter (K3), after a warm
-     call, with the counts set to 0 just before and read just after; held
-     against apply_large(precision="highest") and the backward with the
-     plain halo;
+     gradient of sum(logits * c) for every parameter (K3), twice, with
+     the counts set to 0 just before the second and read just after;
+     held against apply_large(precision="highest"), and the same two
+     steps with the plain halo: each halo's two steps bit-identical, the
+     ring halo's logits and gradients bit for bit the plain halo's, and
+     within 1e-4 of its scale (the worst leaves printed); the segment
+     sum's launches in the forward;
   6. the dense path, the configuration the repo recommends: the 3-member
      bgc ensemble read from examples/ensemble_r5/ by the port's own
      checkpoint reader, GCNGrabCutPipeline.segment_batch at 512x512 with
@@ -52,7 +71,8 @@ Phases, each of which exits non-zero on failure:
      three against segment_batch on the same chunks, beside two
      segment_batch runs against each other; predict_probs on the main
      path's 1536x1536 graph (7 K1 launches) against segment_batch's
-     posteriors, and two apply_large runs on that graph bit for bit; K1
+     posteriors, and two apply_large runs on that graph bit for bit, with
+     the segment-sum launches of one large forward; K1
      launched 0 times on the 512 px items.  Before them,
      keep-largest's fixed-order sums (20 repeats on one 512x512 mask, bit
      for bit), and a flat-colour image through the dense path on the card
@@ -142,6 +162,9 @@ Phases, each of which exits non-zero on failure:
      image for the loop and per batch for the lock step; the lock step's
      peak memory at B=8.  Phases 6 and 10 run the lock step through
      segment_batch.
+The fp32 training steps on the card (phases 8 and 9) and the data-parallel
+and solo steps of phase 11 each run twice and fail unless the two are
+bit-identical.
 Phase 9 also holds augment_sample's arrays, drawn here, to the sha1s of
 the JAX package's run with OpenCV 5.0 (tests/data/torch_eval_jax_ref.npz):
 augment_sample warps in numpy, so they must be equal whichever OpenCV the
@@ -194,7 +217,8 @@ YARDSTICK_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # Sharded forward vs apply_large(precision="highest"): the same fp32 sums,
 # reordered, and edge weights rounded differently.
 SHARDED_FWD_TOL = 1e-3
-# Sharded backward, ring halo vs plain halo: index_add_ atomics reorder sums.
+# Sharded backward, ring halo vs plain halo: a further gate beside bit
+# equality (both halos sum in K3's order, every sum in a fixed order).
 SHARDED_GRAD_TOL = 1e-4
 
 # The dense path: the configuration the repo recommends
@@ -674,6 +698,276 @@ def stress_ring_collectives(dev, n_nodes: int) -> None:
                  f"skew (n={n})")
 
 
+def segment_cases(dev) -> tuple[dict, dict]:
+    """The fixed-order sums' shapes on the card, from the main path's
+    1536^2 / 10 000-superpixel graph: name -> (index, values, n,
+    is_sorted, label); and the graph's arrays."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.models.large import build_gcn_plans_device
+    from gcn_grabcut_torch.models.layers import sort_edges_by_dst
+    from gcn_grabcut_torch.ops import image as im
+    from gcn_grabcut_torch.ops.region import region_planes
+    from gcn_grabcut_torch.parallel.mesh import make_graph_mesh
+    from gcn_grabcut_torch.parallel.partition import (partition_edges_by_dst,
+                                                      shard_segments)
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    rgb = torch.as_tensor(make_image(IMAGE_HW), device=dev).float()
+    arrays = gt.build_graph_batch_arrays(rgb[None], cfg, device=dev)
+    segments = arrays["segments"][0]
+    k = int(arrays["x"].shape[1])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = {}
+
+    # The edge-list GAT layer's messages (models/layers.py), E x 128 by
+    # destination, edges sorted.
+    _, e_dst, _, _ = sort_edges_by_dst(arrays["edge_src"], arrays["edge_dst"],
+                                       arrays["edge_attr"],
+                                       arrays["edge_mask"])
+    dst = e_dst.reshape(-1)
+    msgs = torch.randn((dst.numel(), HIDDEN), generator=gen, device=dev)
+    cases["gat_messages"] = (dst, msgs, k, True,
+                             f"GAT messages E={dst.numel()} x {HIDDEN} "
+                             f"sorted into {k}")
+    cases["gat_messages_bf16"] = (dst, msgs.bfloat16(), k, True,
+                                  "the same in bfloat16")
+
+    # The banded SpMM's fallback sum (ops/spmm.py), unsorted: each band row,
+    # then the fallback edges; the padded edges make node 0's segment long.
+    plan, _ = build_gcn_plans_device(arrays["edge_src"][0],
+                                     arrays["edge_dst"][0],
+                                     arrays["edge_mask"][0], k)
+    fb = plan.fallback_segments()
+    cases["spmm_fallback"] = (
+        fb.index, torch.randn((fb.index.numel(), HIDDEN), generator=gen,
+                              device=dev), fb.n, False,
+        f"SpMM fallback {fb.index.numel()} x {HIDDEN} unsorted into {fb.n}")
+
+    # region_statistics' planes (ops/region.py), unsorted pixels.
+    lab = im.rgb_to_lab(rgb)
+    planes = region_planes(segments, lab, im.rgb_to_hsv(rgb),
+                           im.gradient_magnitude(im.rgb_to_gray(rgb)))
+    cases["region_stats"] = (segments.reshape(-1),
+                             planes.reshape(-1, planes.shape[-1]), k, False,
+                             f"region planes {IMAGE_HW}^2 x "
+                             f"{planes.shape[-1]} unsorted into {k}")
+
+    # One rank's sum of the sharded aggregation (parallel/partition.py).
+    keep = arrays["edge_mask"][0] > 0
+    src_np = arrays["edge_src"][0][keep].cpu().numpy()
+    dst_np = arrays["edge_dst"][0][keep].cpu().numpy()
+    n_pad = -(-k // PATH_RANKS) * PATH_RANKS
+    _, pd, _ = partition_edges_by_dst(src_np, dst_np,
+                                      np.ones(len(src_np), np.float32),
+                                      n_pad, PATH_RANKS)
+    pd = torch.as_tensor(pd, device=dev).long()
+    segs = shard_segments(make_graph_mesh(PATH_RANKS), n_pad, pd)
+    shard = pd.numel() // PATH_RANKS
+    for i in (0, PATH_RANKS - 1):
+        cases[f"sharded_rank{i}"] = (
+            segs[i].index, torch.randn((shard, HIDDEN), generator=gen,
+                                       device=dev),
+            segs[i].n, False,
+            f"sharded rank {i} of {PATH_RANKS}: {shard} x {HIDDEN} into "
+            f"{segs[i].n}")
+
+    # Empty leading, inner and trailing segments, C = 6 and 1.
+    r = np.random.RandomState(13)
+    idx = r.randint(16, 3500, 50_000)
+    idx = torch.as_tensor(idx[idx % 11 != 3], device=dev)
+    vals = torch.randn((idx.numel(), 6), generator=gen, device=dev)
+    cases["empty_trailing"] = (idx, vals, 4096, False,
+                               f"{idx.numel()} x 6 into 4096, segments "
+                               f"0-15, every 11th and 3500-4095 empty")
+    cases["empty_trailing_bf16"] = (idx, vals.bfloat16(), 4096, False,
+                                    "the same in bfloat16")
+    cases["empty_trailing_1d"] = (idx, vals[:, 0].contiguous(), 4096,
+                                  False, "the same, one column, 1-D")
+    return cases, arrays
+
+
+def segment_bytes(values: torch.Tensor, n: int) -> int:
+    """The bytes the sum must move: values, index and offsets read, the
+    output written."""
+    p = values.shape[0]
+    c = values.numel() // max(p, 1)
+    return (values.numel() + n * c) * values.element_size() + 8 * (p + n + 1)
+
+
+def check_segment_sum(dev) -> tuple[dict, dict]:
+    """The fixed-order sums phase: (a) the kernel against its plain version
+    on the card and on a CPU copy, bit for bit, at every case's shape, sums
+    and maxima; (b) its time (L2-warm and cold, alone and with its sort and
+    offsets) beside its bytes bound, the plain version and two one-call
+    yardsticks the port never calls; (c) no host sync in a call, forward or
+    backward.  Returns the JSON record (the region statistics' shape) and
+    the graph's arrays."""
+    from gcn_grabcut_torch.ops.region import (Segments, segment_max,
+                                              segment_reduce_cuda,
+                                              segment_reduce_plain,
+                                              segment_sum)
+    cases, arrays = segment_cases(dev)
+    record, ok = None, True
+    for name, (idx, vals, n, srt, label) in cases.items():
+        segs = Segments(idx, n, srt)
+        segs_cpu = Segments(idx.cpu(), n, srt)
+        same, errs = {}, {}
+        for op in ("sum", "max"):
+            got = segment_reduce_cuda(vals, segs, op)
+            torch.cuda.synchronize()
+            plain = segment_reduce_plain(vals, segs, op)
+            cpu = segment_reduce_plain(vals.cpu(), segs_cpu, op)
+            same[op] = (torch.equal(got, plain), torch.equal(got.cpu(), cpu))
+            errs[op] = float((got.cpu() - cpu).float().nan_to_num(
+                0.0, 0.0, 0.0).abs().max())
+            ok &= all(same[op])
+        err = errs["sum"]
+        line = (f"segment_sum {name} ({label}; {str(vals.dtype)[6:]}): "
+                f"kernel = plain on the card / on the CPU: sum "
+                f"{same['sum'][0]} / {same['sum'][1]}, max {same['max'][0]}"
+                f" / {same['max'][1]}")
+        if name.endswith(("_bf16", "_1d", "rank3")):
+            print(line, flush=True)
+            continue
+        ms = time_ms(lambda: segment_reduce_cuda(vals, segs, "sum"))
+        cold_ms = time_cold_ms(lambda: segment_reduce_cuda(vals, segs, "sum"))
+        call_ms = time_ms(lambda: segment_sum(idx, vals, n, srt))
+        plain_ms = time_ms(lambda: segment_reduce_plain(vals, segs, "sum"))
+        acc = torch.zeros((n,) + vals.shape[1:], device=dev)
+        index_add_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+        ordered = vals if segs.order is None else vals[segs.order]
+        lengths = segs.offsets.diff()
+        reduce_ms = time_ms(lambda: torch.segment_reduce(
+            ordered, "sum", lengths=lengths, axis=0))
+        n_bytes = segment_bytes(vals, n)
+        bound = n_bytes / PEAK_BYTES_S * 1e3
+        print(f"{line}; kernel {ms:.4f} ms (L2-warm; {cold_ms:.4f} cold), "
+              f"with its sort and offsets {call_ms:.4f}, plain {plain_ms:.4f}"
+              f", yardsticks index_add_ {index_add_ms:.4f} and segment_reduce"
+              f"(lengths) {reduce_ms:.4f}; bound {bound:.4f} ms (bytes: "
+              f"{n_bytes / 1e6:.2f} MB), share {bound / ms:.3f} warm, "
+              f"{bound / cold_ms:.3f} cold", flush=True)
+        if name == "region_stats":
+            record = {"name": "segment_sum", "route": "cuda",
+                      "source": "gcn_grabcut_torch/csrc/segment_sum.cu",
+                      "replaces": "gcn_grabcut_tpu/ops/region.py:35 (XLA "
+                                  "segment_sum; no Pallas kernel)",
+                      "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "bytes", "library_ms": index_add_ms,
+                      "segment_reduce_ms": reduce_ms, "call_ms": call_ms}
+    if not ok:
+        fail("the segment-sum kernel differs from its plain version")
+
+    # (c) no host sync: the whole call (sort, offsets, launch), a maximum,
+    # and a backward.
+    idx, vals, n, srt, _ = cases["gat_messages"]
+    vals = vals.clone().requires_grad_(True)
+    ridx, rvals, rn, _, _ = cases["region_stats"]
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        segment_sum(ridx, rvals, rn)
+        segment_max(idx, vals.detach(), n, is_sorted=True)
+        (segment_sum(idx, vals, n, is_sorted=True) * 2.0).sum().backward()
+        segment_max(idx, vals, n, is_sorted=True).sum().backward()
+    except RuntimeError as e:
+        fail(f"segment_sum synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("segment_sum host syncs per call: 0 (torch.cuda.set_sync_debug_mode"
+          "('error') around a sorted and an unsorted sum, a maximum and two "
+          "backwards)", flush=True)
+    return record, arrays
+
+
+def gather_repeats(table: torch.Tensor, idx: torch.Tensor, seed: int
+                   ) -> tuple[bool, int]:
+    """(whether two backwards of table[idx] give the same bits, the largest
+    number of rows gathering one table row)."""
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    g_out = torch.randn((idx.numel(),) + table.shape[1:], generator=gen,
+                        device=table.device).to(table.dtype)
+    grads = []
+    for _ in range(2):
+        t = table.detach().clone().requires_grad_(True)
+        t[idx].backward(g_out)
+        grads.append(t.grad)
+    dup = int(torch.bincount(idx.reshape(-1)).max())
+    return torch.equal(grads[0], grads[1]), dup
+
+
+def audit_gathers(dev, arrays: dict) -> None:
+    """Each row gather x[idx] whose gradient the card computes, at its
+    chip_smoke shape on the main path's graph: its backward twice, bit for
+    bit (an index_put_ with accumulate; it fails if any differs)."""
+    from gcn_grabcut_torch.models.large import build_gcn_plans_device
+    from gcn_grabcut_torch.models.layers import sort_edges_by_dst
+    from gcn_grabcut_torch.ops.sddmm import gat_plan_device
+    from gcn_grabcut_torch.parallel.partition import (partition_edges_2d,
+                                                      partition_edges_by_dst)
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k = int(arrays["x"].shape[1])
+    e_src, e_dst, e_attr, e_mask = sort_edges_by_dst(
+        arrays["edge_src"], arrays["edge_dst"], arrays["edge_attr"],
+        arrays["edge_mask"])
+    src, dst = e_src.reshape(-1).long(), e_dst.reshape(-1).long()
+    keep = arrays["edge_mask"][0] > 0
+    s_np = arrays["edge_src"][0][keep].cpu().numpy()
+    d_np = arrays["edge_dst"][0][keep].cpu().numpy()
+    w_np = np.ones(len(s_np), np.float32)
+    n_pad = -(-k // PATH_RANKS) * PATH_RANKS
+    ps, _, _ = partition_edges_by_dst(s_np, d_np, w_np, n_pad, PATH_RANKS)
+    s2d, _, _ = partition_edges_2d(s_np, d_np, w_np, n_pad, PATH_RANKS)
+    gcn_plan, _ = build_gcn_plans_device(
+        arrays["edge_src"][0], arrays["edge_dst"][0],
+        arrays["edge_mask"][0], k)
+    gat_plan = gat_plan_device(arrays["edge_src"][0], arrays["edge_dst"][0],
+                               arrays["edge_attr"][0], arrays["edge_mask"][0],
+                               k)
+    r = np.random.RandomState(14)
+    scatter_idx = torch.as_tensor(r.randint(0, SCATTER_SEGMENTS,
+                                            SCATTER_ROWS), device=dev)
+
+    def table(rows, *cols, dtype=torch.float32):
+        return torch.randn((rows, *cols), generator=gen, device=dev
+                           ).to(dtype)
+
+    shard = len(ps) // PATH_RANKS
+    sites = {
+        "parallel/partition.py sharded_scatter_add x_full[s]":
+            (table(n_pad, HIDDEN),
+             torch.as_tensor(ps[:shard], device=dev).long()),
+        "parallel/partition.py ring_scatter_add xs[j][src]":
+            (table(n_pad // PATH_RANKS, HIDDEN),
+             torch.as_tensor(s2d[0, 0], device=dev).long()),
+        "models/layers.py GATv2Conv xl_f[src] (fp32)":
+            (table(k, 8, 16), src),
+        "models/layers.py GATv2Conv xl_f[src] (bf16)":
+            (table(k, 8, 16, dtype=torch.bfloat16), src),
+        "models/layers.py GATv2Conv xr[dst]": (table(k, 8, 16), dst),
+        "models/layers.py GATv2Conv tot[dst]": (table(k, 8), dst),
+        "ops/spmm.py banded_spmm xf[plan.fb_src]":
+            (table(gcn_plan.n_nodes, HIDDEN), gcn_plan.fb_src),
+        "ops/sddmm.py banded_gat_attention xl_flat[plan.fb_src]":
+            (table(gat_plan.n_nodes, HIDDEN), gat_plan.fb_src),
+        "core/scatter.py peak[index], tot[index]":
+            (table(SCATTER_SEGMENTS), scatter_idx),
+    }
+    varying = []
+    for i, (site, (tab, idx)) in enumerate(sites.items()):
+        same, dup = gather_repeats(tab, idx, i)
+        print(f"gather audit: {site}: table {tuple(tab.shape)} "
+              f"{str(tab.dtype)[6:]}, {idx.numel()} rows, up to {dup} per "
+              f"table row; two backwards bit-identical {same}", flush=True)
+        if not same:
+            varying.append(site)
+    if varying:
+        fail(f"gather backwards vary between runs: {varying}")
+
+
 def graph_on_card(imgs: list, cfg, dev):
     """The port's graph batch of same-size images, built on the card."""
     import gcn_grabcut_torch as gt
@@ -685,10 +979,11 @@ def graph_on_card(imgs: list, cfg, dev):
         edge_mask=out["edge_mask"], node_area=out["node_area"])
 
 
-def run_main_path(dev, record: dict) -> None:
+def run_main_path(dev, record: dict, seg_record: dict) -> None:
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.graph_build import num_nodes_for
     from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.region import segment_sum
     from gcn_grabcut_torch.ops.spmm import banded_spmm
 
     cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
@@ -705,22 +1000,28 @@ def run_main_path(dev, record: dict) -> None:
     print(f"main path warm run: {time.perf_counter() - t:.3f} s", flush=True)
 
     banded_spmm.kernel_launches = 0
+    segment_sum.kernel_launches = 0
     t = time.perf_counter()
     res = pipe.segment_batch([img], sync_timing=True)[0]
     wall = time.perf_counter() - t
     launches = banded_spmm.kernel_launches
+    seg_launches = segment_sum.kernel_launches
     record["launches"] = launches
+    seg_record["launches"] = seg_launches
     stages = " ".join(f"{s}={v:.3f}s" for s, v in res.timing.items())
     fg = float(res.binary_mask.mean())
     tri = np.bincount(res.trimap.ravel(), minlength=4) / res.trimap.size
     print(f"main path timed run (B=1, {IMAGE_HW}^2, K={k}, ResGCNNet "
           f"D={HIDDEN} n={N_LAYERS}): {wall:.3f} s; {stages}; "
-          f"banded_spmm launches={launches}; trimap BG/FG/PR_BG/PR_FG="
+          f"banded_spmm launches={launches}, segment_sum launches="
+          f"{seg_launches}; trimap BG/FG/PR_BG/PR_FG="
           f"{'/'.join(f'{v:.3f}' for v in tri)}; FG fraction={fg:.4f}",
           flush=True)
     if launches != N_LAYERS + 1:
         fail(f"banded_spmm launched {launches} times, expected "
              f"{N_LAYERS + 1} per forward")
+    if seg_launches == 0:
+        fail("the main path launched no segment-sum kernel")
     if res.probs.shape != (k, 3) or not np.isfinite(res.probs).all():
         fail("posteriors are not finite (K, 3)")
     if not 0.0 < fg < 1.0:
@@ -751,6 +1052,7 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
     and model: mesh_aggregators over PATH_RANKS ranks with the ring halo."""
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.region import segment_sum
     from gcn_grabcut_torch.ops.spmm import banded_spmm
     from gcn_grabcut_torch.parallel import ring
 
@@ -774,7 +1076,8 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
 
     def step(aggs) -> tuple:
         """Forward, then the gradient of sum(logits * c): (logits, grads,
-        forward s, backward s, (K2, K3) launch counts after the forward)."""
+        forward s, backward s, (K2, K3, segment sum) launch counts after
+        the forward)."""
         model.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -782,7 +1085,8 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         fwd_counts = (ring.ring_all_gather.kernel_launches,
-                      ring.ring_reduce_scatter.kernel_launches)
+                      ring.ring_reduce_scatter.kernel_launches,
+                      segment_sum.kernel_launches)
         (logits * c).sum().backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -790,11 +1094,18 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
                                   for k, p in model.named_parameters()},
                 t1 - t0, t2 - t1, fwd_counts)
 
-    step(aggs)                                                   # warm
+    def same_bits(a: tuple, b: tuple) -> bool:
+        """Two steps' logits and every gradient leaf bit for bit."""
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    first = step(aggs)                                  # warm, and run 1
     banded_spmm.kernel_launches = 0
     ring.ring_all_gather.kernel_launches = 0
     ring.ring_reduce_scatter.kernel_launches = 0
-    logits, grads, fwd_s, bwd_s, (k2_fwd, k3_fwd) = step(aggs)
+    segment_sum.kernel_launches = 0
+    second = step(aggs)
+    logits, grads, fwd_s, bwd_s, (k2_fwd, k3_fwd, seg_fwd) = second
     k2 = ring.ring_all_gather.kernel_launches
     k3 = ring.ring_reduce_scatter.kernel_launches
     k1 = banded_spmm.kernel_launches
@@ -802,8 +1113,12 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
 
     xla_aggs = gt.mesh_aggregators(mesh, *edges, g.max_nodes,
                                    method="allgather", halo="xla")
-    step(xla_aggs)                                               # warm
-    _, xla_grads, xla_fwd_s, xla_bwd_s, _ = step(xla_aggs)
+    xla_first = step(xla_aggs)                          # warm, and run 1
+    xla_second = step(xla_aggs)
+    _, xla_grads, xla_fwd_s, xla_bwd_s, _ = xla_second
+    repeat = {"ring": same_bits(first, second),
+              "plain": same_bits(xla_first, xla_second)}
+    across = same_bits(second, xla_second)
     ref = apply_large(model, g, precision="highest")
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -827,11 +1142,15 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
           f"{xla_bwd_s * 1e3:.2f} ms; apply_large highest forward "
           f"{k1_fwd_s * 1e3:.2f} ms; edge partition {setup_s:.3f} s); "
           f"ring_all_gather launches={k2} ({k2_fwd} in the forward), "
-          f"ring_reduce_scatter launches={k3} ({k3_fwd} in the forward); "
+          f"ring_reduce_scatter launches={k3} ({k3_fwd} in the forward), "
+          f"segment_sum launches in the forward={seg_fwd}; "
           f"max |dlogits| vs apply_large highest={err:.3e} (tol "
           f"{SHARDED_FWD_TOL * scale:.1e}); worst gradient error vs plain "
           f"halo={grad_err:.3e} of max|grad| (tol {SHARDED_GRAD_TOL:.0e}; "
-          f"worst leaves {worst})", flush=True)
+          f"worst leaves {worst}); two runs bit-identical: ring halo "
+          f"{repeat['ring']}, plain halo {repeat['plain']}; ring halo = "
+          f"plain halo bit for bit (logits, every gradient leaf) {across}",
+          flush=True)
     if k2_fwd != N_LAYERS + 1 or k2 != k2_fwd:
         fail(f"ring_all_gather launched {k2_fwd} times in the forward and "
              f"{k2 - k2_fwd} in the backward, expected {N_LAYERS + 1} and 0")
@@ -847,6 +1166,13 @@ def run_sharded_path(dev, records: dict, n_nodes: int) -> None:
         fail("the sharded forward disagrees with apply_large")
     if not grad_err <= SHARDED_GRAD_TOL:
         fail("the ring-halo gradient disagrees with the plain-halo one")
+    if not all(repeat.values()):
+        fail(f"two sharded steps differ in their bits: {repeat}")
+    if not across:
+        fail("the ring-halo logits or gradients differ in their bits from "
+             "the plain halo's")
+    if seg_fwd == 0:
+        fail("the sharded forward launched no segment-sum kernel")
 
 
 def load_ensemble():
@@ -1301,13 +1627,21 @@ def run_predict_probs(card: str) -> None:
     # The SpMM plans and degree add in a fixed order: two forwards of one
     # graph give the same bits.
     from gcn_grabcut_torch.models.large import apply_large
-    runs = [apply_large(pipe.model, graph.graph) for _ in range(2)]
+    from gcn_grabcut_torch.ops.region import segment_sum
+    runs = []
+    for _ in range(2):
+        segment_sum.kernel_launches = 0
+        runs.append(apply_large(pipe.model, graph.graph))
+    launches = segment_sum.kernel_launches
     same = bool(torch.equal(runs[0], runs[1]))
     print(f"apply_large twice on one {IMAGE_HW}^2 graph (K={graph.n_nodes}): "
-          f"bit-identical logits {same}; predict_probs vs segment_batch "
-          f"max |dp| {dp:.3e}", flush=True)
+          f"bit-identical logits {same}; segment_sum launches per large "
+          f"forward {launches}; predict_probs vs segment_batch max |dp| "
+          f"{dp:.3e}", flush=True)
     if not same:
         fail("two apply_large runs on the same graph differ")
+    if launches == 0:
+        fail("apply_large launched no segment-sum kernel")
 
 
 def leaf_errors(got: dict, want: dict, floor: float = TRAIN_GRAD_FLOOR
@@ -1370,8 +1704,10 @@ def run_train_step(dev, card: str, variant: str = "resgcn",
             tr._init_state(1)
             load_start(tr)
             w = torch.ones(batch.n_graphs, device=device)
-            if name == "card":              # warm, then time a step
-                tr.loss_and_grads(batch, w)
+            if name == "card":              # run 1 (warm), then timed run 2
+                first = tr.loss_and_grads(batch, w)
+                first = (float(first[0]),
+                         {k: g.cpu() for k, g in first[1].items()})
                 load_start(tr)
                 torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1387,6 +1723,8 @@ def run_train_step(dev, card: str, variant: str = "resgcn",
                 params={k: p.detach().cpu()
                         for k, p in tr.optimizer.params.items()})
     c, h = out["card"], out["cpu"]
+    repeat = first[0] == c["loss"] and all(
+        torch.equal(first[1][k], c["grads"][k]) for k in c["grads"])
     loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
     grad_err, worst = leaf_errors(c["grads"], h["grads"])
     stats_err = max(float((c["mean"] - h["mean"]).abs().max()),
@@ -1402,10 +1740,14 @@ def run_train_step(dev, card: str, variant: str = "resgcn",
           f"{grad_err:.2e} of each leaf's scale (tol {TRAIN_GRAD_TOL:.0e}; "
           f"worst {worst}); "
           f"running stats |d| {stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e}); "
-          f"params after the AdamW step |d| {upd_err:.2e}", flush=True)
+          f"params after the AdamW step |d| {upd_err:.2e}; two card steps "
+          f"bit-identical (loss, every gradient leaf) {repeat}", flush=True)
     if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
             and stats_err <= TRAIN_STATS_TOL):
         fail("the card's training step disagrees with the CPU's")
+    if not repeat:
+        fail(f"two {variant} training steps on the card differ in their "
+             f"bits")
     return graphs
 
 
@@ -2182,6 +2524,7 @@ def run_data_parallel(dev, card: str, graphs: list, rings: dict,
                                      device=dev, mesh=m)
             batch = tr._bucket(graphs)
             w = torch.ones(batch.n_graphs, device=dev)
+            runs = []
             for timed in (False, True):
                 tr._init_state(1)
                 tr.load(str(root / TRAIN_START))
@@ -2195,7 +2538,12 @@ def run_data_parallel(dev, card: str, graphs: list, rings: dict,
                 s = time.perf_counter() - t
                 launches = (ring.ring_reduce_scatter.kernel_launches,
                             ring.ring_all_gather.kernel_launches)
+                runs.append((float(loss),
+                             {k: g.cpu() for k, g in grads.items()}))
             out[name] = dict(
+                repeat=runs[0][0] == runs[1][0] and all(
+                    torch.equal(runs[0][1][k], runs[1][1][k])
+                    for k in runs[1][1]),
                 loss=float(loss), s=s, launches=launches,
                 grads={k: g.cpu() for k, g in grads.items()},
                 mean=tr.model.in_norm.running_mean.cpu(),
@@ -2223,7 +2571,11 @@ def run_data_parallel(dev, card: str, graphs: list, rings: dict,
           f"(tol {DP_LOSS_TOL:.0e}); gradient err {grad_err:.2e} of each "
           f"leaf's scale (tol {DP_GRAD_TOL:.0e}, floor {DP_GRAD_FLOOR:.0e} "
           f"of the largest; worst {worst}); running stats |d| "
-          f"{stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e})", flush=True)
+          f"{stats_err:.2e} (tol {TRAIN_STATS_TOL:.0e}); two steps "
+          f"bit-identical (loss, every gradient leaf): data-parallel "
+          f"{d['repeat']}, solo {p['repeat']}", flush=True)
+    if not (d["repeat"] and p["repeat"]):
+        fail("two data-parallel or solo steps differ in their bits")
     if (k3, k2) != (1, 1) or p["launches"] != (0, 0):
         fail(f"the data-parallel step launched K3 {k3} and K2 {k2} times "
              f"(solo {p['launches']}); expected 1 and 1 (solo 0)")
@@ -2761,7 +3113,10 @@ def main() -> None:
     record = timed("kernels", check_banded_spmm, dev)
     rings = timed("rings", check_ring_collectives, dev, k)
     timed("ring stress", stress_ring_collectives, dev, k)
-    main_image = timed("main path", run_main_path, dev, record)
+    seg_record, seg_arrays = timed("segment sums", check_segment_sum, dev)
+    timed("gather audit", audit_gathers, dev, seg_arrays)
+    del seg_arrays
+    main_image = timed("main path", run_main_path, dev, record, seg_record)
     timed("sharded", run_sharded_path, dev, rings, k)
     dense = timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
@@ -2785,7 +3140,8 @@ def main() -> None:
                                          for k, v in phase_s.items()),
           flush=True)
 
-    print(json.dumps({"kernels": [record, rings["K2"], rings["K3"]]}))
+    print(json.dumps({"kernels": [record, rings["K2"], rings["K3"],
+                                  seg_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

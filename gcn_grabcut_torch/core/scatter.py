@@ -6,9 +6,10 @@ arguments and results.  Two families:
 * **edge scatter** -- grouped reductions of the rows of `values` by an
   index vector into `num_segments` buckets.  Sums and maxima go through
   the fixed-order ``ops.region.segment_sum`` / ``segment_max`` (a stable
-  sort by index, then one sequential reduction per segment): the same
-  float32 adds on every device and in every run, where a float
-  ``index_add_`` on the card adds in no fixed order.
+  sort by index, segment offsets by ``searchsorted``, then one sequential
+  chain per segment and column; on the card the hand-written kernel, with
+  no host sync): the same adds on every device and in every run, where a
+  float ``index_add_`` on the card adds in no fixed order.
 * **masked axis reductions** -- batches are dense (G, N, ...) stacks, so a
   per-graph mean, softmax or variance is a masked reduction over an axis.
 

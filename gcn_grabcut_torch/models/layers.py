@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.scatter import NEG_INF, masked_softmax
-from ..ops.region import segment_max, segment_sum
+from ..ops.region import Segments, segment_sum
 from ..ops.sddmm import banded_gat_attention
 
 LN_EPS = 1e-6
@@ -387,18 +387,19 @@ class GATv2Conv(nn.Module):
         sl = torch.where(nm > 0, sl, NEG_INF)
         m = edge_mask.reshape(-1, 1)
         s = torch.where(m > 0, score.float(), NEG_INF)
+        segs = Segments(dst, G * N, is_sorted=True)
         with torch.no_grad():   # a shift the softmax does not depend on
-            peak = segment_max(dst, s, G * N, is_sorted=True)
+            peak = segs.max(s)
             peak = torch.maximum(
                 torch.where(torch.isfinite(peak), peak, NEG_INF), sl)
         ex = torch.exp(s - peak[dst]) * m
         exl = torch.exp(sl - peak) * nm
-        tot = segment_sum(dst, ex, G * N, is_sorted=True) + exl
+        tot = segs.sum(ex) + exl
         alpha = (ex / (tot[dst] + 1e-12)).to(z.dtype)
         alpha_l = (exl / (tot + 1e-12)).to(z.dtype)
         msg = (xl_f[src] * alpha[..., None]).reshape(-1, H * Fh)
-        out = segment_sum(dst, msg, G * N, is_sorted=True).reshape(
-            G * N, H, Fh) + xl_f * alpha_l[..., None]
+        out = (segs.sum(msg).reshape(G * N, H, Fh)
+               + xl_f * alpha_l[..., None])
         return add_bias(out.reshape(G, N, H * Fh), self.bias)
 
 

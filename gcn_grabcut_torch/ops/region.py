@@ -5,40 +5,182 @@ Counterpart of ``gcn_grabcut_tpu/ops/region.py``.  Feature layout:
   [11] area ratio  [12] isoperimetric ratio  [13] mean gradient / 255
   [14] boundary-pixel ratio  [15] centre distance / 0.707
 Colour statistics are min-max normalised over valid (non-empty) regions.
+
+Also the port's sums by index, `segment_sum` and `segment_max` (on a
+`Segments`, an index sorted once): a fixed-order chain of adds per segment
+and column, the same bits on every run.  CUDA tensors go through the
+hand-written kernel ``csrc/segment_sum.cu``, CPU tensors through its plain
+version; neither syncs the host.  The JAX package leaves these sums to
+XLA (``jax.ops.segment_sum``); it has no Pallas kernel for them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
+
+#: The element types the kernel takes, by its dtype code.
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+                torch.float16: 3}
+_OPS = {"sum": 0, "max": 1}
 
 
-def _segments(index: torch.Tensor, values: torch.Tensor, n: int,
-              reduce: str, is_sorted: bool) -> torch.Tensor:
-    if not is_sorted:
-        values = values[torch.sort(index, stable=True).indices]
-    lengths = torch.bincount(index, minlength=n)
-    return torch.segment_reduce(values, reduce, lengths=lengths, axis=0)
+class Segments:
+    """An index into `n` segments, sorted once for fixed-order reductions.
+
+    `order` is the stable sort of `index` (None when `is_sorted` asserts a
+    non-decreasing index), `offsets` the (n + 1) segment starts in that
+    order, found by ``torch.searchsorted`` on the index's device: no host
+    sync.  `index` (P,) must lie in [0, n).  Keep one where the index is
+    fixed over many sums (a plan's fallback list, a mesh's edge partition,
+    a batch's destinations); `segment_sum` makes one per call."""
+
+    def __init__(self, index: torch.Tensor, n: int, is_sorted: bool = False):
+        index = index.reshape(-1).long()
+        if is_sorted:
+            self.order, ordered = None, index
+        else:
+            ordered, self.order = torch.sort(index, stable=True)
+        self.index, self.n = index, n
+        self.offsets = torch.searchsorted(
+            ordered, torch.arange(n + 1, device=index.device))
+
+    def sum(self, values: torch.Tensor) -> torch.Tensor:
+        """(n, ...) sums of the rows of `values` (P, ...) by the index."""
+        return _reduce(self, values, "sum")
+
+    def max(self, values: torch.Tensor) -> torch.Tensor:
+        """(n, ...) maxima of the rows of `values`; -inf where empty."""
+        return _reduce(self, values, "max")
+
+
+def _flat(values: torch.Tensor) -> torch.Tensor:
+    return values.reshape(values.shape[0], math.prod(values.shape[1:]))
+
+
+def segment_reduce_plain(values: torch.Tensor, segs: Segments,
+                         op: str) -> torch.Tensor:
+    """The plain version of the kernel: rows in `segs`' order, then
+    ``torch.segment_reduce`` with the offsets' lengths, one sequential
+    reduction per segment and column in the values' dtype (a bfloat16 or
+    float16 sum rounds after every add).  Values are flattened to (P, C):
+    on CUDA a 1-D input would take a tree-ordered CUB reduction."""
+    flat = _flat(values)
+    if segs.order is not None:
+        flat = flat[segs.order]
+    out = torch.segment_reduce(flat, op, lengths=segs.offsets.diff(), axis=0)
+    return out.reshape((segs.n,) + values.shape[1:])
+
+
+def segment_reduce_cuda(values: torch.Tensor, segs: Segments,
+                        op: str) -> torch.Tensor:
+    """Launch the fixed-order kernel (csrc/segment_sum.cu) on the current
+    stream: the plain version's reduction, bit for bit.  `values` (P, ...)
+    is a contiguous float32, float64, bfloat16 or float16 CUDA tensor on
+    `segs`' device; the wrapper allocates the (n, ...) output and nothing
+    else."""
+    if values.device.type != "cuda" or segs.offsets.device != values.device:
+        raise ValueError(f"segment_reduce_cuda needs the values and the "
+                         f"segments on one CUDA device, got {values.device} "
+                         f"and {segs.offsets.device}")
+    if values.dtype not in _DTYPE_CODES:
+        raise TypeError(f"segment_reduce_cuda takes "
+                        f"{', '.join(map(str, _DTYPE_CODES))}, got "
+                        f"{values.dtype}")
+    if op not in _OPS:
+        raise ValueError(f"unknown reduction {op!r}")
+    if values.dim() < 1 or values.shape[0] != segs.index.shape[0]:
+        raise ValueError(f"values {tuple(values.shape)} do not match an "
+                         f"index of {segs.index.shape[0]} rows")
+    if not values.is_contiguous():
+        raise ValueError("segment_reduce_cuda needs contiguous values")
+    out = torch.empty((segs.n,) + values.shape[1:], dtype=values.dtype,
+                      device=values.device)
+    if out.numel() == 0:
+        return out
+
+    from ..kernels import load
+    fn = load("segment_sum").segment_reduce
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    perm = None if segs.order is None else segs.order.data_ptr()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(_DTYPE_CODES[values.dtype], _OPS[op], values.data_ptr(),
+                 perm, segs.offsets.data_ptr(), out.data_ptr(), segs.n,
+                 _flat(values).shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
+                           f"{err}")
+    segment_sum.kernel_launches += 1
+    return out
+
+
+class _SegmentReduce(torch.autograd.Function):
+    """The kernel, differentiable as ``torch.segment_reduce`` is: a sum's
+    gradient is each row's segment's gradient; a max's goes to the rows
+    equal to the maximum (or NaN), a positive one split evenly among ties
+    (segment_reduce divides only those)."""
+
+    @staticmethod
+    def forward(ctx, values, segs, op):
+        out = segment_reduce_cuda(values, segs, op)
+        ctx.segs, ctx.op = segs, op
+        if op == "max":
+            ctx.save_for_backward(values, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        idx = ctx.segs.index
+        g = grad.index_select(0, idx)
+        if ctx.op == "max":
+            values, out = ctx.saved_tensors
+            hit = (values == out.index_select(0, idx)) | values.isnan()
+            ties = segment_reduce_cuda(hit.float().contiguous(), ctx.segs,
+                                       "sum").to(g.dtype)
+            g = torch.where(g > 0, g / ties.index_select(0, idx), g)
+            g = torch.where(hit, g, torch.zeros((), dtype=g.dtype,
+                                                device=g.device))
+        return g, None, None
+
+
+def _reduce(segs: Segments, values: torch.Tensor, op: str) -> torch.Tensor:
+    if values.device.type == "cpu":
+        return segment_reduce_plain(values, segs, op)
+    return _SegmentReduce.apply(values.contiguous(), segs, op)
 
 
 def segment_sum(index: torch.Tensor, values: torch.Tensor, n: int,
                 is_sorted: bool = False) -> torch.Tensor:
     """(n, ...) sums of the rows of `values` (P, ...) by `index` (P,) in
-    [0, n), each in ascending row order: a stable sort by index, then one
-    sequential sum per segment.  The same float32 adds on every device and
-    in every run (a float ``index_add_`` adds in no fixed order on CUDA),
-    and on the CPU bit for bit ``index_add_``'s sums, which are the JAX
-    package's ``segment_sum``.  `is_sorted` asserts a non-decreasing
-    `index` and skips the sort."""
-    return _segments(index, values, n, "sum", is_sorted)
+    [0, n), each a sequential chain of adds in ascending row order from 0:
+    the same adds on every device and in every run (a float ``index_add_``
+    adds in no fixed order on CUDA), and on the CPU bit for bit
+    ``index_add_``'s sums, which are the JAX package's ``segment_sum``.
+    CUDA tensors go through the kernel (csrc/segment_sum.cu), CPU tensors
+    through `segment_reduce_plain`; neither syncs the host.  `is_sorted`
+    asserts a non-decreasing `index` and skips the stable sort."""
+    return Segments(index, n, is_sorted).sum(values)
 
 
 def segment_max(index: torch.Tensor, values: torch.Tensor, n: int,
                 is_sorted: bool = False) -> torch.Tensor:
     """(n, ...) maxima of the rows of `values` by `index`, as
-    `segment_sum`; an empty segment gives -inf (JAX ``segment_max``)."""
-    return _segments(index, values, n, "max", is_sorted)
+    `segment_sum` (the same kernel); an empty segment gives -inf (JAX
+    ``segment_max``)."""
+    return Segments(index, n, is_sorted).max(values)
+
+
+#: Launches of the CUDA kernel (sums and maxima) since the count was last
+#: set to 0.
+segment_sum.kernel_launches = 0
+
 
 
 def region_reduce(segments: torch.Tensor, planes: torch.Tensor, k: int
@@ -59,9 +201,11 @@ def region_boundaries(segments: torch.Tensor) -> torch.Tensor:
     return (up != lb) | (dn != lb) | (lf != lb) | (rt != lb)
 
 
-def region_statistics(segments: torch.Tensor, lab: torch.Tensor,
-                      hsv: torch.Tensor, grad: torch.Tensor, k: int) -> dict:
-    """All per-region reductions in one segment pass."""
+def region_planes(segments: torch.Tensor, lab: torch.Tensor,
+                  hsv: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """The (H, W, 15) planes `region_statistics` sums over regions: ones,
+    Lab, Lab², HSV, y / H, x / W, the boundary flag, the gradient and the
+    gradient scaled to its maximum."""
     H, W = segments.shape
     dev = segments.device
     yy = (torch.arange(H, dtype=torch.float32, device=dev) / H
@@ -71,13 +215,20 @@ def region_statistics(segments: torch.Tensor, lab: torch.Tensor,
     boundaries = region_boundaries(segments).float()
     grad_scaled = grad / (grad.max() + 1e-6)
 
-    planes = torch.cat([
+    return torch.cat([
         torch.ones((H, W, 1), device=dev),
         lab, lab ** 2, hsv,
         yy[..., None], xx[..., None],
         boundaries[..., None], grad[..., None], grad_scaled[..., None],
     ], dim=-1)
-    sums = region_reduce(segments, planes, k)          # (K, 15)
+
+
+def region_statistics(segments: torch.Tensor, lab: torch.Tensor,
+                      hsv: torch.Tensor, grad: torch.Tensor, k: int) -> dict:
+    """All per-region reductions in one segment pass."""
+    H, W = segments.shape
+    sums = region_reduce(segments, region_planes(segments, lab, hsv, grad),
+                         k)                                      # (K, 15)
 
     counts = sums[:, 0]
     safe = counts.clamp_min(1.0)

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.scatter import NEG_INF
-from .region import segment_max, segment_sum
+from .region import Segments, segment_sum
 
 
 @dataclasses.dataclass
@@ -214,7 +214,8 @@ def banded_gat_attention(xl: torch.Tensor, xr: torch.Tensor, plan: GatPlan,
                         negative_slope)
     s_fb = torch.where(plan.fb_mask[:, None] > 0, _scores(z_fb, att_c),
                        NEG_INF)
-    fb_peak = segment_max(plan.fb_dst, s_fb, Np, is_sorted=True)
+    fb_segs = Segments(plan.fb_dst, Np, is_sorted=True)
+    fb_peak = fb_segs.max(s_fb)
     fb_peak = torch.where(torch.isfinite(fb_peak), fb_peak, NEG_INF)
 
     # The self loop, its attribute the mean edge attribute.
@@ -239,13 +240,12 @@ def banded_gat_attention(xl: torch.Tensor, xr: torch.Tensor, plan: GatPlan,
     band_msg = band_msg.permute(0, 2, 1, 3).reshape(Np, H, Fh)
 
     exf = torch.exp(s_fb - peak[plan.fb_dst]) * plan.fb_mask[:, None]
-    fb_sum = segment_sum(plan.fb_dst, exf, Np, is_sorted=True)
+    fb_sum = fb_segs.sum(exf)
     # The messages are products in the compute dtype (flat (FB, H·F), the
     # attention repeated per head), summed in float32.
     fb_msg = (exf.to(cdt).repeat_interleave(Fh, dim=1)
               * xl_flat[plan.fb_src]).float()
-    fb_msg = segment_sum(plan.fb_dst, fb_msg, Np, is_sorted=True).reshape(
-        Np, H, Fh)
+    fb_msg = fb_segs.sum(fb_msg).reshape(Np, H, Fh)
 
     exl = torch.exp(sl - peak) * node_mask[:, None]
     tot = band_sum + fb_sum + exl

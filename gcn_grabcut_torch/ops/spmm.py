@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .region import segment_sum
+from .region import Segments, segment_sum
 
 
 @dataclasses.dataclass
@@ -48,6 +48,17 @@ class SpmmPlan:
     fb_src: torch.Tensor      # (n_fallback,) int64 out-of-window edges
     fb_dst: torch.Tensor      # (n_fallback,) int64, sorted
     fb_weight: torch.Tensor   # (n_fallback,) float32
+    _fb_segments: Segments | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def fallback_segments(self) -> Segments:
+        """The fallback sum's index (each band row, then the fallback
+        edges' destinations), sorted on first use and kept."""
+        if self._fb_segments is None:
+            rows = torch.arange(self.n_nodes, device=self.fb_dst.device)
+            self._fb_segments = Segments(torch.cat([rows, self.fb_dst]),
+                                         self.n_nodes)
+        return self._fb_segments
 
 
 def _round_up(x: int, m: int) -> int:
@@ -198,11 +209,8 @@ def banded_spmm(x: torch.Tensor, plan: SpmmPlan) -> torch.Tensor:
         out = banded_spmm_plain(x, plan.band)
     if plan.fb_src.numel():
         xf = F.pad(x.float(), (0, 0, 0, plan.n_nodes - n))
-        rows = torch.arange(plan.n_nodes, device=out.device)
-        out = segment_sum(
-            torch.cat([rows, plan.fb_dst]),
-            torch.cat([out, xf[plan.fb_src] * plan.fb_weight[:, None]]),
-            plan.n_nodes)
+        out = plan.fallback_segments().sum(
+            torch.cat([out, xf[plan.fb_src] * plan.fb_weight[:, None]]))
     return out[:n]
 
 

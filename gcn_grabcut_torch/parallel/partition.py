@@ -11,7 +11,10 @@ owns:
      with ``halo="pallas_ring"``; plain PyTorch copies with ``halo="xla"``;
      the JAX package's names are kept so the two packages' calls read
      alike);
-  3. rank i scatter-adds its edge shard's messages into its own block.
+  3. rank i sums its edge shard's messages into its own block, in edge
+     order (``ops.region.Segments``, sorted once per edge partition): no
+     float atomics, which add in no fixed order on the card, so two runs
+     give the same bits.
 
 The callables take and return whole tensors, as the JAX package's
 ``shard_map``-ed functions do; the blocks are views of them.  They are
@@ -29,8 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.region import Segments
 from .mesh import GraphMesh, Mesh
-from .ring import ring_all_gather
+from .ring import plain_all_gather, ring_all_gather
 
 HALOS = ("xla", "pallas_ring")
 
@@ -112,40 +116,65 @@ def _blocks(x: torch.Tensor, mesh: GraphMesh, n_nodes: int):
     return list(x.split(n_nodes // mesh.size))
 
 
+def shard_segments(mesh: GraphMesh | Mesh, n_nodes: int, dst: torch.Tensor
+                   ) -> list[Segments]:
+    """Each rank's destinations of `partition_edges_by_dst`'s shards,
+    block-relative (clamped into the block, as `sharded_scatter_add`
+    clamps them), sorted once for its fixed-order sums."""
+    mesh = _graph_axis(mesh)
+    block = n_nodes // mesh.size
+    return [Segments((d.long() - i * block).clamp(0, block - 1), block)
+            for i, d in enumerate(dst.chunk(mesh.size))]
+
+
 def sharded_scatter_add(mesh: GraphMesh, n_nodes: int, halo: str = "xla"):
     """An edge-partitioned aggregation (x, src, dst, mask) -> out.
 
     x is (n_nodes, D), rank i owning rows [i N/n, (i + 1) N/n); src, dst and
     mask are `partition_edges_by_dst`'s arrays, rank i owning the i-th of n
     equal shards.  Each rank assembles the full node axis, weighs its
-    edges' messages and scatter-adds them into its own block (in float32).
-    ``halo="pallas_ring"`` assembles with the ring all-gather kernel (K2),
-    ``halo="xla"`` with PyTorch's own copies."""
+    edges' messages and sums them into its own block in float32, in edge
+    order (``ops.region`` segment sums; masked and out-of-block messages
+    add zeros).  ``halo="pallas_ring"`` assembles with the ring all-gather
+    kernel (K2), ``halo="xla"`` with the plain copies; both take K3's order
+    for the gradient's sum over ranks, so the two give the same bits.
+    `segments`, `shard_segments(mesh, n_nodes, dst)`, keeps the sort of a
+    fixed edge partition from one call to the next."""
     if halo not in HALOS:
         raise ValueError(f"unknown halo backend: {halo!r}")
     mesh = _graph_axis(mesh, halo)
 
-    def agg(x, src, dst, mask):
+    def agg(x, src, dst, mask, segments=None):
         xs = _blocks(x, mesh, n_nodes)
         if halo == "pallas_ring":
             fulls = ring_all_gather(xs, mesh)
         else:
-            fulls = [torch.cat(xs) for _ in xs]
+            fulls = plain_all_gather(xs)
+        if segments is None:
+            segments = shard_segments(mesh, n_nodes, dst)
         block = xs[0].shape[0]
         outs = []
-        for i, (x_full, s, d, m) in enumerate(zip(
+        for i, (x_full, s, d, m, segs) in enumerate(zip(
                 fulls, src.chunk(mesh.size), dst.chunk(mesh.size),
-                mask.chunk(mesh.size))):
+                mask.chunk(mesh.size), segments)):
             base = i * block
             in_block = ((d >= base) & (d < base + block)).float()
             msgs = x_full[s].float() * m[:, None] * in_block[:, None]
-            local_dst = (d - base).clamp(0, block - 1)
-            out = torch.zeros((block, x.shape[1]), dtype=torch.float32,
-                              device=x.device).index_add_(0, local_dst, msgs)
-            outs.append(out.to(x.dtype))
+            outs.append(segs.sum(msgs).to(x.dtype))
         return torch.cat(outs)
 
     return agg
+
+
+def ring_segments(mesh: GraphMesh | Mesh, n_nodes: int, dst2d: torch.Tensor
+                  ) -> list[Segments]:
+    """Each rank's destinations of `partition_edges_2d`'s buckets in ring
+    order (bucket [i, (i - s) mod n] for s = 0 .. n-1), clamped into the
+    block and sorted once for `ring_scatter_add`'s sums."""
+    mesh = _graph_axis(mesh)
+    n, block = mesh.size, n_nodes // mesh.size
+    return [Segments(torch.cat([dst2d[i, (i - s) % n] for s in range(n)])
+                     .long().clamp(0, block - 1), block) for i in range(n)]
 
 
 def ring_scatter_add(mesh: GraphMesh, n_nodes: int):
@@ -154,24 +183,24 @@ def ring_scatter_add(mesh: GraphMesh, n_nodes: int):
 
     At step s rank i holds the block of rank j = (i - s) mod n, as the JAX
     package's `lax.ppermute` rotation leaves it, and aggregates bucket
-    [i, j].  The JAX package runs no Pallas kernel here, so the rotation is
-    plain block indexing."""
+    [i, j]; its sum adds the steps' messages in that order, in float32.
+    The JAX package runs no Pallas kernel here, so the rotation is plain
+    block indexing.  `segments` is `ring_segments(mesh, n_nodes, dst2d)`,
+    kept from one call to the next."""
     mesh = _graph_axis(mesh)
 
-    def agg(x, src2d, dst2d, mask2d):
+    def agg(x, src2d, dst2d, mask2d, segments=None):
         xs = _blocks(x, mesh, n_nodes)
         n, block = mesh.size, xs[0].shape[0]
+        if segments is None:
+            segments = ring_segments(mesh, n_nodes, dst2d)
         outs = []
         for i in range(n):
-            acc = torch.zeros((block, x.shape[1]), dtype=torch.float32,
-                              device=x.device)
-            for s in range(n):
-                j = (i - s) % n
-                msgs = (xs[j][src2d[i, j].long().clamp(0, block - 1)].float()
-                        * mask2d[i, j][:, None])
-                acc = acc.index_add(0, dst2d[i, j].long().clamp(0, block - 1),
-                                    msgs)
-            outs.append(acc.to(x.dtype))
+            msgs = torch.cat([
+                xs[j][src2d[i, j].long().clamp(0, block - 1)].float()
+                * mask2d[i, j][:, None]
+                for j in ((i - s) % n for s in range(n))])
+            outs.append(segments[i].sum(msgs).to(x.dtype))
         return torch.cat(outs)
 
     return agg
@@ -209,9 +238,10 @@ def mesh_aggregators(mesh: GraphMesh | Mesh, edge_src, edge_dst, edge_mask,
 
     if method == "ring":
         agg, partition = ring_scatter_add(mesh, n_pad), partition_edges_2d
+        segments = ring_segments
     elif method == "allgather":
         agg = sharded_scatter_add(mesh, n_pad, halo=halo)
-        partition = partition_edges_by_dst
+        partition, segments = partition_edges_by_dst, shard_segments
     else:
         raise ValueError(f"unknown method: {method!r}")
 
@@ -219,11 +249,12 @@ def mesh_aggregators(mesh: GraphMesh | Mesh, edge_src, edge_dst, edge_mask,
         ps, pd, pw = (torch.as_tensor(a, device=mesh.device)
                       for a in partition(ss, dd, ww, n_pad, n_sh))
         ps, pd = ps.long(), pd.long()
+        segs = segments(mesh, n_pad, pd)
 
         def prop(h):
             n = h.shape[1]
             hp = F.pad(h[0], (0, 0, 0, n_pad - n))
-            return agg(hp, ps, pd, pw)[:n][None]
+            return agg(hp, ps, pd, pw, segs)[:n][None]
         return prop
 
     return build(g_src, g_dst, g_w), build(src, dst, m_w)

@@ -181,14 +181,14 @@ def ring_reduce_scatter_cuda(gs: list[torch.Tensor], mesh: GraphMesh,
     return outs
 
 
-def _all_gather(blocks, mesh: GraphMesh) -> list[torch.Tensor]:
-    if blocks[0].device.type == "cuda":
+def _all_gather(blocks, mesh: GraphMesh | None) -> list[torch.Tensor]:
+    if mesh is not None and blocks[0].device.type == "cuda":
         return ring_all_gather_cuda([b.contiguous() for b in blocks], mesh)
     return ring_all_gather_plain(list(blocks))
 
 
-def _reduce_scatter(gs, mesh: GraphMesh) -> list[torch.Tensor]:
-    if gs[0].device.type == "cuda":
+def _reduce_scatter(gs, mesh: GraphMesh | None) -> list[torch.Tensor]:
+    if mesh is not None and gs[0].device.type == "cuda":
         return ring_reduce_scatter_cuda([g.contiguous() for g in gs], mesh)
     return ring_reduce_scatter_plain(list(gs))
 
@@ -240,6 +240,17 @@ def ring_all_gather(blocks, mesh: GraphMesh) -> list[torch.Tensor]:
     if mesh.size == 1:
         return blocks
     return list(_AllGather.apply(mesh, *blocks))
+
+
+def plain_all_gather(blocks) -> list[torch.Tensor]:
+    """`ring_all_gather`'s function through the plain versions on every
+    device: the concatenation forward, `ring_reduce_scatter_plain`
+    backward, so its gradient adds the ranks' copies in K3's order and
+    equals the ring's bit for bit.  Launches no kernel."""
+    blocks = list(blocks)
+    if len(blocks) == 1:
+        return blocks
+    return list(_AllGather.apply(None, *blocks))
 
 
 def ring_reduce_scatter(gs, mesh: GraphMesh) -> list[torch.Tensor]:

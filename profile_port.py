@@ -2,8 +2,9 @@
 """Where the port's main path spends the card's time.
 
     python3 profile_port.py            # the main path under torch.profiler
-    python3 profile_port.py --kernels  # what holds K1, K2 and K3 back,
-                                       # and the banded GAT attention
+    python3 profile_port.py --kernels  # what holds K1, K2, K3 and the
+                                       # segment sum back, and the banded
+                                       # GAT attention
 
 Runs chip_smoke.py's main-path configuration on one GPU (a 1536x1536
 synthetic image, 10 000 SLIC segments, the seeded ResGCNNet at D=128,
@@ -23,11 +24,15 @@ measured first, is the largest), built by nvcc into
 gcn_grabcut_torch/_build/variants/ and timed as chip_smoke.py times the
 kernels (device time per call, warm L2).  Variants that skip work give
 wrong outputs and only say what that work costs; each K2 line says whether
-the variant's output was exact.  Then it profiles one full-width GAT
+the variant's output was exact.  The segment-sum kernel is timed the
+same way at chip_smoke.py's fixed-order sums shapes, as built, without
+its block path for long segments and with 4 rows in flight per thread
+instead of 16.  Then it profiles one full-width GAT
 attention layer (128 -> 8 heads of 16, chip_smoke.gat_layer_case) on the
 main path's 10 000-node graph: banded at "default" and "highest" and as
 the edge list, each call's wall time, device busy time and busy share,
-and its heaviest kernels.  Needs CUDA; imports nothing of JAX.
+its launches of the segment-sum kernel (csrc/segment_sum.cu) and its
+heaviest kernels.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -349,11 +354,61 @@ def kernel_variants() -> None:
             print(f"K3 {tag}, {label}: {ms:.4f} ms", flush=True)
 
 
+# Variants of csrc/segment_sum.cu.
+SEGMENT_VARIANTS = [
+    ("as built", []),
+    ("no block path (every segment one thread's chain)",
+     [("  const bool block_path = V * sizeof(T) == 16 && cv <= THREADS;",
+       "  const bool block_path = false;")]),
+    ("4 rows in flight per thread, not 16",
+     [("constexpr int DEEP = 16;", "constexpr int DEEP = 4;")]),
+]
+
+
+def segment_variants() -> None:
+    """The segment-sum kernel as built and in SEGMENT_VARIANTS at
+    chip_smoke's fixed-order sums shapes, device ms per call, each output
+    held to the plain version bit for bit."""
+    import chip_smoke as cs
+    from gcn_grabcut_torch.ops import region
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases, _ = cs.segment_cases(dev)
+    libs = build_variants("segment_sum", SEGMENT_VARIANTS, "seg")
+    for name, (idx, vals, n, srt, label) in cases.items():
+        if name.endswith(("_bf16", "_1d", "rank3")):
+            continue
+        segs = region.Segments(idx, n, srt)
+        want = region.segment_reduce_plain(vals, segs, "sum")
+        out = torch.empty_like(want)
+        perm = None if segs.order is None else segs.order.data_ptr()
+        cols = vals.numel() // max(vals.shape[0], 1)
+        for variant, lib in libs:
+            fn = lib.segment_reduce
+            fn.argtypes = [ctypes.c_int, ctypes.c_int] + [
+                ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
+                                        ctypes.c_void_p]
+
+            def call():
+                err = fn(region._DTYPE_CODES[vals.dtype], 0, vals.data_ptr(),
+                         perm, segs.offsets.data_ptr(), out.data_ptr(), n,
+                         cols, stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+            out.zero_()
+            call()
+            exact = torch.equal(out, want)
+            print(f"segment_sum {name} ({label}), {variant}: "
+                  f"{cs.time_ms(call):.4f} ms (exact: {exact})", flush=True)
+
+
 def gat_attention() -> None:
     """The banded GAT attention layer at 10k nodes under the profiler, as
     the edge list beside it: the evidence for or against a fused kernel
     (ROADMAP M5)."""
     import chip_smoke as cs
+    from gcn_grabcut_torch.ops.region import segment_sum
     _, g, layer, args, plan = cs.gat_layer_case(torch.device("cuda"))
     for label, kw in (("banded default", dict(plan=plan)),
                       ("banded highest", dict(plan=plan,
@@ -364,12 +419,14 @@ def gat_attention() -> None:
                 layer(*args, pre_sorted=True, **kw)
         call()
         torch.cuda.synchronize()
+        segment_sum.kernel_launches = 0
         t = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         report(f"GAT attention layer, {label} (K={g.max_nodes}, "
-               f"E={g.max_edges})", wall, call)
+               f"E={g.max_edges}; segment_sum launches "
+               f"{segment_sum.kernel_launches})", wall, call)
 
 
 def main() -> None:
@@ -380,6 +437,7 @@ def main() -> None:
         import chip_smoke as cs
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
         kernel_variants()
+        segment_variants()
         gat_attention()
         return
     import chip_smoke as cs

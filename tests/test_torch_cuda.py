@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import gcn_grabcut_torch as gt
-from gcn_grabcut_torch.ops import spmm
+from gcn_grabcut_torch.ops import region, spmm
 from gcn_grabcut_torch.parallel import ring
 
 pytestmark = pytest.mark.cuda
@@ -349,9 +349,133 @@ def test_sharded_forward_and_backward_on_card_match_cpu(cuda):
     cpu, _, cpu_grads = run("cpu")
     scale = max(1.0, float(cpu.abs().max()))
     assert float((card - cpu).abs().max()) <= 1e-4 * scale
-    # index_add_ atomics reorder the card's sums; ctx.attn.bias's exact
-    # gradient is 0 (a softmax ignores a shared shift), hence the floor.
+    # cuBLAS and the CPU's BLAS round products differently; ctx.attn.bias's
+    # exact gradient is 0 (a softmax ignores a shared shift), hence the
+    # floor.
     floor = 1e-3 * max(float(v.abs().max()) for v in cpu_grads.values())
     for k, v in cpu_grads.items():
         tol = 1e-4 * max(float(v.abs().max()), floor)
         assert float((card_grads[k] - v).abs().max()) <= tol, k
+
+
+# -- the fixed-order segment sum (csrc/segment_sum.cu) ----------------------
+
+def segment_case(device, dtype, cols, is_sorted, seed=5, rows=5000, n=700,
+                 long=0):
+    """Rows into n segments, leading, inner and trailing ones empty; with
+    `long`, that many rows (a block-path segment) go to segment 5."""
+    r = np.random.RandomState(seed)
+    idx = r.randint(4, n - 50, 2 * rows)
+    idx = idx[idx % 9 != 2][:rows]
+    idx[r.permutation(rows)[:long]] = 5
+    if is_sorted:
+        idx = np.sort(idx)
+    shape = (rows,) if cols is None else (rows, cols)
+    vals = torch.from_numpy((r.randn(*shape) * 3).astype(np.float32)
+                            ).to(dtype)
+    return torch.from_numpy(idx).to(device), vals.to(device), n
+
+
+@pytest.mark.parametrize("long", [0, 3000], ids=["short", "long"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("is_sorted", [False, True])
+@pytest.mark.parametrize("cols", [None, 1, 6, 8, 15, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+def test_segment_sum_kernel_matches_plain_bit_for_bit(cuda, dtype, cols,
+                                                      is_sorted, op, long):
+    """Every dtype, 16-byte and element loads, sorted rows and rows read
+    through the sort's permutation, with and without a segment long enough
+    for the block path: the kernel's bits are the plain version's on the
+    card and on the CPU."""
+    idx, vals, n = segment_case(cuda, dtype, cols, is_sorted, long=long)
+    segs = region.Segments(idx, n, is_sorted)
+    before = region.segment_sum.kernel_launches
+    got = region.segment_reduce_cuda(vals, segs, op)
+    torch.cuda.synchronize()
+    assert region.segment_sum.kernel_launches == before + 1
+    assert torch.equal(got, region.segment_reduce_plain(vals, segs, op))
+    cpu = region.segment_reduce_plain(
+        vals.cpu(), region.Segments(idx.cpu(), n, is_sorted), op)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_segment_sum_kernel_takes_unaligned_rows(cuda):
+    idx, vals, n = segment_case(cuda, torch.float32, 8, False)
+    shifted = torch.empty(vals.numel() + 1, device=cuda)[1:].view(vals.shape)
+    shifted.copy_(vals)                       # 4 bytes off 16
+    segs = region.Segments(idx, n)
+    assert torch.equal(region.segment_reduce_cuda(shifted, segs, "sum"),
+                       region.segment_reduce_plain(vals, segs, "sum"))
+
+
+def test_segment_sum_syncs_no_host(cuda):
+    idx, vals, n = segment_case(cuda, torch.float32, 6, False)
+    vals.requires_grad_(True)
+    region.segment_sum(idx, vals, n)                  # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        region.segment_sum(idx, vals, n).sum().backward()
+        region.segment_max(idx, vals, n).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_segment_sum_gradients_match_the_cpu(cuda):
+    grads = {}
+    for device in (cuda, "cpu"):
+        idx, vals, n = segment_case(device, torch.float32, 6, False)
+        vals = vals.round().requires_grad_(True)       # ties for the max
+        g = torch.from_numpy(np.random.RandomState(3).randn(n, 6).astype(
+            np.float32)).to(device)
+        ((region.segment_sum(idx, vals, n) * g).sum()
+         + (region.segment_max(idx, vals, n).nan_to_num(0.0, 0.0, 0.0)
+            * g).sum()).backward()
+        grads[str(device)] = vals.grad.cpu()
+    assert torch.equal(grads["cuda"], grads["cpu"])
+
+
+def test_segment_sum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    idx, vals, n = segment_case(cuda, torch.float32, 6, True)
+    segs = region.Segments(idx, n, True)
+    with pytest.raises(TypeError):
+        region.segment_reduce_cuda(vals.int(), segs, "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        region.segment_reduce_cuda(vals.t().contiguous().t(), segs, "sum")
+    with pytest.raises(ValueError, match="rows"):
+        region.segment_reduce_cuda(vals[1:].contiguous(), segs, "sum")
+    with pytest.raises(ValueError, match="CUDA"):
+        region.segment_reduce_cuda(vals.cpu(), segs, "sum")
+    with pytest.raises(ValueError, match="reduction"):
+        region.segment_reduce_cuda(vals, segs, "mean")
+
+
+def test_sharded_gradients_repeat_and_agree_across_halos(cuda):
+    """Two steps of the sharded model per halo give the same bits, and the
+    ring halo's logits and gradients equal the plain halo's."""
+    r = np.random.RandomState(4)
+    n, e = 400, 3000
+    src = r.randint(0, n, e)
+    dst = np.clip(src + r.randint(-30, 30, e), 0, n - 1)
+    mask = (src != dst).astype(np.float32)
+    g = gt.make_graph_batch(r.randn(1, n, 19), src[None], dst[None],
+                            r.rand(1, e, 5), np.ones((1, n)), mask[None],
+                            device=cuda)
+    c = torch.from_numpy(r.randn(1, n, 3).astype(np.float32)).to(cuda)
+    model = gt.ResGCNNet(hidden_channels=32, n_layers=2,
+                         generator=torch.Generator().manual_seed(2)).to(cuda)
+    runs = {}
+    for halo in ("pallas_ring", "xla", "pallas_ring", "xla"):
+        aggs = gt.mesh_aggregators(gt.make_graph_mesh(4, device=cuda), src,
+                                   dst, mask, n, method="allgather",
+                                   halo=halo)
+        model.zero_grad(set_to_none=True)
+        logits = model(g, aggregators=aggs)
+        (logits * c).sum().backward()
+        runs.setdefault(halo, []).append(
+            [logits.detach()] + [p.grad.clone()
+                                 for _, p in model.named_parameters()])
+    for a, b in (runs["pallas_ring"], runs["xla"],
+                 (runs["pallas_ring"][0], runs["xla"][0])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
