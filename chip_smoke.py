@@ -21,19 +21,27 @@ Phases, each of which exits non-zero on failure:
      output exact;
      Then the fixed-order sums: (a) the segment-sum kernel
      (csrc/segment_sum.cu) against its plain version on the card and on
-     a CPU copy, bit for bit, sums and maxima, on the main path's graph:
-     the edge-list GAT layer's messages (E x 128, sorted; fp32, bf16),
-     the banded SpMM's fallback sum (unsorted, node 0's long segment),
-     region_statistics' 1536^2 x 15 planes (unsorted), two ranks of the
-     sharded aggregation, and a case with empty leading, inner and
-     trailing segments (C = 6 fp32 and bf16, C = 1); (b) its time,
-     L2-warm and cold, alone and with its sort and offsets, beside its
-     bytes bound, the plain version and two one-call yardsticks the port
-     never calls (index_add_, torch.segment_reduce with lengths); (c) no
-     host sync in a call, forward or backward
-     (torch.cuda.set_sync_debug_mode("error")); and the audit of every
-     row gather whose gradient the card computes, each backward twice,
-     bit for bit;
+     a CPU copy, bit for bit (a NaN matching a NaN), sums and maxima, on
+     the main path's graph, with the values the call sites give it,
+     recorded at the kernel's wrapper in one main-path segment_batch and
+     one edge-list GAT layer (the fallback sums, EdgeContext's E x 65, the
+     degree and band sums, the clean-up's 1536^2 x 1 with the background
+     in the last segment; the GAT scores' maxima, exp sums and messages),
+     the clean-up at 1536^2 x 3 (keep_largest with the posterior) and one
+     sharded rank's masked messages; random values in the same segments
+     (the worst case: no identity rows), region_statistics' 1536^2 x 15
+     planes, a case with empty leading, inner and trailing segments
+     (C = 6 fp32 and bf16, C = 1) and an adversarial long segment of
+     +-0, subnormals, +-inf and NaN in all four dtypes; the launches of
+     the recorded paths by shape; (b) its time, L2-warm and cold, alone
+     and with its sort and offsets, beside its bytes bound, its chain
+     floor (a sum's longest chain of non-identity rows x 4 cycles at the
+     SM clock nvidia-smi reports), the plain version and two one-call
+     yardsticks the port never calls (index_add_ or index_reduce_(amax),
+     torch.segment_reduce with lengths); (c) no host sync in a call,
+     forward or backward (torch.cuda.set_sync_debug_mode("error")); and
+     the audit of every row gather whose gradient the card computes, each
+     backward twice, bit for bit;
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
@@ -196,6 +204,9 @@ import torch
 # fp32 (non-tensor) FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Cycles of one dependent float32 add (FADD's latency on Hopper): the chain
+# floor of a fixed-order sum is its longest chain of adds times this.
+ADD_CYCLES = 4
 
 IMAGE_HW = 1536
 N_SEGMENTS = 10_000
@@ -698,14 +709,111 @@ def stress_ring_collectives(dev, n_nodes: int) -> None:
                  f"skew (n={n})")
 
 
+@dataclasses.dataclass
+class SegCase:
+    """One shape of the fixed-order sums: `index` (P,) into `n` segments,
+    `values` (P, ...), the op the call site runs and whether it is timed
+    (a dtype or layout copy of a timed case is only held to the plain
+    version)."""
+    index: torch.Tensor
+    values: torch.Tensor
+    n: int
+    is_sorted: bool
+    label: str
+    op: str = "sum"
+    timed: bool = True
+
+
+@contextlib.contextmanager
+def recording_segment_sums():
+    """Records every launch of the segment-sum kernel while it is open:
+    [(values, Segments, op)], the call site's own tensors."""
+    from gcn_grabcut_torch.ops import region
+    calls, launch = [], region.segment_reduce_cuda
+
+    def recording(values, segs, op):
+        calls.append((values, segs, op))
+        return launch(values, segs, op)
+    region.segment_reduce_cuda = recording
+    try:
+        yield calls
+    finally:
+        region.segment_reduce_cuda = launch
+
+
+def launch_shapes(calls) -> dict:
+    """{(rows, columns, segments, dtype, sorted, op): launches}."""
+    shapes: dict = {}
+    for values, segs, op in calls:
+        cols = values.numel() // max(values.shape[0], 1)
+        key = (values.shape[0], cols, segs.n, str(values.dtype)[6:],
+               segs.order is None, op)
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def print_launch_shapes(where: str, calls) -> None:
+    for (rows, cols, n, dt, srt, op), k in sorted(
+            launch_shapes(calls).items(), key=lambda kv: -kv[0][0]):
+        print(f"segment_sum launches on {where}: {k} x {op} {rows} x {cols} "
+              f"{dt} {'sorted' if srt else 'unsorted'} into {n}", flush=True)
+
+
+def cleanup_mask(hw: int) -> np.ndarray:
+    """A 1536^2-scale foreground mask like the main path's (FG ~0.2): four
+    discs, a frame-like strip and seeded speckle, so the clean-up has one
+    large background component and many small ones."""
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    mask = np.zeros((hw, hw), np.uint8)
+    f = hw / DENSE_HW
+    for cy, cx, r in ((200, 220, 100), (420, 100, 45), (90, 430, 35),
+                      (400, 400, 55)):
+        mask[(yy - cy * f) ** 2 + (xx - cx * f) ** 2 < (r * f) ** 2] = 1
+    mask[:, :6] = 1
+    mask[np.random.RandomState(15).rand(hw, hw) < 0.002] = 1
+    return mask
+
+
+def adversarial_case(dev, dtype) -> tuple:
+    """(index, values, n): 200 000 rows, sorted, in 64 segments of which
+    segment 3 holds 120 000 and segment 40 holds 30 000: rows mostly +-0,
+    with subnormals, +-inf and NaN among them."""
+    r = np.random.RandomState(16)
+    lengths = r.randint(0, 800, 64)
+    lengths[3], lengths[40] = 120_000, 30_000
+    lengths[-1] = 200_000 - lengths[:-1].sum()
+    idx = np.repeat(np.arange(64), lengths)
+    rows = len(idx)
+    vals = np.where(r.rand(rows, 6) < 0.5, 0.0, -0.0)
+    live = r.rand(rows) < 0.01
+    vals[live] = r.randn(int(live.sum()), 6) * 3
+    tiny = {torch.float32: 1e-45, torch.float64: 5e-324,
+            torch.bfloat16: 9.2e-41, torch.float16: 6e-8}[dtype]
+    sub = r.rand(rows) < 0.002
+    vals[sub, r.randint(0, 6, int(sub.sum()))] = tiny * r.choice(
+        [-1, 1], int(sub.sum()))
+    for v in (np.inf, -np.inf, np.nan):
+        vals[r.randint(0, rows, 3), r.randint(0, 6, 3)] = v
+    return (torch.as_tensor(idx, device=dev),
+            torch.as_tensor(vals, device=dev).to(dtype), 64)
+
+
 def segment_cases(dev) -> tuple[dict, dict]:
     """The fixed-order sums' shapes on the card, from the main path's
-    1536^2 / 10 000-superpixel graph: name -> (index, values, n,
-    is_sorted, label); and the graph's arrays."""
+    1536^2 / 10 000-superpixel graph: name -> SegCase; and the graph's
+    arrays.  Each call site's real values come from a main-path
+    segment_batch (its fallback sums, EdgeContext, the degree and band
+    sums, the clean-up, the region planes), one GAT attention layer (its
+    scores' maxima, exp sums and messages) and one sharded rank's masked
+    messages, recorded at the kernel's wrapper; random values in the same
+    segments are the worst case (no row is an identity row), and an
+    adversarial long segment (+-0, subnormals, +-inf, NaN) is held in
+    every dtype.  Prints the launches of the recorded paths by shape."""
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.models.large import build_gcn_plans_device
     from gcn_grabcut_torch.models.layers import sort_edges_by_dst
     from gcn_grabcut_torch.ops import image as im
+    from gcn_grabcut_torch.ops.connected import connected_components
     from gcn_grabcut_torch.ops.region import region_planes
     from gcn_grabcut_torch.parallel.mesh import make_graph_mesh
     from gcn_grabcut_torch.parallel.partition import (partition_edges_by_dst,
@@ -719,18 +827,53 @@ def segment_cases(dev) -> tuple[dict, dict]:
     gen = torch.Generator(device=dev).manual_seed(13)
     cases = {}
 
+    def real(values, segs, op, label) -> SegCase:
+        return SegCase(segs.index, values.detach(), segs.n,
+                       segs.order is None, label + " (real values)", op)
+
+    def first(calls, rows=None, cols=None, op="sum"):
+        for values, segs, o in calls:
+            c = values.numel() // max(values.shape[0], 1)
+            if (o == op and (rows is None or values.shape[0] == rows)
+                    and (cols is None or c == cols)):
+                return values, segs, o
+        raise RuntimeError(f"no recorded {op} of {rows} x {cols}")
+
+    # The main path's calls, recorded in one segment_batch.
+    model = gt.ResGCNNet(hidden_channels=HIDDEN, n_layers=N_LAYERS,
+                         generator=torch.Generator().manual_seed(MODEL_SEED))
+    pipe = gt.GCNGrabCutPipeline(model, cfg, device=dev)
+    with recording_segment_sums() as main_calls:
+        pipe.segment_batch([make_image(IMAGE_HW)])
+    print_launch_shapes("the main path (segment_batch, 1536^2 / 10k)",
+                        main_calls)
+    e = int(arrays["edge_dst"].shape[1])
+
     # The edge-list GAT layer's messages (models/layers.py), E x 128 by
-    # destination, edges sorted.
+    # destination, edges sorted: node 0 holds the padded edges.
     _, e_dst, _, _ = sort_edges_by_dst(arrays["edge_src"], arrays["edge_dst"],
                                        arrays["edge_attr"],
                                        arrays["edge_mask"])
     dst = e_dst.reshape(-1)
+    _, _, layer, args, _ = gat_layer_case(dev)
+    with recording_segment_sums() as gat_calls, torch.no_grad():
+        layer(*args, pre_sorted=True)
+    print_launch_shapes("one edge-list GAT layer", gat_calls)
+    cases["gat_messages_real"] = real(*first(gat_calls, cols=HIDDEN),
+                                      f"GAT messages E={e} x {HIDDEN} "
+                                      f"sorted into {k}")
     msgs = torch.randn((dst.numel(), HIDDEN), generator=gen, device=dev)
-    cases["gat_messages"] = (dst, msgs, k, True,
-                             f"GAT messages E={dst.numel()} x {HIDDEN} "
-                             f"sorted into {k}")
-    cases["gat_messages_bf16"] = (dst, msgs.bfloat16(), k, True,
-                                  "the same in bfloat16")
+    cases["gat_messages"] = SegCase(dst, msgs, k, True,
+                                    f"GAT messages E={dst.numel()} x "
+                                    f"{HIDDEN} sorted into {k}")
+    cases["gat_messages_bf16"] = SegCase(dst, msgs.bfloat16(), k, True,
+                                         "the same in bfloat16", timed=False)
+    cases["gat_scores_real"] = real(*first(gat_calls, cols=8, op="max"),
+                                    f"GAT per-head scores E={e} x 8 sorted "
+                                    f"into {k}, maxima")
+    cases["gat_exp_real"] = real(*first(gat_calls, cols=8),
+                                 f"GAT per-head exp E={e} x 8 sorted into "
+                                 f"{k}")
 
     # The banded SpMM's fallback sum (ops/spmm.py), unsorted: each band row,
     # then the fallback edges; the padded edges make node 0's segment long.
@@ -738,51 +881,112 @@ def segment_cases(dev) -> tuple[dict, dict]:
                                      arrays["edge_dst"][0],
                                      arrays["edge_mask"][0], k)
     fb = plan.fallback_segments()
-    cases["spmm_fallback"] = (
-        fb.index, torch.randn((fb.index.numel(), HIDDEN), generator=gen,
-                              device=dev), fb.n, False,
-        f"SpMM fallback {fb.index.numel()} x {HIDDEN} unsorted into {fb.n}")
+    fb_rows = fb.index.numel()
+    cases["spmm_fallback_real"] = real(*first(main_calls, rows=fb_rows,
+                                              cols=HIDDEN),
+                                       f"SpMM fallback {fb_rows} x {HIDDEN} "
+                                       f"unsorted into {fb.n}")
+    cases["spmm_fallback"] = SegCase(
+        fb.index, torch.randn((fb_rows, HIDDEN), generator=gen, device=dev),
+        fb.n, False, f"SpMM fallback {fb_rows} x {HIDDEN} unsorted into "
+        f"{fb.n}")
+
+    # The main path's narrow sums: EdgeContext (E x 65), the degree sum
+    # (E, 1-D), the band sum (E, 1-D, out-of-window edges at index 0).
+    ctx_cols = max(HIDDEN // 2, 8) + 1
+    cases["edge_context_real"] = real(*first(main_calls, rows=e,
+                                             cols=ctx_cols),
+                                      f"EdgeContext E={e} x {ctx_cols} "
+                                      f"unsorted into {k}")
+    one_d = [c for c in main_calls if c[0].dim() == 1 and c[0].shape[0] == e]
+    cases["degree_real"] = real(*min(one_d, key=lambda c: c[1].n),
+                                f"degree sum E={e} (1-D) unsorted into {k}")
+    band = max(one_d, key=lambda c: c[1].n)
+    cases["band_real"] = real(*band, f"band sum E={e} (1-D) unsorted into "
+                              f"{band[1].n}")
 
     # region_statistics' planes (ops/region.py), unsorted pixels.
     lab = im.rgb_to_lab(rgb)
     planes = region_planes(segments, lab, im.rgb_to_hsv(rgb),
                            im.gradient_magnitude(im.rgb_to_gray(rgb)))
-    cases["region_stats"] = (segments.reshape(-1),
-                             planes.reshape(-1, planes.shape[-1]), k, False,
-                             f"region planes {IMAGE_HW}^2 x "
-                             f"{planes.shape[-1]} unsorted into {k}")
+    cases["region_stats"] = SegCase(segments.reshape(-1),
+                                    planes.reshape(-1, planes.shape[-1]), k,
+                                    False, f"region planes {IMAGE_HW}^2 x "
+                                    f"{planes.shape[-1]} unsorted into {k}")
 
-    # One rank's sum of the sharded aggregation (parallel/partition.py).
+    # The clean-up's component sums (ops/connected.py _clean_mask): the
+    # background clamped into the last segment; the main path's (its mask,
+    # one plane) and, with keep_largest and the posterior, three planes.
+    hw = IMAGE_HW * IMAGE_HW
+    cases["cleanup_main_real"] = real(*first(main_calls, rows=hw, cols=1),
+                                      f"clean-up {IMAGE_HW}^2 x 1 unsorted "
+                                      f"into {hw}")
+    mask = torch.as_tensor(cleanup_mask(IMAGE_HW), device=dev)
+    labels = connected_components(mask > 0).long().reshape(-1)
+    clamped = labels.clamp_max(hw - 1)
+    valid = (labels < hw).float()
+    border = torch.zeros((IMAGE_HW, IMAGE_HW), device=dev)
+    border[[0, -1], :] = 1.0
+    border[:, [0, -1]] = 1.0
+    post = torch.rand((hw,), generator=gen, device=dev)
+    cases["cleanup_real"] = SegCase(
+        clamped, torch.stack([valid, border.reshape(-1) * valid,
+                              post * valid], 1), hw, False,
+        f"clean-up {IMAGE_HW}^2 x 3 unsorted into {hw} (FG "
+        f"{float(valid.mean()):.3f}, background in segment {hw - 1}; real "
+        f"values)")
+
+    # One rank's sum of the sharded aggregation (parallel/partition.py):
+    # its messages masked as the call site masks them (padded slots 0).
     keep = arrays["edge_mask"][0] > 0
     src_np = arrays["edge_src"][0][keep].cpu().numpy()
     dst_np = arrays["edge_dst"][0][keep].cpu().numpy()
     n_pad = -(-k // PATH_RANKS) * PATH_RANKS
-    _, pd, _ = partition_edges_by_dst(src_np, dst_np,
-                                      np.ones(len(src_np), np.float32),
-                                      n_pad, PATH_RANKS)
+    _, pd, pw = partition_edges_by_dst(src_np, dst_np,
+                                       np.ones(len(src_np), np.float32),
+                                       n_pad, PATH_RANKS)
     pd = torch.as_tensor(pd, device=dev).long()
-    segs = shard_segments(make_graph_mesh(PATH_RANKS), n_pad, pd)
+    pw = torch.as_tensor(pw, device=dev)
+    segs = shard_segments(make_graph_mesh(PATH_RANKS, device=dev), n_pad, pd)
     shard = pd.numel() // PATH_RANKS
     for i in (0, PATH_RANKS - 1):
-        cases[f"sharded_rank{i}"] = (
-            segs[i].index, torch.randn((shard, HIDDEN), generator=gen,
-                                       device=dev),
-            segs[i].n, False,
-            f"sharded rank {i} of {PATH_RANKS}: {shard} x {HIDDEN} into "
-            f"{segs[i].n}")
+        msgs = torch.randn((shard, HIDDEN), generator=gen, device=dev)
+        label = (f"sharded rank {i} of {PATH_RANKS}: {shard} x {HIDDEN} "
+                 f"into {segs[i].n}")
+        cases[f"sharded_rank{i}_real"] = SegCase(
+            segs[i].index, msgs * pw[i * shard:(i + 1) * shard, None],
+            segs[i].n, False, label + " (real values)", timed=i == 0)
+        cases[f"sharded_rank{i}"] = SegCase(segs[i].index, msgs, segs[i].n,
+                                            False, label, timed=i == 0)
 
     # Empty leading, inner and trailing segments, C = 6 and 1.
     r = np.random.RandomState(13)
     idx = r.randint(16, 3500, 50_000)
     idx = torch.as_tensor(idx[idx % 11 != 3], device=dev)
     vals = torch.randn((idx.numel(), 6), generator=gen, device=dev)
-    cases["empty_trailing"] = (idx, vals, 4096, False,
-                               f"{idx.numel()} x 6 into 4096, segments "
-                               f"0-15, every 11th and 3500-4095 empty")
-    cases["empty_trailing_bf16"] = (idx, vals.bfloat16(), 4096, False,
-                                    "the same in bfloat16")
-    cases["empty_trailing_1d"] = (idx, vals[:, 0].contiguous(), 4096,
-                                  False, "the same, one column, 1-D")
+    cases["empty_trailing"] = SegCase(idx, vals, 4096, False,
+                                      f"{idx.numel()} x 6 into 4096, "
+                                      f"segments 0-15, every 11th and "
+                                      f"3500-4095 empty")
+    cases["empty_trailing_bf16"] = SegCase(idx, vals.bfloat16(), 4096, False,
+                                           "the same in bfloat16",
+                                           timed=False)
+    cases["empty_trailing_1d"] = SegCase(idx, vals[:, 0].contiguous(), 4096,
+                                         False, "the same, one column, 1-D",
+                                         timed=False)
+
+    # The adversarial long segments, in every dtype.
+    for dtype in (torch.float32, torch.float64, torch.bfloat16,
+                  torch.float16):
+        a_idx, a_vals, a_n = adversarial_case(dev, dtype)
+        name = "adversarial" + ("" if dtype == torch.float32
+                                else "_" + str(dtype)[6:])
+        cases[name] = SegCase(a_idx, a_vals, a_n, True,
+                              f"adversarial {a_idx.numel()} x 6 sorted into "
+                              f"{a_n}: 120 000 and 30 000-row segments of "
+                              f"+-0, subnormals, +-inf, NaN",
+                              timed=dtype == torch.float32)
+    del main_calls, gat_calls
     return cases, arrays
 
 
@@ -794,21 +998,53 @@ def segment_bytes(values: torch.Tensor, n: int) -> int:
     return (values.numel() + n * c) * values.element_size() + 8 * (p + n + 1)
 
 
+def longest_chain(case: SegCase) -> int:
+    """The most rows of one segment that are not the op's identity (not all
+    +-0 for a sum, not all -inf for a maximum): for a sum, the longest
+    chain of dependent adds any order-keeping sum must make (a maximum's
+    rows join in any grouping, so they make no such chain)."""
+    flat = case.values.reshape(case.values.shape[0], -1)
+    ident = 0.0 if case.op == "sum" else float("-inf")
+    live = (flat != ident).any(dim=1)
+    counts = torch.bincount(case.index[live], minlength=case.n)
+    return int(counts.max()) if counts.numel() else 0
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching any NaN (its payload is the hardware's:
+    the card and the CPU make different ones); +0 and -0 differ."""
+    na, nb = a.isnan(), b.isnan()
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints))
+
+
 def check_segment_sum(dev) -> tuple[dict, dict]:
     """The fixed-order sums phase: (a) the kernel against its plain version
     on the card and on a CPU copy, bit for bit, at every case's shape, sums
     and maxima; (b) its time (L2-warm and cold, alone and with its sort and
-    offsets) beside its bytes bound, the plain version and two one-call
-    yardsticks the port never calls; (c) no host sync in a call, forward or
-    backward.  Returns the JSON record (the region statistics' shape) and
-    the graph's arrays."""
-    from gcn_grabcut_torch.ops.region import (Segments, segment_max,
+    offsets) beside its bytes bound, its chain floor, the plain version and
+    two one-call yardsticks the port never calls; (c) no host sync in a
+    call, forward or backward.  Returns the JSON record (the region
+    statistics' shape) and the graph's arrays."""
+    from gcn_grabcut_torch.ops.region import (Segments, kernel_plan,
+                                              long_segments, segment_max,
                                               segment_reduce_cuda,
                                               segment_reduce_plain,
                                               segment_sum)
     cases, arrays = segment_cases(dev)
+    clock = sm_clock_mhz()
     record, ok = None, True
-    for name, (idx, vals, n, srt, label) in cases.items():
+    for name, case in cases.items():
+        idx, vals, n, srt = case.index, case.values, case.n, case.is_sorted
         segs = Segments(idx, n, srt)
         segs_cpu = Segments(idx.cpu(), n, srt)
         same, errs = {}, {}
@@ -817,57 +1053,76 @@ def check_segment_sum(dev) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             plain = segment_reduce_plain(vals, segs, op)
             cpu = segment_reduce_plain(vals.cpu(), segs_cpu, op)
-            same[op] = (torch.equal(got, plain), torch.equal(got.cpu(), cpu))
+            same[op] = (same_bits(got, plain), same_bits(got.cpu(), cpu))
             errs[op] = float((got.cpu() - cpu).float().nan_to_num(
                 0.0, 0.0, 0.0).abs().max())
             ok &= all(same[op])
-        err = errs["sum"]
-        line = (f"segment_sum {name} ({label}; {str(vals.dtype)[6:]}): "
+        op = case.op
+        lengths = segs.offsets.diff()
+        cols = vals.numel() // max(vals.shape[0], 1)
+        tile = kernel_plan(vals.shape[0], cols, n, vals.element_size(),
+                           vals.data_ptr() % 16 == 0).tile
+        n_long = int(long_segments(segs.offsets, tile).sum())
+        chain = longest_chain(case)
+        line = (f"segment_sum {name} ({case.label}; {str(vals.dtype)[6:]}): "
                 f"kernel = plain on the card / on the CPU: sum "
                 f"{same['sum'][0]} / {same['sum'][1]}, max {same['max'][0]}"
-                f" / {same['max'][1]}")
-        if name.endswith(("_bf16", "_1d", "rank3")):
+                f" / {same['max'][1]}; longest segment "
+                f"{int(lengths.max())} rows, {n_long} of at least {tile} "
+                f"(long); longest chain of non-identity rows ({op}) {chain}")
+        if not case.timed:
             print(line, flush=True)
             continue
-        ms = time_ms(lambda: segment_reduce_cuda(vals, segs, "sum"))
-        cold_ms = time_cold_ms(lambda: segment_reduce_cuda(vals, segs, "sum"))
-        call_ms = time_ms(lambda: segment_sum(idx, vals, n, srt))
-        plain_ms = time_ms(lambda: segment_reduce_plain(vals, segs, "sum"))
-        acc = torch.zeros((n,) + vals.shape[1:], device=dev)
-        index_add_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+        ms = time_ms(lambda: segment_reduce_cuda(vals, segs, op))
+        cold_ms = time_cold_ms(lambda: segment_reduce_cuda(vals, segs, op))
+        call = segment_sum if op == "sum" else segment_max
+        call_ms = time_ms(lambda: call(idx, vals, n, srt))
+        plain_ms = time_ms(lambda: segment_reduce_plain(vals, segs, op))
+        acc = torch.zeros((n,) + vals.shape[1:], device=dev, dtype=vals.dtype)
+        if op == "sum":
+            library_ms = time_ms(lambda: acc.index_add_(0, idx, vals))
+        else:
+            library_ms = time_ms(lambda: acc.index_reduce_(
+                0, idx, vals, "amax", include_self=False))
         ordered = vals if segs.order is None else vals[segs.order]
-        lengths = segs.offsets.diff()
         reduce_ms = time_ms(lambda: torch.segment_reduce(
-            ordered, "sum", lengths=lengths, axis=0))
+            ordered, op, lengths=lengths, axis=0))
         n_bytes = segment_bytes(vals, n)
         bound = n_bytes / PEAK_BYTES_S * 1e3
+        floor = chain * ADD_CYCLES / (clock * 1e3) if op == "sum" else 0.0
+        library = "index_add_" if op == "sum" else "index_reduce_(amax)"
         print(f"{line}; kernel {ms:.4f} ms (L2-warm; {cold_ms:.4f} cold), "
               f"with its sort and offsets {call_ms:.4f}, plain {plain_ms:.4f}"
-              f", yardsticks index_add_ {index_add_ms:.4f} and segment_reduce"
-              f"(lengths) {reduce_ms:.4f}; bound {bound:.4f} ms (bytes: "
-              f"{n_bytes / 1e6:.2f} MB), share {bound / ms:.3f} warm, "
-              f"{bound / cold_ms:.3f} cold", flush=True)
+              f", yardsticks {library} {library_ms:.4f} and "
+              f"segment_reduce(lengths) {reduce_ms:.4f};"
+              f" bound {bound:.4f} ms (bytes: {n_bytes / 1e6:.2f} MB), chain "
+              f"floor {floor:.4f} ms ({chain if op == 'sum' else 0} adds x "
+              f"{ADD_CYCLES} cycles at {clock:.0f} MHz), share of the larger "
+              f"{max(bound, floor) / ms:.3f} warm, "
+              f"{max(bound, floor) / cold_ms:.3f} cold", flush=True)
         if name == "region_stats":
             record = {"name": "segment_sum", "route": "cuda",
                       "source": "gcn_grabcut_torch/csrc/segment_sum.cu",
                       "replaces": "gcn_grabcut_tpu/ops/region.py:35 (XLA "
                                   "segment_sum; no Pallas kernel)",
-                      "launches": 0, "max_abs_err": err, "ms": ms,
+                      "launches": 0, "max_abs_err": errs["sum"], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": "bytes", "library_ms": index_add_ms,
+                      "bound_by": "bytes", "library_ms": library_ms,
+                      "chain_floor_ms": floor, "cold_ms": cold_ms,
                       "segment_reduce_ms": reduce_ms, "call_ms": call_ms}
     if not ok:
         fail("the segment-sum kernel differs from its plain version")
 
     # (c) no host sync: the whole call (sort, offsets, launch), a maximum,
     # and a backward.
-    idx, vals, n, srt, _ = cases["gat_messages"]
-    vals = vals.clone().requires_grad_(True)
-    ridx, rvals, rn, _, _ = cases["region_stats"]
+    case = cases["gat_messages"]
+    idx, n = case.index, case.n
+    vals = case.values.clone().requires_grad_(True)
+    rcase = cases["region_stats"]
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        segment_sum(ridx, rvals, rn)
+        segment_sum(rcase.index, rcase.values, rcase.n)
         segment_max(idx, vals.detach(), n, is_sorted=True)
         (segment_sum(idx, vals, n, is_sorted=True) * 2.0).sum().backward()
         segment_max(idx, vals, n, is_sorted=True).sum().backward()

@@ -17,6 +17,8 @@ XLA (``jax.ops.segment_sum``); it has no Pallas kernel for them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -27,26 +29,117 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
                 torch.float16: 3}
 _OPS = {"sum": 0, "max": 1}
 
+#: Rows of a tile of the kernel's long blocks (csrc/segment_sum.cu); a
+#: segment of at least this many rows is long.  A multiple of 256, <= 1024:
+#: TILE_WIDE for rows of WIDE_ROW_BYTES or more (one warp walks a short
+#: segment's row, and a chain of a few hundred rows already holds it back),
+#: TILE_NARROW below (many short segments share a warp).
+TILE_WIDE, TILE_NARROW, WIDE_ROW_BYTES = 256, 1024, 256
+#: Bytes of a row's columns that one long unit (tile, group) takes.
+GROUP_BYTES = 32
+#: Threads of a kernel block, and the long units one long block takes.
+THREADS, UNITS = 256, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """The kernel's launch of one call, from host-known sizes alone: `vec`
+    elements per column vector, `cv` vectors per row, `gv` vectors per
+    column group, `groups` groups, `tiles` tiles of `tile` rows,
+    `long_blocks` blocks for the long segments (UNITS of the tiles x
+    groups units each, or none when no segment can be long) and
+    `short_blocks` for the per-thread path.  `keep`, `count` and `done`
+    are the int32 scratch sizes: a kept row number per row and group (a
+    maximum keeps its tiles' maxima there instead), a count and a
+    counter per tile and group."""
+    rows: int
+    vec: int
+    cv: int
+    gv: int
+    groups: int
+    tile: int
+    tiles: int
+    long_blocks: int
+    short_blocks: int
+
+    @property
+    def keep(self) -> int:
+        return self.groups * self.rows if self.long_blocks else 0
+
+    @property
+    def count(self) -> int:
+        return self.groups * self.tiles if self.long_blocks else 0
+
+    done = count
+
+
+def kernel_plan(rows: int, cols: int, n: int, elt: int, aligned: bool
+                ) -> KernelPlan:
+    """The launch of the kernel on (rows, cols) values of `elt`-byte
+    elements into `n` segments; `aligned`: the values' and the output's
+    data are 16-byte aligned.  A segment is long when it has at least
+    `tile` rows (by the row's bytes: TILE_WIDE or TILE_NARROW), so none is
+    when rows < tile."""
+    tile = TILE_WIDE if cols * elt >= WIDE_ROW_BYTES else TILE_NARROW
+    wide = 16 // elt
+    vec = wide if cols % wide == 0 and aligned else 1
+    cv = cols // vec
+    gv = GROUP_BYTES // (vec * elt)
+    groups = -(-cv // gv)
+    tiles = -(-rows // tile)
+    long_blocks = -(-tiles * groups // UNITS) if rows >= tile else 0
+    return KernelPlan(rows, vec, cv, gv, groups, tile, tiles, long_blocks,
+                      -(-n * cv // THREADS))
+
+
+def long_segments(offsets: torch.Tensor, tile: int) -> torch.Tensor:
+    """Which of the segments with these (n + 1) offsets the kernel's long
+    blocks sum (at least `tile` rows, `kernel_plan(...).tile`); the
+    per-thread path sums the rest."""
+    return offsets.diff() >= tile
+
+
+#: The long blocks' int32 buffers per (device, stream), grown as needed:
+#: the hand-off counters (_DONE), zero between calls (the block that uses
+#: one last sets it back), and the keep lists and counts (_WORK), which a
+#: call writes before it reads them.  Calls on one stream run in order and
+#: share them; calls on two streams never do.
+_DONE: dict = {}
+_WORK: dict = {}
+
+
+def _stream_buffer(store: dict, device: torch.device, stream: int, n: int
+                   ) -> torch.Tensor:
+    key = (device, stream)
+    buf = store.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = store[key] = torch.zeros(size, dtype=torch.int32,
+                                       device=device)
+    return buf
+
 
 class Segments:
     """An index into `n` segments, sorted once for fixed-order reductions.
 
     `order` is the stable sort of `index` (None when `is_sorted` asserts a
-    non-decreasing index), `offsets` the (n + 1) segment starts in that
-    order, found by ``torch.searchsorted`` on the index's device: no host
-    sync.  `index` (P,) must lie in [0, n).  Keep one where the index is
-    fixed over many sums (a plan's fallback list, a mesh's edge partition,
-    a batch's destinations); `segment_sum` makes one per call."""
+    non-decreasing index), `ordered` the index in that order (the segment
+    of each position), `offsets` the (n + 1) segment starts in that order,
+    found by ``torch.searchsorted`` on the index's device: no host sync.
+    `index` (P,) must lie in [0, n).  Keep one where the index is fixed
+    over many sums (a plan's fallback list, a mesh's edge partition, a
+    batch's destinations); `segment_sum` makes one per call."""
 
     def __init__(self, index: torch.Tensor, n: int, is_sorted: bool = False):
-        index = index.reshape(-1).long()
+        # Contiguous: the kernel reads `ordered` as a dense int64 array.
+        index = index.reshape(-1).long().contiguous()
         if is_sorted:
-            self.order, ordered = None, index
+            self.order, self.ordered = None, index
         else:
-            ordered, self.order = torch.sort(index, stable=True)
+            self.ordered, self.order = torch.sort(index, stable=True)
         self.index, self.n = index, n
         self.offsets = torch.searchsorted(
-            ordered, torch.arange(n + 1, device=index.device))
+            self.ordered, torch.arange(n + 1, device=index.device))
 
     def sum(self, values: torch.Tensor) -> torch.Tensor:
         """(n, ...) sums of the rows of `values` (P, ...) by the index."""
@@ -75,13 +168,26 @@ def segment_reduce_plain(values: torch.Tensor, segs: Segments,
     return out.reshape((segs.n,) + values.shape[1:])
 
 
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, its argument types set once."""
+    from ..kernels import load
+    fn = load("segment_sum").segment_reduce
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def segment_reduce_cuda(values: torch.Tensor, segs: Segments,
                         op: str) -> torch.Tensor:
     """Launch the fixed-order kernel (csrc/segment_sum.cu) on the current
     stream: the plain version's reduction, bit for bit.  `values` (P, ...)
     is a contiguous float32, float64, bfloat16 or float16 CUDA tensor on
-    `segs`' device; the wrapper allocates the (n, ...) output and nothing
-    else."""
+    `segs`' device, P < 2^31; the wrapper allocates the (n, ...) output and,
+    when a segment can be long (P at least the plan's tile), hands the long
+    blocks the stream's scratch (`kernel_plan`, `_stream_buffer`)."""
     if values.device.type != "cuda" or segs.offsets.device != values.device:
         raise ValueError(f"segment_reduce_cuda needs the values and the "
                          f"segments on one CUDA device, got {values.device} "
@@ -97,22 +203,37 @@ def segment_reduce_cuda(values: torch.Tensor, segs: Segments,
                          f"index of {segs.index.shape[0]} rows")
     if not values.is_contiguous():
         raise ValueError("segment_reduce_cuda needs contiguous values")
+    if segs.ordered.dtype != torch.int64 or not segs.ordered.is_contiguous():
+        raise ValueError("segment_reduce_cuda needs the segments' ordered "
+                         "index as contiguous int64")
+    rows = values.shape[0]
+    if rows >= 2 ** 31:
+        raise ValueError(f"segment_reduce_cuda takes fewer than 2^31 rows, "
+                         f"got {rows}")
     out = torch.empty((segs.n,) + values.shape[1:], dtype=values.dtype,
                       device=values.device)
     if out.numel() == 0:
         return out
 
-    from ..kernels import load
-    fn = load("segment_sum").segment_reduce
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel()
+    cols = _flat(values).shape[1]
+    plan = kernel_plan(rows, cols, segs.n, values.element_size(),
+                       values.data_ptr() % 16 == 0
+                       and out.data_ptr() % 16 == 0)
     perm = None if segs.order is None else segs.order.data_ptr()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(_DTYPE_CODES[values.dtype], _OPS[op], values.data_ptr(),
-                 perm, segs.offsets.data_ptr(), out.data_ptr(), segs.n,
-                 _flat(values).shape[1], stream)
+        keep = count = done = None       # no segment can be long: none
+        if plan.long_blocks:
+            keep = _stream_buffer(_WORK, values.device, stream,
+                                  plan.keep + plan.count).data_ptr()
+            count = keep + 4 * plan.keep
+            done = _stream_buffer(_DONE, values.device, stream,
+                                  plan.done).data_ptr()
+        err = fn(_DTYPE_CODES[values.dtype], _OPS[op], plan.vec, plan.tile,
+                 values.data_ptr(), perm, segs.ordered.data_ptr(),
+                 segs.offsets.data_ptr(), out.data_ptr(), rows, segs.n, cols,
+                 keep, count, done, stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{err}")

@@ -25,14 +25,24 @@ gcn_grabcut_torch/_build/variants/ and timed as chip_smoke.py times the
 kernels (device time per call, warm L2).  Variants that skip work give
 wrong outputs and only say what that work costs; each K2 line says whether
 the variant's output was exact.  The segment-sum kernel is timed the
-same way at chip_smoke.py's fixed-order sums shapes, as built, without
-its block path for long segments and with 4 rows in flight per thread
-instead of 16.  Then it profiles one full-width GAT
-attention layer (128 -> 8 heads of 16, chip_smoke.gat_layer_case) on the
-main path's 10 000-node graph: banded at "default" and "highest" and as
-the edge list, each call's wall time, device busy time and busy share,
-its launches of the segment-sum kernel (csrc/segment_sum.cu) and its
-heaviest kernels.  Needs CUDA; imports nothing of JAX.
+same way at chip_smoke.py's timed fixed-order sums cases (the call sites'
+real values, random values, an adversarial long segment): as built, with
+tiles of 256, 512 and 1024 rows for every row width, without skipping
+identity rows, with columns spread over 2x fewer units, with 4 rows in
+flight per thread instead of 16, with its walks' adds taken out, capped at
+85 registers a thread, with its walks staged by cp.async (two stages of
+14 KB, or of 7 KB), as two grids, and as the design before its long blocks
+(profile_kernels/segment_sum_block_path.cu).  It times that design's
+wrapper and kernel against the current ones on the paths that make many
+short sums (host_cost: the wrapper's host time per call, the sharded
+forward and backward, a training step).  Then it profiles one
+full-width GAT attention layer (128 -> 8 heads of 16,
+chip_smoke.gat_layer_case) on the main path's 10 000-node graph: banded at
+"default" and "highest" and as the edge list, each call's wall time,
+device busy time and busy share, its launches of the segment-sum kernel
+(csrc/segment_sum.cu) and its heaviest kernels; and the main path's
+segment_batch under the profiler, then its clean-up's connected_components
+and component sums, each alone on the same mask.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,8 +50,10 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 # K1 variants: (name, [(text in csrc/banded_spmm.cu, replacement)]).
@@ -354,21 +366,181 @@ def kernel_variants() -> None:
             print(f"K3 {tag}, {label}: {ms:.4f} ms", flush=True)
 
 
-# Variants of csrc/segment_sum.cu.
+def segment_tile(rows: int) -> tuple:
+    """An edit of csrc/segment_sum.cu that sets every call's tile."""
+    return ("  const cudaStream_t s = (cudaStream_t)stream;\n",
+            f"  const cudaStream_t s = (cudaStream_t)stream;\n"
+            f"  tile = {rows};\n")
+
+
+# The walk's vectors staged by cp.async (4, 8 or 16 bytes; 2-byte vectors
+# by a load and a store) into two stages, chunk c + 1's copies in flight
+# while chunk c is added, in place of the loaders' register loads and
+# st.shared.  Shared memory grows by one stage (14 KB) for every block of
+# the launch, the per-thread path's included.
+STAGE_COPY = """\
+// One vector global -> shared: cp.async where it is 4, 8 or 16 bytes.
+template <typename VT>
+__device__ __forceinline__ void stage_copy(VT* dst, const VT* src) {
+  if constexpr (sizeof(VT) >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                    "n"(sizeof(VT)) : "memory");
+  } else {
+    *dst = *src;
+  }
+}
+
+// A maximum of long segment s for group g's column vectors"""
+CP_ASYNC = [
+    ("// A maximum of long segment s for group g's column vectors",
+     STAGE_COPY),
+    ("  Vec<T, V> stage[STAGE_BYTES / (V * sizeof(T))];\n};",
+     "  Vec<T, V> stage[2][STAGE_BYTES / (V * sizeof(T))];\n};"),
+    ("        if (j < chunk && k0 + j < K)\n"
+     "          x[i] = reinterpret_cast<const VT*>(\n"
+     "              base + (int64_t)buf[j] * a.C)[e - j * nvec];\n"
+     "      }\n    };",
+     "        if (j < chunk && k0 + j < K)\n"
+     "          stage_copy(&sm.stage[buf == sm.row[0] ? 0 : 1][e],\n"
+     "                     reinterpret_cast<const VT*>(\n"
+     "                         base + (int64_t)buf[j] * a.C) + (e - j * nvec));\n"
+     "      }\n"
+     "      asm volatile(\"cp.async.commit_group;\" ::: \"memory\");\n    };"),
+    ("        if (li >= 0 && j < chunk && k0 + j < K) sm.stage[e] = x[i];\n"
+     "      }\n",
+     "      }\n"
+     "      asm volatile(\"cp.async.wait_all;\" ::: \"memory\");\n"),
+    ("      const VT* st = sm.stage;", "      const VT* st = sm.stage[c & 1];"),
+]
+# The long blocks and the per-thread blocks as two grids on one stream, the
+# long one first (the launch's blocks split at long_blocks).
+TWO_GRIDS = [
+    ("  int64_t long_blocks;\n",
+     "  int64_t long_blocks, first;   // first: the grid's first block\n"),
+    ("  const int64_t b = blockIdx.x;\n",
+     "  const int64_t b = blockIdx.x + a.first;\n"),
+    ("""  if (a.perm)
+    segment_reduce_kernel<T, V, MAX, true><<<(unsigned)blocks, THREADS, 0,
+                                             stream>>>(a);
+  else
+    segment_reduce_kernel<T, V, MAX, false><<<(unsigned)blocks, THREADS, 0,
+                                              stream>>>(a);
+""", """  auto grid = [&](int64_t first, int64_t count) {
+    if (count <= 0) return;
+    Args<T> g = a;
+    g.first = first;
+    if (a.perm)
+      segment_reduce_kernel<T, V, MAX, true><<<(unsigned)count, THREADS, 0,
+                                               stream>>>(g);
+    else
+      segment_reduce_kernel<T, V, MAX, false><<<(unsigned)count, THREADS, 0,
+                                                stream>>>(g);
+  };
+  grid(0, a.long_blocks);
+  grid(a.long_blocks, blocks - a.long_blocks);
+"""),
+]
+# Variants of csrc/segment_sum.cu: (name, edits).  The design before the
+# long blocks (one block streamed each long segment's chain, and only where
+# rows were 16-byte vectors) is a source of its own, SEGMENT_BLOCK_PATH,
+# with its own C interface.
 SEGMENT_VARIANTS = [
-    ("as built", []),
-    ("no block path (every segment one thread's chain)",
-     [("  const bool block_path = V * sizeof(T) == 16 && cv <= THREADS;",
-       "  const bool block_path = false;")]),
+    ("as built (tiles of 256 rows for rows of 256 bytes or more, else 1024)",
+     []),
+    ("tiles of 256 rows", [segment_tile(256)]),
+    ("tiles of 512 rows", [segment_tile(512)]),
+    ("tiles of 1024 rows", [segment_tile(1024)]),
+    ("no skipping (identity rows added)",
+     [("  return id;\n}", "  return id && false;\n}")]),
+    ("columns spread 2x less (groups of 64 bytes)",
+     [("constexpr int GROUP_BYTES = 32;", "constexpr int GROUP_BYTES = 64;")]),
     ("4 rows in flight per thread, not 16",
      [("constexpr int DEEP = 16;", "constexpr int DEEP = 4;")]),
+    ("walks without their adds (wrong sums)",
+     [("        auto add = [&](const VT* y) {\n",
+       "        auto add = [&](const VT* y) {\n          if (rows >= 0) return;\n")]),
+    ("at most 85 registers a thread (3 blocks an SM)",
+     [("__launch_bounds__(THREADS) segment_reduce_kernel",
+       "__launch_bounds__(THREADS, 3) segment_reduce_kernel")]),
+    ("walks staged by cp.async, two stages of 14 KB", CP_ASYNC),
+    ("walks staged by cp.async, two stages of 7 KB (the same shared memory)",
+     CP_ASYNC + [("constexpr int LOADER_BYTES = 64;",
+                  "constexpr int LOADER_BYTES = 32;")]),
+    ("two grids, the long blocks' first", TWO_GRIDS),
 ]
+SEGMENT_BLOCK_PATH = "profile_kernels/segment_sum_block_path.cu"
+
+
+def build_block_path():
+    """The block-path design's library (SEGMENT_BLOCK_PATH), built as the
+    variants are."""
+    from gcn_grabcut_torch import kernels
+    out_dir = kernels.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "segment_block_path.so"
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                           str(so), SEGMENT_BLOCK_PATH],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{SEGMENT_BLOCK_PATH} failed to build:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def segment_call(lib, vals, segs, out, op: str, stream):
+    """A call of a variant's segment_reduce (the current C interface) with
+    scratch for every tile and group layout a variant may have (tiles of
+    256 rows, one group per column vector)."""
+    from gcn_grabcut_torch.ops import region
+    fn = lib.segment_reduce
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 4
+    rows = vals.shape[0]
+    cols = vals.numel() // max(rows, 1)
+    plan = region.kernel_plan(rows, cols, segs.n, vals.element_size(),
+                              vals.data_ptr() % 16 == 0
+                              and out.data_ptr() % 16 == 0)
+    most = plan.cv * -(-rows // region.THREADS)
+    keep = torch.empty(plan.cv * rows, dtype=torch.int32, device=vals.device)
+    count = torch.empty(most, dtype=torch.int32, device=vals.device)
+    done = torch.zeros(most, dtype=torch.int32, device=vals.device)
+    perm = None if segs.order is None else segs.order.data_ptr()
+
+    def call():
+        err = fn(region._DTYPE_CODES[vals.dtype], region._OPS[op], plan.vec,
+                 plan.tile, vals.data_ptr(), perm, segs.ordered.data_ptr(),
+                 segs.offsets.data_ptr(), out.data_ptr(), rows, segs.n, cols,
+                 keep.data_ptr(), count.data_ptr(), done.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return call
+
+
+def block_path_call(lib, vals, segs, out, op: str, stream):
+    """A call of the block-path design's segment_reduce."""
+    from gcn_grabcut_torch.ops import region
+    fn = lib.segment_reduce
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    perm = None if segs.order is None else segs.order.data_ptr()
+    cols = vals.numel() // max(vals.shape[0], 1)
+
+    def call():
+        err = fn(region._DTYPE_CODES[vals.dtype], region._OPS[op],
+                 vals.data_ptr(), perm, segs.offsets.data_ptr(),
+                 out.data_ptr(), segs.n, cols, stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return call
 
 
 def segment_variants() -> None:
-    """The segment-sum kernel as built and in SEGMENT_VARIANTS at
-    chip_smoke's fixed-order sums shapes, device ms per call, each output
-    held to the plain version bit for bit."""
+    """The segment-sum kernel as built, in SEGMENT_VARIANTS and as the
+    block-path design, at chip_smoke's timed fixed-order sums cases (real,
+    random and adversarial values), device ms per call, each output held
+    to the plain version bit for bit."""
     import chip_smoke as cs
     from gcn_grabcut_torch.ops import region
 
@@ -376,31 +548,246 @@ def segment_variants() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     cases, _ = cs.segment_cases(dev)
     libs = build_variants("segment_sum", SEGMENT_VARIANTS, "seg")
-    for name, (idx, vals, n, srt, label) in cases.items():
-        if name.endswith(("_bf16", "_1d", "rank3")):
+    block_path = build_block_path()
+    for name, case in cases.items():
+        if not case.timed:
             continue
-        segs = region.Segments(idx, n, srt)
-        want = region.segment_reduce_plain(vals, segs, "sum")
+        segs = region.Segments(case.index, case.n, case.is_sorted)
+        want = region.segment_reduce_plain(case.values, segs, case.op)
         out = torch.empty_like(want)
-        perm = None if segs.order is None else segs.order.data_ptr()
-        cols = vals.numel() // max(vals.shape[0], 1)
-        for variant, lib in libs:
-            fn = lib.segment_reduce
-            fn.argtypes = [ctypes.c_int, ctypes.c_int] + [
-                ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
-                                        ctypes.c_void_p]
-
-            def call():
-                err = fn(region._DTYPE_CODES[vals.dtype], 0, vals.data_ptr(),
-                         perm, segs.offsets.data_ptr(), out.data_ptr(), n,
-                         cols, stream)
-                if err:
-                    raise RuntimeError(f"launch failed: CUDA error {err}")
+        calls = [(label, segment_call(lib, case.values, segs, out, case.op,
+                                      stream)) for label, lib in libs]
+        calls.append(("the block-path design", block_path_call(
+            block_path, case.values, segs, out, case.op, stream)))
+        for variant, call in calls:
             out.zero_()
             call()
-            exact = torch.equal(out, want)
-            print(f"segment_sum {name} ({label}), {variant}: "
+            exact = cs.same_bits(out, want)
+            print(f"segment_sum {name} ({case.label}), {variant}: "
                   f"{cs.time_ms(call):.4f} ms (exact: {exact})", flush=True)
+
+
+def block_path_segment_reduce(lib):
+    """The block-path design's wrapper (ops/region.py segment_reduce_cuda
+    at commit 33bdaee) around its library: the checks, the
+    output, the argument types set at every call, no scratch."""
+    from gcn_grabcut_torch.ops import region
+
+    def segment_reduce_cuda(values, segs, op):
+        if (values.device.type != "cuda"
+                or segs.offsets.device != values.device):
+            raise ValueError("values and segments on one CUDA device")
+        if values.dtype not in region._DTYPE_CODES:
+            raise TypeError(f"no kernel for {values.dtype}")
+        if op not in region._OPS:
+            raise ValueError(f"unknown reduction {op!r}")
+        if values.dim() < 1 or values.shape[0] != segs.index.shape[0]:
+            raise ValueError("values do not match the index")
+        if not values.is_contiguous():
+            raise ValueError("values must be contiguous")
+        out = torch.empty((segs.n,) + values.shape[1:], dtype=values.dtype,
+                          device=values.device)
+        if out.numel() == 0:
+            return out
+        fn = lib.segment_reduce
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+            + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        perm = None if segs.order is None else segs.order.data_ptr()
+        with torch.cuda.device(values.device):
+            stream = torch.cuda.current_stream(values.device).cuda_stream
+            err = fn(region._DTYPE_CODES[values.dtype], region._OPS[op],
+                     values.data_ptr(), perm, segs.offsets.data_ptr(),
+                     out.data_ptr(), segs.n, region._flat(values).shape[1],
+                     stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+        region.segment_sum.kernel_launches += 1
+        return out
+    return segment_reduce_cuda
+
+
+#: Calls per wrapper timing, and runs per path timing (the median is kept).
+HOST_CALLS, HOST_REPS = 200, 15
+
+
+def host_cost() -> None:
+    """The segment sum's wrapper and kernel as built against the
+    block-path design's (block_path_segment_reduce) in one process, on the paths that make many
+    short sums: the wrapper's host microseconds per call (queued, no sync),
+    the 4-rank sharded forward and backward at 1536^2 / 10k, and one fp32
+    training step of ResGCNNet and of GCNTrimapNet (8 graphs at 512^2 /
+    500, numpy-seeded weights), host wall ms with a sync after each, the
+    median of HOST_REPS.  The designs run as built, block path, block
+    path, as built."""
+    import chip_smoke as cs
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.ops import region
+    from gcn_grabcut_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    built = region.segment_reduce_cuda
+    designs = {"as built": built,
+               "the block-path design's wrapper and kernel":
+                   block_path_segment_reduce(
+                   build_block_path())}
+    order = list(designs) + list(designs)[::-1]
+
+    def each(label: str, fn, unit: str) -> None:
+        """fn() -> (numbers, launches) under each design in `order`."""
+        got: dict = {name: [] for name in designs}
+        for name in order:
+            region.segment_reduce_cuda = designs[name]
+            try:
+                numbers, launches = fn()
+            finally:
+                region.segment_reduce_cuda = built
+            got[name].append(numbers)
+        for name, runs in got.items():
+            print(f"host cost, {label}, {name}: " + "; ".join(
+                ", ".join(f"{k} {v:.4f} {unit}" for k, v in r.items())
+                for r in runs) + f" (segment_sum launches {launches})",
+                flush=True)
+
+    r = np.random.RandomState(0)
+    for label, (rows, cols, n) in {
+            "wrapper, 27 333 x 128 into 2 500 (long blocks planned)":
+                (27_333, 128, 2_500),
+            "wrapper, 200 x 8 into 40 (no long blocks)": (200, 8, 40)}.items():
+        segs = region.Segments(torch.as_tensor(r.randint(0, n, rows),
+                                               device=dev), n)
+        vals = torch.randn((rows, cols), device=dev)
+
+        def calls():
+            fn = region.segment_reduce_cuda
+            for _ in range(20):
+                fn(vals, segs, "sum")
+            torch.cuda.synchronize()
+            region.segment_sum.kernel_launches = 0
+            t = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn(vals, segs, "sum")
+            host = (time.perf_counter() - t) / HOST_CALLS
+            torch.cuda.synchronize()
+            return ({"host per call": host * 1e6},
+                    region.segment_sum.kernel_launches)
+        each(label, calls, "us")
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=cs.N_SEGMENTS)
+    g = cs.graph_on_card([cs.make_image(cs.IMAGE_HW)], cfg, dev)
+    model = gt.ResGCNNet(
+        hidden_channels=cs.HIDDEN, n_layers=cs.N_LAYERS,
+        generator=torch.Generator().manual_seed(cs.MODEL_SEED)).to(dev).eval()
+    edges = [a[0].cpu().numpy() for a in (g.edge_src, g.edge_dst,
+                                          g.edge_mask)]
+    aggs = gt.mesh_aggregators(gt.make_graph_mesh(cs.PATH_RANKS), *edges,
+                               g.max_nodes, method="allgather",
+                               halo="pallas_ring")
+    c = torch.randn((1, g.max_nodes, 3), device=dev)
+
+    def sharded():
+        fwd, bwd = [], []
+        for _ in range(HOST_REPS + 1):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            region.segment_sum.kernel_launches = 0
+            t0 = time.perf_counter()
+            logits = model(g, aggregators=aggs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = region.segment_sum.kernel_launches
+            (logits * c).sum().backward()
+            torch.cuda.synchronize()
+            fwd.append(t1 - t0)
+            bwd.append(time.perf_counter() - t1)
+        return ({"forward": 1e3 * float(np.median(fwd[1:])),
+                 "backward": 1e3 * float(np.median(bwd[1:]))}, launches)
+    each(f"sharded path ({cs.PATH_RANKS} ranks, 1536^2 / 10k, ResGCNNet "
+         f"D={cs.HIDDEN} n={cs.N_LAYERS}, fp32; launches in the forward)",
+         sharded, "ms")
+
+    samples = gt.make_hard_synthetic_dataset(cs.TRAIN_GRAPHS, cs.DENSE_HW,
+                                             seed=cs.EVAL_SEED + 1)
+    graphs = [x[0] for x in gt.prepare_dataset(samples, gt.SuperpixelGraphConfig(
+        n_segments=cs.DENSE_SEGMENTS, bg_connectivity=True))]
+    tcfg = TrainConfig(bf16=False, prior_dropout=0.0, weight_decay=3e-4,
+                       batch_size=cs.TRAIN_GRAPHS, verbose=False)
+    tmp = tempfile.TemporaryDirectory()
+    for variant in ("resgcn", "gcn"):
+        tr = Trainer(variant, dict(hidden_channels=cs.HIDDEN,
+                                   n_layers=cs.N_LAYERS, dropout=0.0),
+                     tcfg, save_dir=tmp.name, device=dev)
+        batch = tr._bucket(graphs)
+        tr._init_state(1)
+        gt.init_model_numpy(tr.model, cs.VARIANT_SEED)
+        w = torch.ones(batch.n_graphs, device=dev)
+
+        def train_step(tr=tr, batch=batch, w=w):
+            steps = []
+            for _ in range(HOST_REPS + 1):
+                torch.cuda.synchronize()
+                region.segment_sum.kernel_launches = 0
+                t = time.perf_counter()
+                loss, grads = tr.loss_and_grads(batch, w)
+                tr.optimizer.step(grads)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t)
+            return ({"step": 1e3 * float(np.median(steps[1:]))},
+                    region.segment_sum.kernel_launches)
+        each(f"training step ({variant} D={cs.HIDDEN} n={cs.N_LAYERS}, "
+             f"{cs.TRAIN_GRAPHS} graphs at {cs.DENSE_HW}^2 / "
+             f"{cs.DENSE_SEGMENTS}, fp32; launches per step)", train_step,
+             "ms")
+    tmp.cleanup()
+
+
+def cleanup_profile() -> None:
+    """The main path's segment_batch at 1536^2 / 10k under the profiler,
+    then its clean-up's two parts on the same image's mask, each alone:
+    connected_components and the component sums."""
+    import chip_smoke as cs
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.ops.connected import connected_components
+    from gcn_grabcut_torch.ops.region import segment_sum
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=cs.N_SEGMENTS)
+    model = gt.ResGCNNet(
+        hidden_channels=cs.HIDDEN, n_layers=cs.N_LAYERS,
+        generator=torch.Generator().manual_seed(cs.MODEL_SEED))
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    img = cs.make_image(cs.IMAGE_HW)
+    pipe.segment_batch([img])                                  # warm
+    t = time.perf_counter()
+    res = pipe.segment_batch([img], sync_timing=True)[0]
+    wall = time.perf_counter() - t
+    print("segment_batch stages: " + " ".join(
+        f"{k}={v:.3f}s" for k, v in res.timing.items()), flush=True)
+    report("segment_batch (1536^2 / 10k)", wall,
+           lambda: pipe.segment_batch([img]))
+
+    dev = torch.device("cuda")
+    hw = cs.IMAGE_HW * cs.IMAGE_HW
+    mask = torch.as_tensor(res.binary_mask, device=dev) > 0
+    post = torch.rand((hw,), device=dev)
+
+    def components():
+        return connected_components(mask).long().reshape(-1)
+
+    labels = components()
+    clamped = labels.clamp_max(hw - 1)
+    valid = (labels < hw).float()
+    planes = torch.stack([valid, valid, post * valid], 1)
+    for label, fn in (("connected_components", components),
+                      ("the component sums (segment_sum, 3 planes)",
+                       lambda: segment_sum(clamped, planes, hw))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        report(f"clean-up on the main path's mask (FG "
+               f"{float(mask.float().mean()):.4f}): {label}",
+               time.perf_counter() - t, fn)
 
 
 def gat_attention() -> None:
@@ -438,7 +825,9 @@ def main() -> None:
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
         kernel_variants()
         segment_variants()
+        host_cost()
         gat_attention()
+        cleanup_profile()
         return
     import chip_smoke as cs
     import gcn_grabcut_torch as gt

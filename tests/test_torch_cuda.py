@@ -400,6 +400,73 @@ def test_segment_sum_kernel_matches_plain_bit_for_bit(cuda, dtype, cols,
     assert torch.equal(got.cpu(), cpu)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching any NaN (its payload is the hardware's:
+    the card and the CPU make different ones); +0 and -0 differ."""
+    na, nb = a.isnan(), b.isnan()
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    as_int = ints[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(as_int), b.masked_fill(nb, 0).view(as_int))
+
+
+def identity_case(device, dtype, cols, is_sorted, op, seed=6):
+    """Long segments where the kernel's tiles make them hard (one starting
+    on a tile's first row, two sharing a tile, one over many tiles, one of
+    exactly a tile) among short ones, their rows mostly the reduction's
+    identity (+-0 for a sum, -inf for a maximum), with subnormals, +-inf
+    and NaN in the rest."""
+    r = np.random.RandomState(seed)
+    elt = torch.empty((), dtype=dtype).element_size()
+    tile = region.kernel_plan(1, cols or 1, 1, elt, True).tile
+    lengths = [3, 0, 5, tile - 8, 2 * tile + 40, 7, tile + 3, 0, tile,
+               9 * tile + 100, 4, 1]
+    idx = np.repeat(np.arange(len(lengths)), lengths)
+    n, rows = len(lengths) + 2, len(idx)
+    if not is_sorted:
+        idx = idx[r.permutation(rows)]
+    shape = (rows,) if cols is None else (rows, cols)
+    tiny = {torch.float32: 1e-45, torch.float64: 5e-324,
+            torch.bfloat16: 9.2e-41, torch.float16: 6e-8}[dtype]
+    pick = r.rand(*shape)
+    v = np.where(r.rand(*shape) < 0.5, 0.0, -0.0)
+    if op == "max":
+        v = np.full(shape, -np.inf)
+    live = (r.rand(rows) < 0.02)[(slice(None),) + (None,) * (len(shape) - 1)]
+    v = np.where(live & (pick < 0.5), r.randn(*shape) * 3, v)
+    v = np.where(live & (pick > 0.9), tiny * r.choice([-1, 1], shape), v)
+    specials = r.choice([np.inf, -np.inf, np.nan], 12)
+    flat = v.reshape(rows, -1)
+    flat[r.randint(0, rows, 12), r.randint(0, flat.shape[1], 12)] = specials
+    vals = torch.from_numpy(v).to(torch.float64).to(dtype)
+    return torch.from_numpy(idx).to(device), vals.to(device), n
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("is_sorted", [False, True])
+@pytest.mark.parametrize("cols", [None, 3, 8, 65, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+def test_segment_sum_kernel_skips_identity_rows_bit_for_bit(
+        cuda, dtype, cols, is_sorted, op):
+    """The long blocks leave identity rows out of each chain: the bits are
+    still the plain version's, on the card and on the CPU, and a second
+    call (the hand-off counters back at 0) gives them again."""
+    idx, vals, n = identity_case(cuda, dtype, cols, is_sorted, op)
+    segs = region.Segments(idx, n, is_sorted)
+    tile = region.kernel_plan(vals.shape[0], cols or 1, n,
+                              vals.element_size(), True).tile
+    assert bool(region.long_segments(segs.offsets, tile).any())
+    got = region.segment_reduce_cuda(vals, segs, op)
+    again = region.segment_reduce_cuda(vals, segs, op)
+    torch.cuda.synchronize()
+    want = region.segment_reduce_plain(vals, segs, op)
+    assert same_bits(got, want) and same_bits(again, want)
+    cpu = region.segment_reduce_plain(
+        vals.cpu(), region.Segments(idx.cpu(), n, is_sorted), op)
+    assert same_bits(got.cpu(), cpu)
+
+
 def test_segment_sum_kernel_takes_unaligned_rows(cuda):
     idx, vals, n = segment_case(cuda, torch.float32, 8, False)
     shifted = torch.empty(vals.numel() + 1, device=cuda)[1:].view(vals.shape)
@@ -407,6 +474,23 @@ def test_segment_sum_kernel_takes_unaligned_rows(cuda):
     segs = region.Segments(idx, n)
     assert torch.equal(region.segment_reduce_cuda(shifted, segs, "sum"),
                        region.segment_reduce_plain(vals, segs, "sum"))
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_segment_sum_kernel_takes_a_strided_sorted_index(cuda, op):
+    """A sorted index that is a column of an edge list (a strided view)
+    reaches the long blocks as a dense int64 array: the plain version's
+    bits.  A non-contiguous `ordered` put in by hand raises."""
+    idx, vals, n = identity_case(cuda, torch.float32, 8, True, op)
+    edges = torch.stack([torch.zeros_like(idx), idx], 1)
+    segs = region.Segments(edges[:, 1], n, is_sorted=True)
+    got = region.segment_reduce_cuda(vals, segs, op)
+    cpu = region.segment_reduce_plain(
+        vals.cpu(), region.Segments(idx.cpu(), n, is_sorted=True), op)
+    assert same_bits(got.cpu(), cpu)
+    segs.ordered = edges[:, 1]
+    with pytest.raises(ValueError, match="contiguous int64"):
+        region.segment_reduce_cuda(vals, segs, op)
 
 
 def test_segment_sum_syncs_no_host(cuda):

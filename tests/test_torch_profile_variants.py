@@ -40,3 +40,12 @@ def test_ring_collectives_release_without_sc_fence():
     assert "__threadfence_system" not in code and "fence.sc" not in code
     assert "__threadfence_system" in pp.variant_source(
         "ring_collectives", *pp.FENCED_EXIT)
+
+
+def test_the_block_path_design_is_kept_with_its_interface():
+    """profile_port times the design before the long blocks from its own
+    source, through the C interface that design had."""
+    src = open(pp.SEGMENT_BLOCK_PATH).read()
+    assert "long_segment_kernel" in src
+    assert ('extern "C" int segment_reduce(int dtype, int op, const void* '
+            'values,') in src

@@ -310,3 +310,251 @@ def test_halos_give_the_same_parameter_gradients():
     assert grads["xla"].keys() == grads["pallas_ring"].keys()
     for k, v in grads["xla"].items():
         assert torch.equal(v, grads["pallas_ring"][k]), k
+
+
+# -- the kernel's exactness rule and its host-side arithmetic --------------
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching any NaN; +0 and -0 differ."""
+    na, nb = a.isnan(), b.isnan()
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints))
+
+
+TINY = {torch.float32: 1e-45, torch.float64: 5e-324, torch.bfloat16: 9.2e-41,
+        torch.float16: 6e-8}
+
+
+def identity_heavy(seed: int, dtype, op: str) -> torch.Tensor:
+    """(P, 6) values, most of them the op's identity (+-0 for a sum, -inf
+    for a maximum), the rest normal, subnormal (+-), +-inf, NaN or the
+    other signed zero."""
+    r = np.random.RandomState(200 + seed)
+    ident = (np.where(r.rand(P, 6) < 0.5, 0.0, -0.0) if op == "sum"
+             else np.full((P, 6), -np.inf))
+    pick = r.rand(P, 6)
+    live = r.rand(P, 1) < 0.4
+    v = np.where(live & (pick < 0.4), r.randn(P, 6) * 3, ident)
+    v = np.where(live & (pick > 0.8), TINY[dtype] * r.choice([-1, 1], (P, 6)),
+                 v)
+    v = np.where(live & (pick > 0.97), r.choice([np.inf, -np.inf, np.nan,
+                                                 0.0, -0.0], (P, 6)), v)
+    return torch.from_numpy(v).to(dtype)
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+def test_identity_rows_leave_a_chain_with_the_same_bits(dtype, op, seed):
+    """The rule the kernel's long blocks rest on: a row whose values in a
+    chain's columns are all +-0 (for a sum) or all -inf (for a maximum)
+    can be left out of the chain, at every dtype, with the plain version's
+    bits; checked for the whole row and for a group of two columns."""
+    idx, vals = index(seed, seed % 2 == 0), identity_heavy(seed, dtype, op)
+    want = segment_reduce_plain(vals, Segments(idx, N, seed % 2 == 0), op)
+    ident = 0.0 if op == "sum" else float("-inf")
+    for cols in (slice(None), slice(2, 4)):
+        live = (vals[:, cols] != ident).any(dim=1)
+        got = segment_reduce_plain(vals[live], Segments(idx[live], N), op)
+        assert bool((~live).sum() > P // 4)
+        assert same_bits(got[:, cols], want[:, cols])
+
+
+@pytest.mark.parametrize(
+    "shape,want",
+    # (rows, cols, n, element bytes, aligned) ->
+    # (vec, cv, groups, tile, tiles, long blocks, short blocks)
+    [((160_000, 128, 10_000, 4, True), (4, 32, 16, 256, 625, 1250, 1250)),
+     ((160_000, 65, 10_000, 4, True), (1, 65, 9, 256, 625, 704, 2540)),
+     ((160_000, 8, 10_000, 4, True), (4, 2, 1, 1024, 157, 20, 79)),
+     ((160_000, 1, 5_177_344, 4, True), (1, 1, 1, 1024, 157, 20, 20224)),
+     ((2_359_296, 15, 10_000, 4, True), (1, 15, 2, 1024, 2304, 576, 586)),
+     ((2_359_296, 3, 2_359_296, 4, True), (1, 3, 1, 1024, 2304, 288, 27648)),
+     ((27_333, 128, 2_500, 4, True), (4, 32, 16, 256, 107, 214, 313)),
+     ((160_000, 128, 10_000, 2, True), (8, 16, 8, 256, 625, 625, 625)),
+     ((160_000, 128, 10_000, 4, False), (1, 128, 16, 256, 625, 1250, 5000)),
+     ((200, 6, 40, 8, True), (2, 3, 2, 1024, 1, 0, 1))])
+def test_kernel_plan(shape, want):
+    """Vectors, column groups, the tile by the row's bytes, tiles, the long
+    blocks (none when no segment can be long) and the per-thread blocks."""
+    plan = region.kernel_plan(*shape)
+    assert (plan.vec, plan.cv, plan.groups, plan.tile, plan.tiles,
+            plan.long_blocks, plan.short_blocks) == want
+    assert plan.gv * plan.vec * shape[3] == region.GROUP_BYTES
+    rows = shape[0]
+    if plan.long_blocks:
+        assert plan.keep == plan.groups * rows
+        assert plan.count == plan.done == plan.groups * plan.tiles
+        assert plan.long_blocks * region.UNITS >= plan.tiles * plan.groups
+    else:
+        assert plan.keep == plan.count == plan.done == 0
+
+
+@pytest.mark.parametrize("cols,elt,tile", [(64, 4, 256), (63, 4, 1024),
+                                            (32, 8, 256), (127, 2, 1024)])
+def test_kernel_plan_tile_follows_the_row_bytes(cols, elt, tile):
+    """Rows of WIDE_ROW_BYTES or more take TILE_WIDE, narrower ones
+    TILE_NARROW; with fewer rows than the tile no segment can be long."""
+    plan = region.kernel_plan(5000, cols, 10, elt, True)
+    assert plan.tile == tile and plan.long_blocks > 0
+    assert region.kernel_plan(tile - 1, cols, 10, elt, True).long_blocks == 0
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_a_strided_sorted_index_is_kept_contiguous(op):
+    """A sorted index that is a strided view (a column of an edge list)
+    is kept as a contiguous int64 `ordered`, which the kernel reads as a
+    dense array, with the same sums."""
+    idx = long_index(32)
+    edges = torch.stack([torch.zeros_like(idx), idx], 1)
+    assert not edges[:, 1].is_contiguous()
+    segs = Segments(edges[:, 1], N, is_sorted=True)
+    assert segs.ordered.is_contiguous() and segs.ordered.dtype == torch.int64
+    vals = torch.from_numpy(np.random.RandomState(3).randn(P, 6)
+                            .astype(np.float32))
+    assert same_bits(segs.sum(vals) if op == "sum" else segs.max(vals),
+                     segment_reduce_plain(vals, Segments(idx, N, True), op))
+
+
+def long_index(tile: int) -> torch.Tensor:
+    """P rows into N segments: a long one at a tile's first row, one of
+    exactly a tile and one a row short, around short and empty ones."""
+    lengths = np.zeros(N, np.int64)
+    lengths[[0, 2, 5, 6, 9]] = [tile, 7, tile - 1, 3, 0]
+    lengths[39] = P - lengths.sum()
+    return torch.from_numpy(np.repeat(np.arange(N), lengths))
+
+
+def test_long_segments_are_those_of_a_tile_or_more():
+    tile = 32
+    segs = Segments(long_index(tile), N, is_sorted=True)
+    lengths = segs.offsets.diff()
+    want = lengths >= tile
+    assert torch.equal(region.long_segments(segs.offsets, tile), want)
+    assert want[0] and not want[5] and not want[9] and not want[1]
+    assert want.sum() == 2 and lengths[39] == P - 2 * tile - 9
+
+
+def max_after(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's join of the maxima of two consecutive runs of rows."""
+    return torch.where(b.isnan(), b, torch.where(a.isnan(), a,
+                                                 torch.where(a < b, b, a)))
+
+
+def model_walk(ordered, offsets, values, tile: int, n: int):
+    """A sum's long blocks in plain Python: each tile keeps, in order, its
+    rows of the long segments of its first and last rows that are not
+    identity rows, counted for each of the two; each long segment's chain
+    then reads its tiles' entries (in its first tile the second segment's,
+    if it starts inside it).  Returns {segment: rows of its chain}; checks
+    that each long segment's counter counts its tiles."""
+    rows = ordered.numel()
+    tiles = -(-rows // tile)
+    live = (values.reshape(rows, -1) != 0).any(dim=1)
+    seg_len = offsets.diff()
+    keep, counts, units = {}, {}, {}
+    for t in range(tiles):
+        p0, pe = t * tile, min(rows, (t + 1) * tile)
+        s0, s1 = int(ordered[p0]), int(ordered[pe - 1])
+        long0 = seg_len[s0] >= tile
+        long1 = s1 != s0 and seg_len[s1] >= tile
+        e0 = min(int(offsets[s0 + 1]), pe) if long0 else p0
+        b1 = int(offsets[s1]) if long1 else pe
+        kept = [p for p in range(p0, pe)
+                if (p < e0 or b1 <= p < pe) and live[p]]
+        keep[t] = kept
+        counts[t] = (sum(p < e0 for p in kept), sum(p >= b1 for p in kept))
+        for s, is_long in ((s0, long0), (s1, long1)):
+            if is_long:
+                units[s] = units.get(s, 0) + 1
+    chains = {}
+    for s in range(n):
+        if seg_len[s] < tile:
+            continue
+        lo, hi = int(offsets[s]), int(offsets[s + 1])
+        chain = []
+        for t in range(lo // tile, (hi - 1) // tile + 1):
+            c0, c1 = counts[t]
+            second = t == lo // tile and lo != t * tile
+            chain += keep[t][c0:c0 + c1] if second else keep[t][:c0]
+        chains[s] = chain
+        assert units[s] == (hi - 1) // tile - lo // tile + 1
+    return chains
+
+
+def long_case(tile: int, op: str, dtype=torch.float32):
+    """long_index(tile) with more long segments deep in the rows, sorted,
+    and identity-heavy values."""
+    idx = long_index(tile)
+    idx[150:] = torch.from_numpy(np.random.RandomState(7).randint(12, N,
+                                                                P - 150))
+    return (Segments(torch.sort(idx)[0], N, is_sorted=True),
+            identity_heavy(1, dtype, op))
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_tiles_hand_each_long_segment_its_chain(tile):
+    """A sum's tiles' kept rows and counts, read as the long blocks read
+    them, give each long segment exactly its non-identity rows in
+    ascending order, every tile of it counted once; and its sum over them
+    is the plain version's, bit for bit."""
+    segs, vals = long_case(tile, "sum")
+    chains = model_walk(segs.ordered, segs.offsets, vals, tile, N)
+    live = (vals != 0).any(dim=1)
+    want = segment_reduce_plain(vals, segs, "sum")
+    assert chains
+    for s, chain in chains.items():
+        lo, hi = int(segs.offsets[s]), int(segs.offsets[s + 1])
+        assert chain == [p for p in range(lo, hi) if live[p]]
+        got = segment_reduce_plain(vals[chain], Segments(
+            torch.zeros(len(chain), dtype=torch.long), 1), "sum")
+        assert same_bits(got[0], want[s])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_tiles_maxima_joined_in_order_give_the_chain(tile, dtype):
+    """A maximum's long blocks: each tile's part of a long segment reduced
+    alone, in 32-row runs joined in row order, then the tiles' maxima
+    joined in order: the plain version's bits, NaN, +-0 and -inf
+    included."""
+    segs, vals = long_case(tile, "max", dtype)
+    vals = vals.float() if dtype != torch.float64 else vals
+    want = segment_reduce_plain(vals, segs, "max")
+    lengths = segs.offsets.diff()
+    for s in torch.nonzero(lengths >= tile).reshape(-1).tolist():
+        lo, hi = int(segs.offsets[s]), int(segs.offsets[s + 1])
+        acc = torch.full(vals.shape[1:], float("-inf"), dtype=vals.dtype)
+        for t in range(lo // tile, (hi - 1) // tile + 1):
+            part = torch.full_like(acc, float("-inf"))
+            a, b = max(lo, t * tile), min(hi, (t + 1) * tile)
+            for r0 in range(a, b, 32):
+                run = torch.full_like(acc, float("-inf"))
+                for p in range(r0, min(b, r0 + 32)):
+                    run = max_after(run, vals[p])
+                part = max_after(part, run)
+            acc = max_after(acc, part)
+        assert same_bits(acc, want[s])
+
+
+def test_done_counters_are_zero_and_kept_per_stream():
+    """The long blocks' buffers: one per (device, stream) and store, zero
+    when made, reused while large enough, grown at least twofold."""
+    cpu = torch.device("cpu")
+    for store in (region._DONE, region._WORK):
+        store.clear()
+        a = region._stream_buffer(store, cpu, 1, 10)
+        assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
+        assert region._stream_buffer(store, cpu, 1, 5) is a
+        b = region._stream_buffer(store, cpu, 2, 5)
+        assert b is not a
+        c = region._stream_buffer(store, cpu, 1, 11)
+        assert c.numel() >= 20 and not c.any()
+        store.clear()
+    assert region._stream_buffer(region._DONE, cpu, 1, 4) is not \
+        region._stream_buffer(region._WORK, cpu, 1, 4)
+    region._DONE.clear()
+    region._WORK.clear()
