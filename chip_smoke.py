@@ -45,9 +45,9 @@ Phases, each of which exits non-zero on failure:
   4. the main path: GCNGrabCutPipeline.segment_batch on a 1536x1536
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
-     launch counts set to 0 just before and read just after (K1 and the
-     segment sum); the card's forward is then held against the plain
-     forward on the CPU;
+     launch counts set to 0 just before and read just after (K1, the
+     segment sum and the min-cut, one launch per GrabCut iteration); the
+     card's forward is then held against the plain forward on the CPU;
   5. the graph-sharded path on the same graph and model: the forward
      through mesh_aggregators over 4 ranks with the ring halo (K2) and the
      gradient of sum(logits * c) for every parameter (K3), twice, with
@@ -167,9 +167,25 @@ Phases, each of which exits non-zero on failure:
      stage's wall s of both at B = 1, 2, 4, 8 (the loop's, the sum of its
      images' solves, each timed once); per image outer rounds and push
      sweeps of both, relabel relaxation steps and solver host syncs per
-     image for the loop and per batch for the lock step; the lock step's
-     peak memory at B=8.  Phases 6 and 10 run the lock step through
-     segment_batch.
+     image for the loop and per batch for the lock step (0 syncs: every
+     solve is one kernel launch); the lock step's peak memory at B=8.
+     Phases 6 and 10 run the lock step through segment_batch.
+ 16. the min-cut kernel (csrc/grid_mincut.cu: the whole push-relabel
+     solve in one cooperative launch) against its plain version
+     (grid_mincut_plain, the eager solver) on the card, bit for bit on fg,
+     e', every residual plane, each image's rounds and the relabel steps,
+     one launch and no host sync per solve (torch.cuda.set_sync_debug_mode
+     "error"), on the solves recorded at the wrapper: the main path's
+     first GrabCut iteration at 1536^2, the dense phase's 8 images in lock
+     step (first and second, flow-recycled, iterations), the first of
+     those with max_outer 2, and grid_mincut_multilevel (levels=1) on the
+     main path's first-iteration energy (coarse and banded solves); each
+     with the kernel's device time, the plain version's wall time, its
+     rounds, relabel steps and grid-wide barriers, the bytes bound (each
+     step's state read once and written once -- a push sweep 16 + 16 D
+     bytes a pixel -- at 3.35 TB/s), the kernel's own traffic (a sweep's
+     2 D + 2 passes, 20 + 84 D bytes a pixel) and the barrier floor (its
+     barriers times an empty barrier's time, measured on the same grid).
 The fp32 training steps on the card (phases 8 and 9) and the data-parallel
 and solo steps of phase 11 each run twice and fail unless the two are
 bit-identical.
@@ -181,8 +197,9 @@ Phase 1 also reports whether cv2, PIL, networkx, matplotlib and yaml
 import (information only; visualise draws with cv2 without matplotlib).
 Kernel times are device times: the launches run back to back behind a
 device sleep, so the host's launch cost is not counted.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
+The last lines are the kernels' JSON record (K1, K2, K3, the segment sum
+and the min-cut, whose record adds its barrier floor), the card's name and
+power limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
 """
 
@@ -191,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import inspect
 import json
 import subprocess
 import sys
@@ -360,6 +378,10 @@ SCATTER_TOL = 1e-6
 # Phase 15: the lock-step GrabCut at these batch sizes (of the dense
 # phase's DENSE_IMAGES images).
 LOCK_STEP_BATCHES = (1, 2, 4, 8)
+# Phase 16: the min-cut kernel's max_outer-bound case, and the empty
+# grid-wide barriers timed for its barrier floor.
+CUT_BOUND_OUTER = 2
+CUT_BARRIERS = 2000
 
 
 def optional_packages() -> str:
@@ -1022,7 +1044,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit for bit, a NaN matching any NaN (its payload is the hardware's:
     the card and the CPU make different ones); +0 and -0 differ."""
     na, nb = a.isnan(), b.isnan()
-    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
     return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
         a.masked_fill(na, 0).view(ints), b.masked_fill(nb, 0).view(ints))
 
@@ -1234,10 +1257,12 @@ def graph_on_card(imgs: list, cfg, dev):
         edge_mask=out["edge_mask"], node_area=out["node_area"])
 
 
-def run_main_path(dev, record: dict, seg_record: dict) -> None:
+def run_main_path(dev, record: dict, seg_record: dict,
+                  cut_record: dict) -> None:
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.graph_build import num_nodes_for
     from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.maxflow import grid_mincut_cuda
     from gcn_grabcut_torch.ops.region import segment_sum
     from gcn_grabcut_torch.ops.spmm import banded_spmm
 
@@ -1256,20 +1281,24 @@ def run_main_path(dev, record: dict, seg_record: dict) -> None:
 
     banded_spmm.kernel_launches = 0
     segment_sum.kernel_launches = 0
+    grid_mincut_cuda.kernel_launches = 0
     t = time.perf_counter()
     res = pipe.segment_batch([img], sync_timing=True)[0]
     wall = time.perf_counter() - t
     launches = banded_spmm.kernel_launches
     seg_launches = segment_sum.kernel_launches
+    cut_launches = grid_mincut_cuda.kernel_launches
     record["launches"] = launches
     seg_record["launches"] = seg_launches
+    cut_record["launches"] = cut_launches
     stages = " ".join(f"{s}={v:.3f}s" for s, v in res.timing.items())
     fg = float(res.binary_mask.mean())
     tri = np.bincount(res.trimap.ravel(), minlength=4) / res.trimap.size
     print(f"main path timed run (B=1, {IMAGE_HW}^2, K={k}, ResGCNNet "
           f"D={HIDDEN} n={N_LAYERS}): {wall:.3f} s; {stages}; "
           f"banded_spmm launches={launches}, segment_sum launches="
-          f"{seg_launches}; trimap BG/FG/PR_BG/PR_FG="
+          f"{seg_launches}, grid_mincut launches={cut_launches}; trimap "
+          f"BG/FG/PR_BG/PR_FG="
           f"{'/'.join(f'{v:.3f}' for v in tri)}; FG fraction={fg:.4f}",
           flush=True)
     if launches != N_LAYERS + 1:
@@ -1277,6 +1306,10 @@ def run_main_path(dev, record: dict, seg_record: dict) -> None:
              f"{N_LAYERS + 1} per forward")
     if seg_launches == 0:
         fail("the main path launched no segment-sum kernel")
+    n_iter = gt.grabcut.GrabCutConfig().n_iter
+    if cut_launches != n_iter:
+        fail(f"the main path launched the min-cut kernel {cut_launches} "
+             f"times, expected {n_iter} (one per GrabCut iteration)")
     if res.probs.shape != (k, 3) or not np.isfinite(res.probs).all():
         fail("posteriors are not finite (K, 3)")
     if not 0.0 < fg < 1.0:
@@ -1642,6 +1675,190 @@ def run_lock_step(dev, card: str, images: list, trimaps: list) -> None:
         fail(f"the lock step's masks at B={other} differ from the loop's")
     if not all(np.isfinite(list(walls.values()))) or lock.shape != loop.shape:
         fail("the lock-step phase gave no masks or times")
+
+
+def recorded_solves(fn, *args) -> list:
+    """Runs fn(*args) recording every min-cut solve it makes (the calls of
+    grid_mincut_batch by grabcut.py and inside ops/maxflow.py):
+    [(excess, r_fwd, r_bwd, options)]."""
+    from gcn_grabcut_torch import grabcut as gc
+    from gcn_grabcut_torch.ops import maxflow as mf
+    solve, calls = mf.grid_mincut_batch, []
+    signature = inspect.signature(solve)
+
+    def recording(*args, **kwargs):
+        kw = signature.bind(*args, **kwargs).arguments
+        calls.append((kw.pop("excess"), tuple(kw.pop("r_fwd")),
+                      tuple(kw.pop("r_bwd")), kw))
+        return solve(*args, **kwargs)
+
+    gc.grid_mincut_batch = mf.grid_mincut_batch = recording
+    try:
+        fn(*args)
+    finally:
+        gc.grid_mincut_batch = mf.grid_mincut_batch = solve
+    return calls
+
+
+def mincut_bytes(tally: dict, shape: tuple, n_dirs: int, n_sweeps: int,
+                 max_outer: int, sweep_bytes=lambda d: 16 + 16 * d) -> int:
+    """Bytes a solve with these tallies must move, each step reading its
+    state once and writing it once (per pixel: a relabel's set-up reads e
+    and the residuals and writes the heights and one byte of arcs, 9 + 8
+    D; a relax step reads the heights and arcs and writes the heights, 9;
+    a round test reads e and the heights, 8; a push sweep reads and
+    writes e, the heights and both residual planes of each direction, 16 +
+    16 D; the final fg, 5).  `sweep_bytes` = mincut_design_sweep gives the
+    kernel's own traffic instead, whose 2 D + 2 passes a sweep also move
+    the flow planes and read e and the heights again."""
+    B, H, W = shape
+    rounds = np.asarray(tally["rounds"], np.int64)
+    tests = int(np.minimum(rounds + 1, max_outer).sum())
+    per_pixel = (int((2 + rounds).sum()) * (9 + 8 * n_dirs)
+                 + tally["relabel_image_steps"] * 9 + tests * 8
+                 + int(rounds.sum()) * n_sweeps * sweep_bytes(n_dirs)
+                 + B * 5)
+    return per_pixel * H * W
+
+
+def mincut_design_sweep(n_dirs: int) -> int:
+    """Bytes a pixel that the kernel's push sweep moves over its 2 D + 2
+    passes (csrc/grid_mincut.cu), against the 16 + 16 D it must."""
+    return 20 + 84 * n_dirs
+
+
+def barrier_us(shape: tuple, connectivity: int = 8) -> float:
+    """Device microseconds of one empty grid-wide barrier on the grid the
+    min-cut kernel launches for this (B, H, W)."""
+    from gcn_grabcut_torch.ops import maxflow as mf
+    _, H, W = shape
+    dev = torch.device("cuda")
+    mf.barrier_loop_cuda(connectivity, H, W, 10, dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    mf.barrier_loop_cuda(connectivity, H, W, CUT_BARRIERS, dev)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / CUT_BARRIERS
+
+
+def mincut_case(name: str, excess, r_fwd, r_bwd, kw: dict, card: str
+                ) -> dict:
+    """One solve by the kernel (grid_mincut_batch on the card) and by its
+    plain version (grid_mincut_plain on the card): every output and count
+    bit for bit, the kernel's time (device, 3 calls) and the plain
+    version's (wall, synchronised), the bytes bound, the design's traffic
+    and the barrier floor.  Fails on any differing bit or count."""
+    from gcn_grabcut_torch.ops import maxflow as mf
+    conn = kw.get("connectivity", 8)
+    opts = {k: v for k, v in kw.items() if k != "connectivity"}
+    mf.counts.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = mf.grid_mincut_plain(excess, r_fwd, r_bwd, conn, **opts)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    plain_rounds, plain_steps = mf.counts.rounds[0], mf.counts.relabel_steps
+    mf.counts.reset()
+    before = mf.grid_mincut_cuda.kernel_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mf.grid_mincut_batch(excess, r_fwd, r_bwd, conn, **opts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = mf.grid_mincut_cuda.kernel_launches - before
+    syncs = mf.counts.syncs
+    rounds, steps = mf.counts.rounds[0], mf.counts.relabel_steps
+    pairs = list(zip(
+        ["fg", "e"] + [f"r_fwd[{d}]" for d in range(len(r_fwd))]
+        + [f"r_bwd[{d}]" for d in range(len(r_bwd))],
+        (got[0], got[1], *got[2], *got[3]),
+        (want[0], want[1], *want[2], *want[3])))
+    differ = [k for k, a, b in pairs if not same_bits(a, b)]
+    max_err = max(float((a.float() - b.float()).abs().max())
+                  for _, a, b in pairs)
+    if not np.array_equal(rounds, plain_rounds):
+        differ.append("rounds")
+    if steps != plain_steps:
+        differ.append("relabel steps")
+    # The launch's barriers, image-steps and grid, as `counts` keeps them.
+    (tally,) = mf.counts.kernel_tallies
+    n_sweeps = mf._n_sweeps(opts.get("sweeps_per_round", 48),
+                            opts.get("unroll", 4))
+
+    def kernel_call():
+        mf.grid_mincut_batch(excess, r_fwd, r_bwd, conn, **opts)
+
+    ms = time_ms(kernel_call, reps=3, warmup=1)
+    shape = tuple(excess.shape)
+    args = (tally, shape, conn // 2, n_sweeps, opts.get("max_outer", 400))
+    bound_ms = mincut_bytes(*args) / PEAK_BYTES_S * 1e3
+    design_ms = mincut_bytes(*args, mincut_design_sweep) / PEAK_BYTES_S * 1e3
+    floor_ms = tally["barriers"] * barrier_us(shape, conn) / 1e3
+    print(f"  min-cut {name} ({'x'.join(map(str, shape))}, {conn}-conn"
+          f"{', ' + str(opts) if opts else ''}): kernel {ms:.4f} ms, plain "
+          f"{plain_s * 1e3:.4f} ms (wall); launches {launches}, host syncs "
+          f"{syncs}; rounds {rounds.tolist()}, relabel steps {steps} "
+          f"(image-steps {tally['relabel_image_steps']}), barriers "
+          f"{tally['barriers']}; bytes bound {bound_ms:.4f} ms (the design's "
+          f"traffic {design_ms:.4f} ms), barrier floor {floor_ms:.4f} ms; "
+          f"grid {tally['blocks']} blocks of 256 ({tally['blocks_per_sm']} "
+          f"a SM, {tally['registers']} registers);"
+          f" bits {'differ: ' + ', '.join(differ) if differ else 'equal'}"
+          f" ({card})", flush=True)
+    if differ or launches != 1 or syncs:
+        fail(f"the min-cut kernel disagrees with its plain version on "
+             f"{name}: {differ or 'launches / syncs'}")
+    return dict(ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound_ms,
+                design_ms=design_ms, floor_ms=floor_ms, max_abs_err=max_err)
+
+
+def run_mincut_kernel(dev, card: str, cut_record: dict, main_image: tuple,
+                      dense: tuple) -> None:
+    """Phase 16: the min-cut kernel (csrc/grid_mincut.cu) against its plain
+    version on the card, bit for bit, on the solves of the main path's
+    GrabCut (its first iteration at 1536^2, recorded at the wrapper), the
+    dense phase's 8 images in lock step (their first and second,
+    flow-recycled, iterations), the first of those bound by max_outer, and
+    grid_mincut_multilevel (levels=1) on the main path's first-iteration
+    energy (its coarse and banded solves)."""
+    from gcn_grabcut_torch import grabcut as gc
+
+    img, trimap = main_image
+    large = recorded_solves(
+        gc.grabcut_batch_device,
+        torch.as_tensor(img[None], device=dev).float(),
+        torch.as_tensor(trimap[None], device=dev))
+    images, trimaps = dense
+    batch = recorded_solves(
+        gc.grabcut_batch_device,
+        torch.as_tensor(np.stack(images), device=dev).float(),
+        torch.as_tensor(np.stack(trimaps), device=dev))
+    excess, r_fwd, _, _ = large[0]
+    ml = recorded_solves(lambda: gc.grid_mincut_multilevel(
+        excess[0], tuple(r[0] for r in r_fwd), levels=1))
+    cases = [("large cell, iteration 1", *large[0]),
+             ("dense B=8 lock step, iteration 1", *batch[0]),
+             ("dense B=8 lock step, iteration 2", *batch[1]),
+             (f"dense B=8 iteration 1, max_outer={CUT_BOUND_OUTER}",
+              *batch[0][:3], dict(batch[0][3], max_outer=CUT_BOUND_OUTER))]
+    cases += [(f"multilevel levels=1, solve {i + 1}", *c)
+              for i, c in enumerate(ml)]
+    results = {name: mincut_case(name, *args, card=card)
+               for name, *args in cases}
+    main = results[cases[0][0]]
+    cut_record.update({
+        "name": "grid_mincut", "route": "cuda",
+        "source": "gcn_grabcut_torch/csrc/grid_mincut.cu",
+        "replaces": "gcn_grabcut_tpu/ops/maxflow.py:67 (_build_solver's "
+                    "lax.while_loops; XLA, not Pallas)",
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "design_traffic_ms": main["design_ms"],
+        "barrier_floor_ms": main["floor_ms"], "library_ms": None})
 
 
 def unpack_mask(packed: np.ndarray, hw: int) -> np.ndarray:
@@ -3371,7 +3588,9 @@ def main() -> None:
     seg_record, seg_arrays = timed("segment sums", check_segment_sum, dev)
     timed("gather audit", audit_gathers, dev, seg_arrays)
     del seg_arrays
-    main_image = timed("main path", run_main_path, dev, record, seg_record)
+    cut_record = {}
+    main_image = timed("main path", run_main_path, dev, record, seg_record,
+                       cut_record)
     timed("sharded", run_sharded_path, dev, rings, k)
     dense = timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
@@ -3391,12 +3610,14 @@ def main() -> None:
     timed("multilevel", run_multilevel, dev, card, *main_image)
     timed("scatter", run_scatter, dev, card)
     timed("lock step", run_lock_step, dev, card, *dense)
+    timed("min-cut kernel", run_mincut_kernel, dev, card, cut_record,
+          main_image, dense)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"],
-                                  seg_record]}))
+                                  seg_record, cut_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

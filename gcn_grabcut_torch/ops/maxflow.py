@@ -9,11 +9,14 @@ and the cut's source side is every pixel that cannot reach the sink after
 the final exact relabel -- the minimal source set, so tied cuts resolve as
 in the JAX package.
 
-Port notes.  The JAX while loops become Python loops that test convergence
-once per block of steps (one host sync each).  The solver runs a batch of
-same-size lattices in lock step (``grid_mincut_batch``, the JAX package's
-``vmap`` of the solve): each image stops when it converges, and the batch
-pays one sync per block, not one per image.  Arrays that are read shifted
+Port notes.  The solver runs a batch of same-size lattices in lock step
+(``grid_mincut_batch``, the JAX package's ``vmap`` of the solve): each image
+stops when it converges.  On the card the whole solve is one launch of a
+hand-written kernel (csrc/grid_mincut.cu) that keeps JAX's while loops and
+their convergence tests on the device: no host sync inside a solve.  Its
+plain version, `grid_mincut_plain`, runs every CPU solve: the while loops
+become Python loops that test convergence once per block of steps (one
+host sync each, for the whole batch).  Arrays that are read shifted
 (heights, backward residuals, the flow being pushed) live in buffers padded
 by one pixel whose border holds the out-of-image fill value, so a shift is
 a view rather than a copy; updates go to the interiors in place, with the
@@ -21,6 +24,9 @@ same float32 operations in the same order as the JAX stencils.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -74,23 +80,89 @@ def _resolve_params(H, W, connectivity, relabel_iters):
 
 
 class SolverCounts:
-    """The device solver's work since `reset()`, tallied on the host (no
-    syncs of its own): per call, each image's outer rounds and push
-    sweeps; in all, the global relabel's relaxation steps (each over the
-    call's whole working set) and the host syncs."""
+    """The device solver's work since `reset()`: per call, each image's
+    outer rounds and push sweeps; in all, the global relabel's relaxation
+    steps (each over the call's whole working set) and the host syncs.
+    The plain version tallies on the host as it solves.  A kernel solve's
+    tallies are copied behind it into pinned host memory, with an event;
+    they are read when the event has passed (checked without waiting at
+    the next kernel solve) or when a count is read (waiting then), so the
+    solve itself does not sync and no device memory is kept."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        self.rounds: list = []      # one (B,) array per call
-        self.sweeps: list = []      # one (B,) array per call
-        self.relabel_steps = 0
+        # Per call: [rounds (B,) numpy, push sweeps per round, relabel
+        # steps, the kernel's tally (`kernel_tally` and its grid) or None].
+        self._calls: list = []
+        # Kernel solves not yet read: (call, host ctrl, event).
+        self._pending: list = []
         self.syncs = 0
+
+    def _record(self, rounds, n_sweeps: int, relabel_steps: int) -> None:
+        self._calls.append([rounds, n_sweeps, relabel_steps, None])
+
+    def _record_kernel(self, ctrl, done, n_sweeps: int, grid: dict) -> None:
+        """A kernel solve: `ctrl` a host int32 tensor that holds the
+        kernel's tallies once `done` (a CUDA event, or anything with
+        query() and synchronize()) has passed; `grid` the launch's grid."""
+        self._read(wait=False)
+        call = [None, n_sweeps, None, dict(grid)]
+        self._calls.append(call)
+        self._pending.append((call, ctrl, done))
+
+    def _read(self, wait: bool) -> None:
+        """Read the pending kernel tallies in order: all of them (waiting
+        for each) or those whose event has passed."""
+        while self._pending:
+            call, ctrl, done = self._pending[0]
+            if wait:
+                done.synchronize()
+            elif not done.query():
+                return
+            tally = kernel_tally(ctrl)
+            call[0], call[2] = tally["rounds"], tally["relabel_steps"]
+            call[3].update(tally)
+            self._pending.pop(0)
+
+    def _settled(self) -> list:
+        self._read(wait=True)
+        return self._calls
+
+    @property
+    def rounds(self) -> list:
+        """One (B,) array of outer rounds per call."""
+        return [c[0] for c in self._settled()]
+
+    @property
+    def sweeps(self) -> list:
+        """One (B,) array of push sweeps per call."""
+        return [c[0] * c[1] for c in self._settled()]
+
+    @property
+    def relabel_steps(self) -> int:
+        return sum(c[2] for c in self._settled())
+
+    @property
+    def kernel_tallies(self) -> list:
+        """One dict per kernel solve: `kernel_tally`'s keys and the
+        launch's grid (blocks, blocks_per_sm, registers)."""
+        return [c[3] for c in self._settled() if c[3] is not None]
 
 
 #: Tallies of every solve in this process (``counts.reset()`` to start).
 counts = SolverCounts()
+
+
+def kernel_tally(ctrl: torch.Tensor) -> dict:
+    """The kernel's tallies from its ctrl buffer (copied to the host if it
+    is on the card): each image's outer rounds, the batch's relabel steps,
+    the grid-wide barriers and the relabel's image-steps (steps x images
+    relaxed)."""
+    c = ctrl.cpu().numpy().astype(np.int64)
+    return dict(rounds=c[4:], relabel_steps=int(c[1]), barriers=int(c[2]),
+                relabel_image_steps=int(c[3]))
 
 
 def _build_solver(H: int, W: int, offsets, max_outer: int,
@@ -112,7 +184,8 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
     iterations (Kohli & Torr): only the terminal capacities move, so the
     previous flow stays a valid preflow."""
     INF = H * W + 1
-    n_sweeps = max(1, sweeps_per_round // unroll) * unroll
+    n_sweeps = _n_sweeps(sweeps_per_round, unroll)
+    steps = 0       # relabel steps of this solve
 
     def global_relabel(e, r_fwd, rbp):
         """Padded heights: distance to the nearest deficit pixel along
@@ -122,6 +195,7 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
         candidate is then >= INF and never wins, as the JAX where does.
         The batch relaxes until its last image's fixpoint, where the
         others' heights no longer move."""
+        nonlocal steps
         arcs = []
         for d, (dy, dx) in enumerate(offsets):
             arcs.append(((dy, dx), torch.where(r_fwd[d] > 0, 1, INF
@@ -143,7 +217,7 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
                     torch.minimum(new, tmp, out=new)
                 cur = 1 - cur
             it += unroll
-            counts.relabel_steps += unroll
+            steps += unroll
             counts.syncs += 1
             # Relaxation is monotone: a step that changes nothing is the
             # fixpoint, so testing the last step ends where the JAX block
@@ -233,23 +307,25 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
                 push_sweep(we, hp, wrf, wrbp, fp)
         else:
             write_back(np.ones(len(live), bool))
-        counts.rounds.append(rounds)
-        counts.sweeps.append(rounds * n_sweeps)
         hp = global_relabel(e, r_fwd, rbp)
+        counts._record(rounds, n_sweeps, steps)
         return (_view(hp, 0, 0) >= INF, e, tuple(r_fwd),
                 tuple(_view(r, 0, 0) for r in rbp))
 
     return solve
 
 
-def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
+def _n_sweeps(sweeps_per_round: int, unroll: int) -> int:
+    """Push sweeps per outer round: whole blocks of `unroll`."""
+    return max(1, sweeps_per_round // unroll) * unroll
+
+
+def grid_mincut_plain(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
                       connectivity: int = 8, max_outer: int = 400,
                       sweeps_per_round: int = 48,
                       relabel_iters: int | None = None, unroll: int = 4):
-    """`grid_mincut_stateful` on B same-size lattices in lock step:
-    `excess` and every residual plane (B, H, W).  Returns (fg, e', r_fwd',
-    r_bwd') with the same leading B, each image bit for bit its solve
-    alone (the solver's docstring)."""
+    """The kernel's plain version: `grid_mincut_batch` in eager stencils on
+    any device, host-side loops (one sync per relabel block and round)."""
     _, H, W = excess.shape
     offsets, relabel_iters = _resolve_params(H, W, connectivity,
                                              relabel_iters)
@@ -259,6 +335,146 @@ def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
     solve = _build_solver(H, W, offsets, max_outer, sweeps_per_round,
                           relabel_iters, unroll)
     return solve(excess, r_fwd, r_bwd)
+
+
+def _entries(lib: ctypes.CDLL) -> tuple:
+    """A built grid_mincut library's C entry points, argument types set."""
+    solve = lib.grid_mincut
+    solve.argtypes = [ctypes.c_int] * 8 + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    solve.restype = ctypes.c_int
+    barriers = lib.grid_barrier_loop
+    barriers.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    barriers.restype = ctypes.c_int
+    return solve, barriers
+
+
+@functools.cache
+def _kernel():
+    """The committed kernel's C entry points, built and loaded once."""
+    from ..kernels import load
+    return _entries(load("grid_mincut"))
+
+
+def grid_mincut_cuda(e: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
+                     connectivity: int = 8, max_outer: int = 400,
+                     n_sweeps: int = 48, relabel_iters: int | None = None,
+                     unroll: int = 4, lib: ctypes.CDLL | None = None):
+    """Launch the min-cut kernel (csrc/grid_mincut.cu, or `lib`, another
+    build of it) on the current stream: the whole solve of `e` and the
+    residual planes, each a contiguous float32 (B, H, W) tensor on one
+    CUDA device, updated in place (`n_sweeps` push sweeps per round, whole
+    blocks of `unroll`).  Returns (fg, ctrl, grid): fg (B, H, W) bool, the
+    kernel's int32 tallies (`kernel_tally`), left on the card, and the
+    launch's grid (blocks, blocks_per_sm, registers).  One launch, no host
+    sync; a refused launch raises."""
+    planes = [e, *r_fwd, *r_bwd]
+    n_dirs = connectivity // 2
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity {connectivity} (4 or 8)")
+    if len(r_fwd) != n_dirs or len(r_bwd) != n_dirs:
+        raise ValueError(f"{len(r_fwd)} / {len(r_bwd)} residual planes for "
+                         f"{connectivity}-connectivity")
+    for t in planes:
+        if t.dtype != torch.float32:
+            raise TypeError(f"grid_mincut_cuda takes float32 planes, got "
+                            f"{t.dtype}")
+        if t.dim() != 3 or t.shape != e.shape:
+            raise ValueError(f"plane {tuple(t.shape)} does not match the "
+                             f"excess {tuple(e.shape)} (B, H, W)")
+        if not t.is_contiguous():
+            raise ValueError("grid_mincut_cuda needs contiguous planes")
+    B, H, W = e.shape
+    if e.numel() == 0 or H * W >= 2 ** 29:
+        raise ValueError(f"grid_mincut_cuda takes 0 < H W < 2^29 pixels and "
+                         f"B > 0, got {tuple(e.shape)}")
+    if any(t.device != e.device for t in planes) or e.device.type != "cuda":
+        raise ValueError(f"grid_mincut_cuda needs every plane on one CUDA "
+                         f"device, got {sorted({str(t.device) for t in planes})}")
+    if relabel_iters is None:
+        relabel_iters = _resolve_params(H, W, connectivity, None)[1]
+    if unroll < 1 or n_sweeps < 0:
+        raise ValueError(f"unroll {unroll} (>= 1), n_sweeps {n_sweeps} "
+                         f"(>= 0)")
+    n = e.numel()
+    # Two height planes and the two flow planes (4-byte words), then the
+    # relabel's arc bits (one byte a pixel).
+    work = torch.empty(16 * n + n, dtype=torch.uint8, device=e.device)
+    fg = torch.empty(e.shape, dtype=torch.bool, device=e.device)
+    ctrl = torch.zeros(4 + B, dtype=torch.int32, device=e.device)
+    ptrs = ctypes.c_void_p * 4
+    rf = ptrs(*[t.data_ptr() for t in r_fwd])
+    rb = ptrs(*[t.data_ptr() for t in r_bwd])
+    info = (ctypes.c_int * 3)()
+    solve, _ = _kernel() if lib is None else _entries(lib)
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        err = solve(connectivity // 2, B, H, W, max_outer, n_sweeps,
+                    relabel_iters, unroll, e.data_ptr(), rf, rb,
+                    work.data_ptr(), fg.data_ptr(), ctrl.data_ptr(), stream,
+                    info)
+    if err != 0:
+        raise RuntimeError(f"grid_mincut kernel launch failed: CUDA error "
+                           f"{err}")
+    grid_mincut_cuda.kernel_launches += 1
+    return fg, ctrl, dict(blocks=info[0], blocks_per_sm=info[1],
+                          registers=info[2])
+
+
+#: Launches of the min-cut kernel since the count was last set to 0.
+grid_mincut_cuda.kernel_launches = 0
+
+
+def barrier_loop_cuda(connectivity: int, H: int, W: int, n: int,
+                      device) -> None:
+    """`n` empty grid-wide barriers on the grid `grid_mincut_cuda` launches
+    for an H x W image: the barrier floor of a solve, for timing."""
+    _, barriers = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = barriers(connectivity // 2, H, W, n, stream)
+    if err != 0:
+        raise RuntimeError(f"grid_barrier_loop launch failed: CUDA error "
+                           f"{err}")
+
+
+def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
+                      connectivity: int = 8, max_outer: int = 400,
+                      sweeps_per_round: int = 48,
+                      relabel_iters: int | None = None, unroll: int = 4):
+    """`grid_mincut_stateful` on B same-size lattices in lock step:
+    `excess` and every residual plane (B, H, W).  Returns (fg, e', r_fwd',
+    r_bwd') with the same leading B, each image bit for bit its solve
+    alone (the solver's docstring); the caller's tensors stay unchanged.
+    CUDA tensors go through the kernel (one launch, no host sync), CPU
+    tensors through `grid_mincut_plain`."""
+    if excess.device.type == "cpu":
+        return grid_mincut_plain(excess, r_fwd, r_bwd, connectivity,
+                                 max_outer, sweeps_per_round, relabel_iters,
+                                 unroll)
+    e, rf, rb = working_copies(excess, r_fwd, r_bwd)
+    n_sweeps = _n_sweeps(sweeps_per_round, unroll)
+    fg, ctrl, grid = grid_mincut_cuda(e, rf, rb, connectivity, max_outer,
+                                      n_sweeps, relabel_iters, unroll)
+    # The tallies go to pinned host memory behind the solve: no sync, and
+    # `counts` keeps no device memory.
+    host = torch.empty(ctrl.shape, dtype=ctrl.dtype, pin_memory=True)
+    host.copy_(ctrl, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(ctrl.device))
+    counts._record_kernel(host, done, n_sweeps, grid)
+    return fg, e, rf, rb
+
+
+def working_copies(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple):
+    """Contiguous float32 copies of a solve's planes, for the kernel to
+    update in place: (e, r_fwd, r_bwd)."""
+    def copy(t):
+        return t.float().clone(memory_format=torch.contiguous_format)
+    return (copy(excess), tuple(copy(r) for r in r_fwd),
+            tuple(copy(r) for r in r_bwd))
 
 
 def grid_mincut(excess: torch.Tensor, caps: tuple, connectivity: int = 8,

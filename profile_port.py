@@ -2,9 +2,9 @@
 """Where the port's main path spends the card's time.
 
     python3 profile_port.py            # the main path under torch.profiler
-    python3 profile_port.py --kernels  # what holds K1, K2, K3 and the
-                                       # segment sum back, and the banded
-                                       # GAT attention
+    python3 profile_port.py --kernels  # what holds the min-cut, K1, K2,
+                                       # K3 and the segment sum back, and
+                                       # the banded GAT attention
 
 Runs chip_smoke.py's main-path configuration on one GPU (a 1536x1536
 synthetic image, 10 000 SLIC segments, the seeded ResGCNNet at D=128,
@@ -16,7 +16,13 @@ the number of device activities, and the heaviest kernels.  Profiling
 slows the host, not the kernels, so busy time is set against the
 unprofiled wall time.
 
-With --kernels it times K1 (bf16, the path's shapes), K2 and K3 (float32,
+With --kernels it first times the min-cut kernel (csrc/grid_mincut.cu)
+on the main path's first GrabCut iteration at 1536^2, as built and with
+its loads through L1 (plain loads instead of ld.global.cg), beside its
+bytes bound, its barrier floor (its grid-wide barriers times an empty
+barrier's time on the same grid) and the plain version, and profiles the
+GrabCut stage alone (wall, device busy share).  Then it times K1 (bf16,
+the path's shapes), K2 and K3 (float32,
 n = 2, 4, 8 ranks over the path's 10 000 rows) as built and in variants
 that each take one piece out or change one choice: each variant is the
 committed source with textual edits (K2's TMA bulk copy, the design
@@ -790,6 +796,76 @@ def cleanup_profile() -> None:
                time.perf_counter() - t, fn)
 
 
+# Min-cut kernel variants: (name, [(text in csrc/grid_mincut.cu,
+# replacement)]).
+CUT_VARIANTS = [
+    ("as built", []),
+    ("loads through L1 (plain ld, not ld.global.cg)",
+     [("{ return __ldcg(p); }", "{ return *p; }")]),
+]
+
+
+def variant_solve(lib, problem) -> tuple:
+    """One solve of `problem` (excess, r_fwd, r_bwd, options) by a
+    variant's build of the kernel on fresh copies: (fg, e, planes)."""
+    from gcn_grabcut_torch.ops import maxflow as mf
+    excess, r_fwd, r_bwd, kw = problem
+    e, rf, rb = mf.working_copies(excess, r_fwd, r_bwd)
+    fg, _, _ = mf.grid_mincut_cuda(
+        e, rf, rb, kw.get("connectivity", 8), kw.get("max_outer", 400),
+        mf._n_sweeps(kw.get("sweeps_per_round", 48), kw.get("unroll", 4)),
+        kw.get("relabel_iters"), kw.get("unroll", 4), lib=lib)
+    return fg, e, rf + rb
+
+
+def mincut_kernel() -> None:
+    """The min-cut kernel on the main path's first GrabCut iteration at
+    1536^2: as built and in CUT_VARIANTS (device ms per solve, bits
+    against the plain version), its tallies, bytes bound and barrier floor
+    (chip_smoke.mincut_case), the plain version's wall time; then the
+    GrabCut stage alone under the profiler: wall, device busy share."""
+    import chip_smoke as cs
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch.grabcut import grabcut_batch_device
+    from gcn_grabcut_torch.ops import maxflow as mf
+
+    cfg = gt.SuperpixelGraphConfig(n_segments=cs.N_SEGMENTS)
+    model = gt.ResGCNNet(
+        hidden_channels=cs.HIDDEN, n_layers=cs.N_LAYERS,
+        generator=torch.Generator().manual_seed(cs.MODEL_SEED))
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    img = cs.make_image(cs.IMAGE_HW)
+    res = pipe.segment_batch([img])[0]
+    rgbs = torch.as_tensor(img[None], device=pipe.device).float()
+    trimaps = torch.as_tensor(res.trimap[None], device=pipe.device)
+    problem = cs.recorded_solves(grabcut_batch_device, rgbs, trimaps)[0]
+    cs.mincut_case("large cell, iteration 1", *problem, card=cs.gpu_line())
+    want = mf.grid_mincut_plain(*problem[:3], **problem[3])
+    for label, lib in build_variants("grid_mincut", CUT_VARIANTS, "cut"):
+        got = variant_solve(lib, problem)
+        same = all(cs.same_bits(a, b) for a, b in zip(
+            (got[0], got[1], *got[2]), (want[0], want[1], *want[2],
+                                        *want[3])))
+        ms = cs.time_ms(lambda: variant_solve(lib, problem), reps=3,
+                        warmup=1)
+        print(f"  min-cut variant {label}: {ms:.4f} ms, bits "
+              f"{'equal' if same else 'DIFFER'}", flush=True)
+
+    def stage():
+        grabcut_batch_device(rgbs, trimaps, pipe.gc_config)
+
+    stage()
+    torch.cuda.synchronize()
+    mf.grid_mincut_cuda.kernel_launches = 0
+    t = time.perf_counter()
+    stage()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    report(f"GrabCut stage, large cell (1536^2; "
+           f"{mf.grid_mincut_cuda.kernel_launches} min-cut launches)", wall,
+           stage)
+
+
 def gat_attention() -> None:
     """The banded GAT attention layer at 10k nodes under the profiler, as
     the edge list beside it: the evidence for or against a fused kernel
@@ -823,6 +899,7 @@ def main() -> None:
     if "--kernels" in sys.argv[1:]:
         import chip_smoke as cs
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
+        mincut_kernel()
         kernel_variants()
         segment_variants()
         host_cost()

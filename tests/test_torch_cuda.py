@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import gcn_grabcut_torch as gt
-from gcn_grabcut_torch.ops import region, spmm
+from gcn_grabcut_torch.ops import maxflow, region, spmm
 from gcn_grabcut_torch.parallel import ring
 
 pytestmark = pytest.mark.cuda
@@ -188,6 +188,146 @@ def test_lock_step_grabcut_on_card_matches_loop(cuda):
     assert torch.equal(lock, gc.grabcut_batch_loop(rgb, tri))
     assert bool((lock[1] == 1).all())
     assert 0.0 < float(lock[0].float().mean()) < 1.0
+
+
+# ------------------------------------------------------------- the min-cut
+
+# Each case: connectivity, which of mincut_lattices' images, the solve's
+# options, and whether it resumes from a first solve's flow.  The images
+# converge after 0, a few and many rounds; max_outer and relabel_iters
+# bind in their cases.  tests/test_torch_mincut_kernel.py holds the plain
+# version to the JAX package on the same cases.
+MINCUT_KW = dict(sweeps_per_round=8, unroll=2)
+MINCUT_CASES = {
+    "conn8": (8, (1,), MINCUT_KW, False),
+    "conn4": (4, (1, 2), MINCUT_KW, False),
+    "lock-step": (8, (0, 1, 2), MINCUT_KW, False),
+    "carried": (8, (0, 1, 2), MINCUT_KW, True),
+    "max-outer": (8, (0, 1, 2), dict(MINCUT_KW, max_outer=2), False),
+    "relabel-iters": (4, (0, 1, 2), dict(MINCUT_KW, relabel_iters=3), False),
+    "unroll1-odd": (8, (1, 2), dict(sweeps_per_round=5, unroll=1), False),
+}
+
+
+def mincut_lattices(seed=0, h=40, w=44):
+    """Three lattices: one with no excess to push (converged before its
+    first round), a short one, and a long one (a source strip and a sink
+    strip at opposite edges over weak capacities); excess (3, h, w) and
+    four capacity planes (3, h, w) of OFFSETS_8, float32 numpy."""
+    r = np.random.RandomState(seed)
+    ex = np.stack([-np.abs(r.randn(h, w)) - 0.1, r.randn(h, w) * 2,
+                   np.zeros((h, w))]).astype(np.float32)
+    ex[2, :, :4] = 40.0
+    ex[2, :, -4:] = -40.0
+    caps = np.stack([r.rand(3, h, w) for _ in maxflow.OFFSETS_8]
+                    ).astype(np.float32)
+    caps[:, 2] *= 0.5
+    return ex, caps
+
+
+def mincut_case(name):
+    """(excess, r_fwd, r_bwd, connectivity, options) of a case as CPU
+    tensors.  A carried case resumes from the plain version's first solve
+    with a seeded terminal delta on every image but the first."""
+    conn, images, kw, carried = MINCUT_CASES[name]
+    h, w = (37, 41) if name.endswith("odd") else (40, 44)
+    ex, caps = mincut_lattices(h=h, w=w)
+    offsets = maxflow.OFFSETS_8 if conn == 8 else maxflow.OFFSETS_4
+    ex = torch.from_numpy(ex[list(images)])
+    r_fwd = tuple(maxflow._zero_border(torch.from_numpy(c[list(images)]),
+                                       dy, dx)
+                  for c, (dy, dx) in zip(caps, offsets))
+    r_bwd = r_fwd
+    if carried:
+        _, e1, r_fwd, r_bwd = maxflow.grid_mincut_plain(ex, r_fwd, r_bwd,
+                                                        conn, **kw)
+        delta = np.random.RandomState(1).randn(*ex.shape).astype(np.float32)
+        delta[0] = 0.0
+        ex = e1 + torch.from_numpy(delta)
+        r_fwd = tuple(r.contiguous() for r in r_fwd)
+        r_bwd = tuple(r.contiguous() for r in r_bwd)
+    return ex, r_fwd, r_bwd, conn, kw
+
+
+@pytest.mark.parametrize("name", list(MINCUT_CASES))
+def test_mincut_kernel_matches_plain_bit_for_bit(cuda, name):
+    """The kernel against its plain version on the card: fg, e', both
+    residual planes bit for bit, each image's rounds and the relabel
+    steps; one launch, no host sync in the solve."""
+    ex, r_fwd, r_bwd, conn, kw = mincut_case(name)
+    ex, r_fwd, r_bwd = (ex.to(cuda), tuple(r.to(cuda) for r in r_fwd),
+                        tuple(r.to(cuda) for r in r_bwd))
+    maxflow.counts.reset()
+    want = maxflow.grid_mincut_plain(ex, r_fwd, r_bwd, conn, **kw)
+    plain_rounds = maxflow.counts.rounds[0]
+    plain_steps = maxflow.counts.relabel_steps
+    maxflow.counts.reset()
+    before = maxflow.grid_mincut_cuda.kernel_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = maxflow.grid_mincut_batch(ex, r_fwd, r_bwd, conn, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert maxflow.grid_mincut_cuda.kernel_launches == before + 1
+    assert maxflow.counts.syncs == 0
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got[2] + got[3], want[2] + want[3]):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(maxflow.counts.rounds[0], plain_rounds)
+    assert maxflow.counts.relabel_steps == plain_steps
+
+
+def test_mincut_kernel_leaves_its_inputs_and_repeats(cuda):
+    """The caller's tensors stay unchanged, and two solves give the same
+    bits."""
+    ex, r_fwd, r_bwd, conn, kw = mincut_case("lock-step")
+    ex, r_fwd = ex.to(cuda), tuple(r.to(cuda) for r in r_fwd)
+    keep = [t.clone() for t in (ex, *r_fwd)]
+    a = maxflow.grid_mincut_batch(ex, r_fwd, r_fwd, conn, **kw)
+    b = maxflow.grid_mincut_batch(ex, r_fwd, r_fwd, conn, **kw)
+    for x, y in zip((ex, *r_fwd), keep):
+        assert torch.equal(x, y)
+    for x, y in zip((a[0], a[1], *a[2], *a[3]), (b[0], b[1], *b[2], *b[3])):
+        assert torch.equal(x, y)
+
+
+def test_mincut_counts_keep_no_card_memory(cuda):
+    """Many kernel solves leave no CUDA tensor in `counts`, and at most
+    the solves still running unread; the tallies and grid read back."""
+    ex, r_fwd, r_bwd, conn, kw = mincut_case("conn8")
+    ex, r_fwd = ex.to(cuda), tuple(r.to(cuda) for r in r_fwd)
+    maxflow.counts.reset()
+    for _ in range(20):
+        maxflow.grid_mincut_batch(ex, r_fwd, r_fwd, conn, **kw)
+    torch.cuda.synchronize()
+    maxflow.grid_mincut_batch(ex, r_fwd, r_fwd, conn, **kw)
+    assert len(maxflow.counts._pending) <= 1
+    held = [x for call in maxflow.counts._calls for x in call]
+    held += [x for p in maxflow.counts._pending for x in p]
+    assert not any(torch.is_tensor(x) and x.is_cuda for x in held)
+    tallies = maxflow.counts.kernel_tallies
+    assert len(tallies) == 21 and not maxflow.counts._pending
+    assert all(t["blocks"] > 0 and t["barriers"] > 0 for t in tallies)
+    assert [r.tolist() for r in maxflow.counts.rounds] == [[4]] * 21
+
+
+def test_mincut_kernel_refuses_what_it_does_not_take(cuda):
+    """Bad planes raise before a launch; the launch count stays."""
+    ex, r_fwd, r_bwd, conn, kw = mincut_case("conn8")
+    e = ex.to(cuda)
+    rf = tuple(r.to(cuda) for r in r_fwd)
+    before = maxflow.grid_mincut_cuda.kernel_launches
+    with pytest.raises(TypeError):
+        maxflow.grid_mincut_cuda(e.double(), rf, rf, conn)
+    with pytest.raises(ValueError, match="contiguous"):
+        maxflow.grid_mincut_cuda(e, (rf[0].transpose(1, 2).contiguous()
+                                     .transpose(1, 2),) + rf[1:], rf, conn)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        maxflow.grid_mincut_cuda(e, (rf[0].cpu(),) + rf[1:], rf, conn)
+    assert maxflow.grid_mincut_cuda.kernel_launches == before
 
 
 def ring_data(n, chunk, d, dtype, device, seed):

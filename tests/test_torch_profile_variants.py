@@ -14,7 +14,9 @@ VARIANTS = ([("banded_spmm", f"k1-{i}", v)
             + [("ring_collectives", f"k3-{i}", v)
                for i, v in enumerate(pp.K3_VARIANTS)]
             + [("segment_sum", f"seg-{i}", v)
-               for i, v in enumerate(pp.SEGMENT_VARIANTS)])
+               for i, v in enumerate(pp.SEGMENT_VARIANTS)]
+            + [("grid_mincut", f"cut-{i}", v)
+               for i, v in enumerate(pp.CUT_VARIANTS)])
 
 
 @pytest.mark.parametrize("name,variant", [(n, v) for n, _, v in VARIANTS],
