@@ -181,11 +181,17 @@ Phases, each of which exits non-zero on failure:
      those with max_outer 2, and grid_mincut_multilevel (levels=1) on the
      main path's first-iteration energy (coarse and banded solves); each
      with the kernel's device time, the plain version's wall time, its
-     rounds, relabel steps and grid-wide barriers, the bytes bound (each
-     step's state read once and written once -- a push sweep 16 + 16 D
-     bytes a pixel -- at 3.35 TB/s), the kernel's own traffic (a sweep's
-     2 D + 2 passes, 20 + 84 D bytes a pixel) and the barrier floor (its
-     barriers times an empty barrier's time, measured on the same grid).
+     rounds, relabel steps, relaxed image-steps (each image stops where
+     its own relabel stops) and grid-wide barriers, its sweep tiles
+     (swept, and skipped where the neighbourhood was quiet) and relax
+     tiles relaxed, its tiles, halos, shared memory and blocks a SM, the
+     bytes bound at 3.35 TB/s (what the solve must move whatever the
+     design, counted on the data by a watched run of the plain version,
+     mincut_work: a push sweep reads e and h, 8 bytes a pixel, and moves
+     16 + 16 D only where the pixel's window can push or lift; a relax
+     block of `unroll` steps 9 where a height can move), the kernel's own
+     traffic (tiles with their halos, mincut_design) and the barrier floor
+     (its barriers times an empty barrier's time, on the same grid).
 The fp32 training steps on the card (phases 8 and 9) and the data-parallel
 and solo steps of phase 11 each run twice and fail unless the two are
 bit-identical.
@@ -1700,31 +1706,144 @@ def recorded_solves(fn, *args) -> list:
     return calls
 
 
-def mincut_bytes(tally: dict, shape: tuple, n_dirs: int, n_sweeps: int,
-                 max_outer: int, sweep_bytes=lambda d: 16 + 16 * d) -> int:
-    """Bytes a solve with these tallies must move, each step reading its
-    state once and writing it once (per pixel: a relabel's set-up reads e
-    and the residuals and writes the heights and one byte of arcs, 9 + 8
-    D; a relax step reads the heights and arcs and writes the heights, 9;
-    a round test reads e and the heights, 8; a push sweep reads and
-    writes e, the heights and both residual planes of each direction, 16 +
-    16 D; the final fg, 5).  `sweep_bytes` = mincut_design_sweep gives the
-    kernel's own traffic instead, whose 2 D + 2 passes a sweep also move
-    the flow planes and read e and the heights again."""
+def mincut_work(excess, r_fwd, r_bwd, conn: int, opts: dict) -> dict:
+    """What a solve of these planes must touch whatever the design,
+    counted on the data by a run of its plain version (grid_mincut_plain,
+    its push sweeps and relax blocks watched): `swept`, the pixels of the
+    live images over the push sweeps; `active`, those of them whose window
+    (ops.maxflow.sweep_halo pixels each way, the reach of a sweep) held a
+    pixel that can push or lift (e > 0 and h < INF) as the sweep began, or
+    that hold a -0, which the sweep turns into +0 -- every other pixel
+    leaves the sweep with the bits it had; `relaxed`, the pixels over the
+    relax blocks whose heights can move: each pixel of a relabel's first
+    block, then those within the block's steps (along the lattice's arcs)
+    of a height that the block before lowered."""
+    import torch.nn.functional as F
+    from gcn_grabcut_torch.ops import maxflow as mf
+    reach_r = mf.sweep_halo(conn)
+    zero = torch.zeros((), dtype=torch.int64, device=excess.device)
+    work = dict(swept=zero.clone(), active=zero.clone(),
+                relaxed=zero.clone())
+    lowered = [None]
+    sweep, relax, relabel = mf.push_sweep, mf.relax_steps, mf.global_relabel
+
+    def within(mask, steps):
+        m = mask.float()
+        if conn == 8:
+            return F.max_pool2d(m, 2 * steps + 1, stride=1, padding=steps) > 0
+        for _ in range(steps):
+            p = F.pad(m, (1, 1, 1, 1))
+            m = torch.maximum(m, torch.maximum(
+                torch.maximum(p[..., 1:-1, :-2], p[..., 1:-1, 2:]),
+                torch.maximum(p[..., :-2, 1:-1], p[..., 2:, 1:-1])))
+        return m > 0
+
+    def counting_sweep(e, hp, rf, rbp, fp, offsets, inf):
+        h = mf._view(hp, 0, 0)
+        m = (e > 0) & (h < inf)
+        near = F.max_pool2d(m.float(), 2 * reach_r + 1, stride=1,
+                            padding=reach_r) > 0
+        for x in (e, *rf, *(mf._view(r, 0, 0) for r in rbp)):
+            near |= (x == 0) & torch.signbit(x)
+        work["swept"] += e.numel()
+        work["active"] += near.sum()
+        sweep(e, hp, rf, rbp, fp, offsets, inf)
+
+    def counting_relabel(*args):
+        lowered[0] = None
+        return relabel(*args)
+
+    def counting_relax(bufs, cur, arcs, steps):
+        before = mf._view(bufs[cur], 0, 0).clone()
+        out = relax(bufs, cur, arcs, steps)
+        if lowered[0] is None:
+            work["relaxed"] += before.numel()
+        else:
+            work["relaxed"] += within(lowered[0], steps).sum()
+        lowered[0] = mf._view(bufs[out], 0, 0) < before
+        return out
+
+    mf.push_sweep, mf.relax_steps = counting_sweep, counting_relax
+    mf.global_relabel = counting_relabel
+    try:
+        mf.grid_mincut_plain(excess, r_fwd, r_bwd, conn, **opts)
+    finally:
+        mf.push_sweep, mf.relax_steps, mf.global_relabel = (
+            sweep, relax, relabel)
+    return {k: int(v) for k, v in work.items()}
+
+
+def mincut_bytes(work: dict, tally: dict, shape: tuple, n_dirs: int,
+                 max_outer: int) -> int:
+    """Bytes a solve must move whatever the design, each value it needs
+    read once and each it changes written once, from the data's counts
+    (`work`, mincut_work) and the rounds (per pixel: a relabel's set-up
+    reads e and the residuals and writes the heights and one byte of arcs,
+    9 + 8 D; a round test reads e and the heights, 8; the final fg, 5; a
+    push sweep reads e and the height of every live pixel, 8, which decide
+    whether its window can push or lift, and where it can reads and writes
+    e, the height and both residual planes of each direction, 16 + 16 D in
+    all; a relax block of `unroll` steps reads the heights and arcs and
+    writes the heights of each pixel whose heights can move, 9).  A relax
+    block is charged, not each of its steps: the solve tests only a
+    block's last step, so the steps inside a block need never reach
+    memory, and a bound per step would not bound a kernel that keeps them
+    on chip.  No count comes from the kernel, so a design that skips less
+    does not loosen its bound."""
     B, H, W = shape
     rounds = np.asarray(tally["rounds"], np.int64)
     tests = int(np.minimum(rounds + 1, max_outer).sum())
-    per_pixel = (int((2 + rounds).sum()) * (9 + 8 * n_dirs)
-                 + tally["relabel_image_steps"] * 9 + tests * 8
-                 + int(rounds.sum()) * n_sweeps * sweep_bytes(n_dirs)
+    per_pixel = (int((2 + rounds).sum()) * (9 + 8 * n_dirs) + tests * 8
                  + B * 5)
-    return per_pixel * H * W
+    return int(per_pixel * H * W + 8 * work["swept"]
+               + (8 + 16 * n_dirs) * work["active"] + 9 * work["relaxed"])
 
 
-def mincut_design_sweep(n_dirs: int) -> int:
-    """Bytes a pixel that the kernel's push sweep moves over its 2 D + 2
-    passes (csrc/grid_mincut.cu), against the 16 + 16 D it must."""
-    return 20 + 84 * n_dirs
+def mincut_design(tally: dict, shape: tuple, n_dirs: int, n_sweeps: int,
+                  max_outer: int, unroll: int) -> dict:
+    """Bytes the kernel (csrc/grid_mincut.cu) moves, from its launch's
+    grid and tallies: `sweep`, a push sweep's per pixel of the tiles it
+    sweeps (a tile reads e and both residual planes of each direction over
+    its window -- the tile and `halo` pixels round it -- and the heights
+    one pixel further, and writes them for the tile alone; skipped tiles
+    move nothing); `relax_tile`, a relax tile's per sub-block (its heights
+    and arc bits over a window k pixels wider each way for k steps,
+    heights written for the tile), the mean over a block's ceil(unroll /
+    relax_halo) sub-blocks; a stopped image's heights copied once; the
+    set-ups, round tests and fg as mincut_bytes charges them; `bytes`,
+    the solve's."""
+    B, H, W = shape
+    th, tw, r = tally["tile_h"], tally["tile_w"], tally["halo"]
+    state = 4 + 8 * n_dirs
+    sweep = ((state * (th + 2 * r) * (tw + 2 * r)
+              + 4 * (th + 2 * r + 2) * (tw + 2 * r + 2)) / (th * tw)
+             + state + 4)
+    rh, rw, rk = tally["relax_tile_h"], tally["relax_tile_w"], tally[
+        "relax_halo"]
+    tile, subs, left = 0.0, 0, unroll
+    while left:
+        k = min(rk, left)
+        tile += 5 * (rh + 2 * k) * (rw + 2 * k) + 4 * rh * rw
+        subs += 1
+        left -= k
+    tile /= subs
+    rounds = np.asarray(tally["rounds"], np.int64)
+    tests = int(np.minimum(rounds + 1, max_outer).sum())
+    tiles = sweep_tiles(tally, shape, n_sweeps)
+    swept = tally["swept_tiles"] / tiles if tiles else 0.0
+    per_pixel = (int((2 + rounds).sum()) * (9 + 8 * n_dirs) + tests * 8
+                 + int(rounds.sum()) * n_sweeps * swept * sweep + B * 5)
+    total = (per_pixel * H * W + tally["relax_tiles"] * tile
+             + tally["image_copies"] * 8 * H * W)
+    return dict(sweep=sweep, relax_tile=tile, bytes=int(total))
+
+
+def sweep_tiles(tally: dict, shape: tuple, n_sweeps: int) -> int:
+    """Tiles the kernel's push sweeps covered, swept or skipped: each live
+    image's tiles in each of its sweeps."""
+    _, H, W = shape
+    per = -(-H // tally["tile_h"]) * -(-W // tally["tile_w"])
+    return int(np.sum(tally["rounds"])) * n_sweeps * per
 
 
 def barrier_us(shape: tuple, connectivity: int = 8) -> float:
@@ -1747,8 +1866,9 @@ def mincut_case(name: str, excess, r_fwd, r_bwd, kw: dict, card: str
     """One solve by the kernel (grid_mincut_batch on the card) and by its
     plain version (grid_mincut_plain on the card): every output and count
     bit for bit, the kernel's time (device, 3 calls) and the plain
-    version's (wall, synchronised), the bytes bound, the design's traffic
-    and the barrier floor.  Fails on any differing bit or count."""
+    version's (wall, synchronised), the bytes bound, the design's traffic,
+    the barrier floor and the launch's tiles.  Fails on any differing bit
+    or count."""
     from gcn_grabcut_torch.ops import maxflow as mf
     conn = kw.get("connectivity", 8)
     opts = {k: v for k, v in kw.items() if k != "connectivity"}
@@ -1785,34 +1905,51 @@ def mincut_case(name: str, excess, r_fwd, r_bwd, kw: dict, card: str
         differ.append("relabel steps")
     # The launch's barriers, image-steps and grid, as `counts` keeps them.
     (tally,) = mf.counts.kernel_tallies
-    n_sweeps = mf._n_sweeps(opts.get("sweeps_per_round", 48),
-                            opts.get("unroll", 4))
+    unroll = opts.get("unroll", 4)
+    n_sweeps = mf._n_sweeps(opts.get("sweeps_per_round", 48), unroll)
 
     def kernel_call():
         mf.grid_mincut_batch(excess, r_fwd, r_bwd, conn, **opts)
 
     ms = time_ms(kernel_call, reps=3, warmup=1)
     shape = tuple(excess.shape)
-    args = (tally, shape, conn // 2, n_sweeps, opts.get("max_outer", 400))
-    bound_ms = mincut_bytes(*args) / PEAK_BYTES_S * 1e3
-    design_ms = mincut_bytes(*args, mincut_design_sweep) / PEAK_BYTES_S * 1e3
+    max_outer = opts.get("max_outer", 400)
+    work = mincut_work(excess, r_fwd, r_bwd, conn, opts)
+    bound_ms = (mincut_bytes(work, tally, shape, conn // 2, max_outer)
+                / PEAK_BYTES_S * 1e3)
+    design = mincut_design(tally, shape, conn // 2, n_sweeps, max_outer,
+                           unroll)
+    design_ms = design["bytes"] / PEAK_BYTES_S * 1e3
     floor_ms = tally["barriers"] * barrier_us(shape, conn) / 1e3
+    tiles = sweep_tiles(tally, shape, n_sweeps)
     print(f"  min-cut {name} ({'x'.join(map(str, shape))}, {conn}-conn"
           f"{', ' + str(opts) if opts else ''}): kernel {ms:.4f} ms, plain "
           f"{plain_s * 1e3:.4f} ms (wall); launches {launches}, host syncs "
           f"{syncs}; rounds {rounds.tolist()}, relabel steps {steps} "
-          f"(image-steps {tally['relabel_image_steps']}), barriers "
-          f"{tally['barriers']}; bytes bound {bound_ms:.4f} ms (the design's "
-          f"traffic {design_ms:.4f} ms), barrier floor {floor_ms:.4f} ms; "
-          f"grid {tally['blocks']} blocks of 256 ({tally['blocks_per_sm']} "
-          f"a SM, {tally['registers']} registers);"
-          f" bits {'differ: ' + ', '.join(differ) if differ else 'equal'}"
+          f"(image-steps relaxed {tally['relabel_image_steps']}, height "
+          f"copies {tally['image_copies']}), barriers {tally['barriers']}, "
+          f"sweep tiles {tiles}: {tally['swept_tiles']} swept, "
+          f"{tiles - tally['swept_tiles']} skipped; relax tiles "
+          f"{tally['relax_tiles']} relaxed; the data's work: pixels swept "
+          f"{work['swept']}, {work['active']} of them in an active window "
+          f"({work['active'] / max(work['swept'], 1):.4f}), pixels relaxed "
+          f"{work['relaxed']}; bytes bound {bound_ms:.4f} ms (the design's "
+          f"traffic {design_ms:.4f} ms: a sweep {design['sweep']:.2f} B a "
+          f"pixel of its tiles, a relax tile {design['relax_tile']:.0f} B a "
+          f"sub-block), barrier floor {floor_ms:.4f} ms; sweep tile "
+          f"{tally['tile_h']}x{tally['tile_w']} halo {tally['halo']}, relax "
+          f"tile {tally['relax_tile_h']}x{tally['relax_tile_w']} halo <= "
+          f"{tally['relax_halo']}, {tally['smem_bytes']} B of dynamic "
+          f"shared memory a block; grid {tally['blocks']} blocks of 256 "
+          f"({tally['blocks_per_sm']} a SM, {tally['registers']} "
+          f"registers); bits {'differ: ' + ', '.join(differ) if differ else 'equal'}"
           f" ({card})", flush=True)
     if differ or launches != 1 or syncs:
         fail(f"the min-cut kernel disagrees with its plain version on "
              f"{name}: {differ or 'launches / syncs'}")
     return dict(ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound_ms,
-                design_ms=design_ms, floor_ms=floor_ms, max_abs_err=max_err)
+                design_ms=design_ms, floor_ms=floor_ms, max_abs_err=max_err,
+                barriers=tally["barriers"])
 
 
 def run_mincut_kernel(dev, card: str, cut_record: dict, main_image: tuple,
@@ -1858,7 +1995,8 @@ def run_mincut_kernel(dev, card: str, cut_record: dict, main_image: tuple,
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": "bytes",
         "design_traffic_ms": main["design_ms"],
-        "barrier_floor_ms": main["floor_ms"], "library_ms": None})
+        "barrier_floor_ms": main["floor_ms"], "barriers": main["barriers"],
+        "library_ms": None})
 
 
 def unpack_mask(packed: np.ndarray, hw: int) -> np.ndarray:

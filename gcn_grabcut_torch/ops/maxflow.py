@@ -83,16 +83,21 @@ class SolverCounts:
     """The device solver's work since `reset()`: per call, each image's
     outer rounds and push sweeps; in all, the global relabel's relaxation
     steps (each over the call's whole working set) and the host syncs.
-    The plain version tallies on the host as it solves.  A kernel solve's
-    tallies are copied behind it into pinned host memory, with an event;
-    they are read when the event has passed (checked without waiting at
-    the next kernel solve) or when a count is read (waiting then), so the
-    solve itself does not sync and no device memory is kept."""
+    Nothing is recorded until a caller asks: `reset()` starts recording
+    (and clears what was recorded), so a process that never calls it keeps
+    no entry, and its kernel solves take no pinned copy and no event.
+    `syncs`, the plain version's host syncs, is a plain counter.  The plain
+    version tallies on the host as it solves.  A kernel solve's tallies are
+    copied behind it into pinned host memory, with an event; they are read
+    when the event has passed (checked without waiting at the next kernel
+    solve) or when a count is read (waiting then), so the solve itself does
+    not sync and no device memory is kept."""
 
     def __init__(self):
-        self.reset()
+        self.recording = False
+        self._clear()
 
-    def reset(self) -> None:
+    def _clear(self) -> None:
         # Per call: [rounds (B,) numpy, push sweeps per round, relabel
         # steps, the kernel's tally (`kernel_tally` and its grid) or None].
         self._calls: list = []
@@ -100,13 +105,21 @@ class SolverCounts:
         self._pending: list = []
         self.syncs = 0
 
+    def reset(self) -> None:
+        """Clear the counts and record every solve from now on."""
+        self._clear()
+        self.recording = True
+
     def _record(self, rounds, n_sweeps: int, relabel_steps: int) -> None:
-        self._calls.append([rounds, n_sweeps, relabel_steps, None])
+        if self.recording:
+            self._calls.append([rounds, n_sweeps, relabel_steps, None])
 
     def _record_kernel(self, ctrl, done, n_sweeps: int, grid: dict) -> None:
         """A kernel solve: `ctrl` a host int32 tensor that holds the
         kernel's tallies once `done` (a CUDA event, or anything with
         query() and synchronize()) has passed; `grid` the launch's grid."""
+        if not self.recording:
+            return
         self._read(wait=False)
         call = [None, n_sweeps, None, dict(grid)]
         self._calls.append(call)
@@ -147,22 +160,164 @@ class SolverCounts:
     @property
     def kernel_tallies(self) -> list:
         """One dict per kernel solve: `kernel_tally`'s keys and the
-        launch's grid (blocks, blocks_per_sm, registers)."""
+        launch's grid (blocks, blocks_per_sm, registers, the tiles, halos
+        and dynamic shared memory)."""
         return [c[3] for c in self._settled() if c[3] is not None]
 
 
-#: Tallies of every solve in this process (``counts.reset()`` to start).
+#: Tallies of the solves since ``counts.reset()`` (nothing before it).
 counts = SolverCounts()
+
+# The kernel's ctrl words: relabel steps, grid barriers, relabel
+# image-steps, stopped images' height copies, sweep tiles swept, relax
+# tiles relaxed; in a build with GRID_MINCUT_STATS defined (else 0) quiet
+# sweep tiles swept, relax tiles skipped, the push sweeps' and the
+# relabels' microseconds; then each image's round number, then each
+# image's relax stamp (csrc/grid_mincut.cu).
+CTRL_HEAD = 10
 
 
 def kernel_tally(ctrl: torch.Tensor) -> dict:
     """The kernel's tallies from its ctrl buffer (copied to the host if it
     is on the card): each image's outer rounds, the batch's relabel steps,
-    the grid-wide barriers and the relabel's image-steps (steps x images
-    relaxed)."""
+    the grid-wide barriers, the relabel's image-steps (the steps each
+    image was relaxed, summed over the images), the height copies of
+    images that stopped relaxing before their relabel's last block, the
+    push sweeps' tiles swept (the others were skipped: their neighbourhood
+    was quiet in the round's previous sweep) and the relax tiles relaxed.
+    A build with GRID_MINCUT_STATS defined also tallies the quiet tiles
+    swept (no active pixel in the window: they only add +0), the relax
+    tiles skipped (no height of the window moved in the last sub-block)
+    and the device microseconds spent in push sweeps and in relabels (the
+    card's clock read by one thread around each phase, which ends in a
+    grid barrier); the committed build leaves them 0."""
     c = ctrl.cpu().numpy().astype(np.int64)
-    return dict(rounds=c[4:], relabel_steps=int(c[1]), barriers=int(c[2]),
-                relabel_image_steps=int(c[3]))
+    b = (len(c) - CTRL_HEAD) // 2
+    return dict(rounds=c[CTRL_HEAD:CTRL_HEAD + b], relabel_steps=int(c[0]),
+                barriers=int(c[1]), relabel_image_steps=int(c[2]),
+                image_copies=int(c[3]), swept_tiles=int(c[4]),
+                relax_tiles=int(c[5]), quiet_tiles=int(c[6]),
+                relax_skipped=int(c[7]), sweep_us=int(c[8]),
+                relabel_us=int(c[9]))
+
+
+def sweep_halo(connectivity: int) -> int:
+    """Pixels of halo a tile of one push sweep needs on each side so that
+    its interior ends bit for bit as the whole lattice's sweep leaves it
+    (csrc/grid_mincut.cu's tiles; tests/test_torch_mincut_tiles.py holds it
+    exact and one less short).  Direction d's forward push, backward push
+    and receive make p's excess and residuals depend on the state at p -
+    off, p and p + off: one pixel along each axis on which off moves.  The
+    lift reads the residuals at p - off and p, which its direction already
+    made exact wherever p is, and heights never change within a sweep (a
+    tile reads them one pixel further).  So the halo along an axis is the
+    number of directions moving along it, and the tile's the larger: 3 at
+    8-connectivity (W, NW, NE across, N, NW, NE down), 1 at 4."""
+    offsets = OFFSETS_8 if connectivity == 8 else OFFSETS_4
+    return max(sum(dy != 0 for dy, _ in offsets),
+               sum(dx != 0 for _, dx in offsets))
+
+
+def relabel_arcs(r_fwd, rbp, offsets, inf: int) -> list:
+    """The relabel's usable arcs: one ((dy, dx), addend) per direction and
+    sense, the addend an int32 plane that is 1 where p -> p + (dy, dx) has
+    residual capacity and `inf` where not (so the candidate is then >= inf
+    and never wins, as the JAX where does).  `rbp` the backward residuals
+    padded by one pixel of 0."""
+    arcs = []
+    for d, (dy, dx) in enumerate(offsets):
+        arcs.append(((dy, dx), torch.where(r_fwd[d] > 0, 1, inf
+                                           ).to(torch.int32)))
+        arcs.append(((-dy, -dx), torch.where(
+            _view(rbp[d], -dy, -dx) > 0, 1, inf).to(torch.int32)))
+    return arcs
+
+
+def relax_steps(bufs: list, cur: int, arcs: list, steps: int) -> int:
+    """`steps` min-plus steps of the relabel from the padded heights
+    bufs[cur] (border `inf`), ping-ponging between the two padded buffers
+    of `bufs`; returns the index of the one holding the result.  Works on
+    any window whose arcs and heights it is given: a pixel's step reads
+    its neighbours one pixel away, so `steps` steps leave exact what lies
+    `steps` pixels inside the window."""
+    tmp = torch.empty(_view(bufs[cur], 0, 0).shape, dtype=torch.int32,
+                      device=bufs[cur].device)
+    for _ in range(steps):
+        src, dst = bufs[cur], bufs[1 - cur]
+        new = _view(dst, 0, 0)
+        new.copy_(_view(src, 0, 0))
+        for (oy, ox), add in arcs:
+            torch.add(_view(src, oy, ox), add, out=tmp)
+            torch.minimum(new, tmp, out=new)
+        cur = 1 - cur
+    return cur
+
+
+def global_relabel(e, r_fwd, rbp, offsets, relabel_iters: int,
+                   unroll: int, inf: int):
+    """Padded heights: distance to the nearest deficit pixel along
+    residual arcs, by min-plus relaxation to the fixpoint (at most
+    relabel_iters steps, in blocks of `unroll` testing only each block's
+    last step).  The batch relaxes until its last image's fixpoint, where
+    the others' heights no longer move.  Returns (padded heights, steps
+    run); one host sync per block."""
+    arcs = relabel_arcs(r_fwd, rbp, offsets, inf)
+    h0 = torch.where(e < 0, 0, inf).to(torch.int32)
+    bufs = [_pad(h0, inf), torch.full(rbp[0].shape, inf, dtype=torch.int32,
+                                      device=e.device)]
+    cur, it = 0, 0
+    while it < relabel_iters:
+        cur = relax_steps(bufs, cur, arcs, unroll)
+        it += unroll
+        counts.syncs += 1
+        # Relaxation is monotone: a step that changes nothing is the
+        # fixpoint, so testing the last step ends where the JAX block
+        # test does.
+        if not bool((_view(bufs[cur], 0, 0)
+                     < _view(bufs[1 - cur], 0, 0)).any()):
+            break
+    return bufs[cur], it
+
+
+def push_sweep(e, hp, r_fwd, rbp, fp, offsets, inf: int) -> None:
+    """One lock-step push sweep over all directions, then the lift, in
+    place: `e` and each `r_fwd[d]` (..., H, W), the heights `hp`, the
+    backward residuals `rbp[d]` and the flow scratch `fp` padded by one
+    pixel (borders inf, 0 and 0).  Works on any window it is given: a
+    window `sweep_halo` pixels wider than a tile, with heights one pixel
+    wider still, leaves the tile exact."""
+    h = _view(hp, 0, 0)
+    f = _view(fp, 0, 0)
+    zero = torch.zeros((), device=e.device)
+    hfin = h < inf
+    for d, (dy, dx) in enumerate(offsets):
+        rf, rb = r_fwd[d], _view(rbp[d], 0, 0)
+        # Push p -> p + off along r_fwd.
+        can = ((e > 0) & hfin & (h == _view(hp, dy, dx) + 1)
+               & (rf > 0))
+        torch.where(can, torch.minimum(e, rf), zero, out=f)
+        rf.sub_(f)
+        rb.add_(f)
+        e.sub_(f).add_(_view(fp, -dy, -dx))
+        # Push p -> p - off along the neighbour's r_bwd.
+        res = _view(rbp[d], -dy, -dx)
+        can = ((e > 0) & hfin & (h == _view(hp, -dy, -dx) + 1)
+               & (res > 0))
+        torch.where(can, torch.minimum(e, res), zero, out=f)
+        back = _view(fp, dy, dx)
+        rb.sub_(back)
+        rf.add_(back)
+        e.sub_(f).add_(back)
+    # Relabel: overflowing pixels lift to 1 + min reachable neighbour.
+    new_h = torch.full_like(h, inf)
+    for d, (dy, dx) in enumerate(offsets):
+        new_h = torch.minimum(new_h, torch.where(
+            r_fwd[d] > 0, _view(hp, dy, dx) + 1, inf))
+        new_h = torch.minimum(new_h, torch.where(
+            _view(rbp[d], -dy, -dx) > 0, _view(hp, -dy, -dx) + 1, inf))
+    lift = (e > 0) & hfin
+    h_next = torch.where(lift, torch.maximum(h, new_h), h)
+    h.copy_(torch.where(e < 0, 0, h_next))
 
 
 def _build_solver(H: int, W: int, offsets, max_outer: int,
@@ -187,80 +342,12 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
     n_sweeps = _n_sweeps(sweeps_per_round, unroll)
     steps = 0       # relabel steps of this solve
 
-    def global_relabel(e, r_fwd, rbp):
-        """Padded heights: distance to the nearest deficit pixel along
-        residual arcs, by min-plus relaxation to the fixpoint (at most
-        relabel_iters steps).  Each arc's 'plus one' is folded into an
-        addend that is 1 where the arc is usable and INF where not: the
-        candidate is then >= INF and never wins, as the JAX where does.
-        The batch relaxes until its last image's fixpoint, where the
-        others' heights no longer move."""
+    def relabel(e, r_fwd, rbp):
         nonlocal steps
-        arcs = []
-        for d, (dy, dx) in enumerate(offsets):
-            arcs.append(((dy, dx), torch.where(r_fwd[d] > 0, 1, INF
-                                               ).to(torch.int32)))
-            arcs.append(((-dy, -dx), torch.where(
-                _view(rbp[d], -dy, -dx) > 0, 1, INF).to(torch.int32)))
-        h0 = torch.where(e < 0, 0, INF).to(torch.int32)
-        bufs = [_pad(h0, INF), torch.full(rbp[0].shape, INF,
-                                          dtype=torch.int32, device=e.device)]
-        tmp = torch.empty(e.shape, dtype=torch.int32, device=e.device)
-        cur, it = 0, 0
-        while it < relabel_iters:
-            for _ in range(unroll):
-                src, dst = bufs[cur], bufs[1 - cur]
-                new = _view(dst, 0, 0)
-                new.copy_(_view(src, 0, 0))
-                for (oy, ox), add in arcs:
-                    torch.add(_view(src, oy, ox), add, out=tmp)
-                    torch.minimum(new, tmp, out=new)
-                cur = 1 - cur
-            it += unroll
-            steps += unroll
-            counts.syncs += 1
-            # Relaxation is monotone: a step that changes nothing is the
-            # fixpoint, so testing the last step ends where the JAX block
-            # test does.
-            if not bool((_view(bufs[cur], 0, 0)
-                         < _view(bufs[1 - cur], 0, 0)).any()):
-                break
-        return bufs[cur]
-
-    def push_sweep(e, hp, r_fwd, rbp, fp):
-        """One lock-step push over all directions, then relabel, in place."""
-        h = _view(hp, 0, 0)
-        f = _view(fp, 0, 0)
-        zero = torch.zeros((), device=e.device)
-        hfin = h < INF
-        for d, (dy, dx) in enumerate(offsets):
-            rf, rb = r_fwd[d], _view(rbp[d], 0, 0)
-            # Push p -> p + off along r_fwd.
-            can = ((e > 0) & hfin & (h == _view(hp, dy, dx) + 1)
-                   & (rf > 0))
-            torch.where(can, torch.minimum(e, rf), zero, out=f)
-            rf.sub_(f)
-            rb.add_(f)
-            e.sub_(f).add_(_view(fp, -dy, -dx))
-            # Push p -> p - off along the neighbour's r_bwd.
-            res = _view(rbp[d], -dy, -dx)
-            can = ((e > 0) & hfin & (h == _view(hp, -dy, -dx) + 1)
-                   & (res > 0))
-            torch.where(can, torch.minimum(e, res), zero, out=f)
-            back = _view(fp, dy, dx)
-            rb.sub_(back)
-            rf.add_(back)
-            e.sub_(f).add_(back)
-        # Relabel: overflowing pixels lift to 1 + min reachable neighbour.
-        new_h = torch.full_like(h, INF)
-        for d, (dy, dx) in enumerate(offsets):
-            new_h = torch.minimum(new_h, torch.where(
-                r_fwd[d] > 0, _view(hp, dy, dx) + 1, INF))
-            new_h = torch.minimum(new_h, torch.where(
-                _view(rbp[d], -dy, -dx) > 0, _view(hp, -dy, -dx) + 1, INF))
-        lift = (e > 0) & hfin
-        h_next = torch.where(lift, torch.maximum(h, new_h), h)
-        h.copy_(torch.where(e < 0, 0, h_next))
+        hp, n = global_relabel(e, r_fwd, rbp, offsets, relabel_iters,
+                               unroll, INF)
+        steps += n
+        return hp
 
     def solve(excess, r_fwd, r_bwd):
         # Work on copies: the caller's tensors stay unchanged.
@@ -284,7 +371,7 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
             for full, part in zip([e, *r_fwd, *rbp], [we, *wrf, *wrbp]):
                 full.index_copy_(0, at, part.index_select(0, src))
 
-        hp = global_relabel(e, r_fwd, rbp)
+        hp = relabel(e, r_fwd, rbp)
         for _ in range(max_outer):
             active = ((we > 1e-6) & (_view(hp, 0, 0) < INF)
                       ).flatten(1).any(1).cpu().numpy()
@@ -302,12 +389,12 @@ def _build_solver(H: int, W: int, offsets, max_outer: int,
                 fp = fp[:len(keep)]
                 live = live[active]
             rounds[live] += 1
-            hp = global_relabel(we, wrf, wrbp)
+            hp = relabel(we, wrf, wrbp)
             for _ in range(n_sweeps):
-                push_sweep(we, hp, wrf, wrbp, fp)
+                push_sweep(we, hp, wrf, wrbp, fp, offsets, INF)
         else:
             write_back(np.ones(len(live), bool))
-        hp = global_relabel(e, r_fwd, rbp)
+        hp = relabel(e, r_fwd, rbp)
         counts._record(rounds, n_sweeps, steps)
         return (_view(hp, 0, 0) >= INF, e, tuple(r_fwd),
                 tuple(_view(r, 0, 0) for r in rbp))
@@ -351,6 +438,12 @@ def _entries(lib: ctypes.CDLL) -> tuple:
     return solve, barriers
 
 
+# The launch's grid as grid_mincut reports it (`info`, in this order).
+GRID_KEYS = ("blocks", "blocks_per_sm", "registers", "tile_h", "tile_w",
+             "halo", "smem_bytes", "relax_tile_h", "relax_tile_w",
+             "relax_halo")
+
+
 @functools.cache
 def _kernel():
     """The committed kernel's C entry points, built and loaded once."""
@@ -368,8 +461,9 @@ def grid_mincut_cuda(e: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
     CUDA device, updated in place (`n_sweeps` push sweeps per round, whole
     blocks of `unroll`).  Returns (fg, ctrl, grid): fg (B, H, W) bool, the
     kernel's int32 tallies (`kernel_tally`), left on the card, and the
-    launch's grid (blocks, blocks_per_sm, registers).  One launch, no host
-    sync; a refused launch raises."""
+    launch's grid (`GRID_KEYS`).  One launch, no host sync; a refused
+    launch or shared-memory attribute raises, and so does a launch whose
+    sweep tiles were compiled with another halo than `sweep_halo`'s."""
     planes = [e, *r_fwd, *r_bwd]
     n_dirs = connectivity // 2
     if connectivity not in (4, 8):
@@ -399,28 +493,35 @@ def grid_mincut_cuda(e: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
         raise ValueError(f"unroll {unroll} (>= 1), n_sweeps {n_sweeps} "
                          f"(>= 0)")
     n = e.numel()
-    # Two height planes and the two flow planes (4-byte words), then the
-    # relabel's arc bits (one byte a pixel).
-    work = torch.empty(16 * n + n, dtype=torch.uint8, device=e.device)
+    # Two height planes (int32), the second set of the excess and residual
+    # planes (the sweeps' double buffer, float32), the relabel's arc bits
+    # (one byte a pixel), then two flags per sweep tile and two per relax
+    # tile (room for tiles of 8 x 8).
+    flags = 4 * B * -(-H // 8) * -(-W // 8)
+    work = torch.empty((8 + 4 + 8 * n_dirs) * n + n + flags,
+                       dtype=torch.uint8, device=e.device)
     fg = torch.empty(e.shape, dtype=torch.bool, device=e.device)
-    ctrl = torch.zeros(4 + B, dtype=torch.int32, device=e.device)
+    ctrl = torch.zeros(CTRL_HEAD + 2 * B, dtype=torch.int32, device=e.device)
     ptrs = ctypes.c_void_p * 4
     rf = ptrs(*[t.data_ptr() for t in r_fwd])
     rb = ptrs(*[t.data_ptr() for t in r_bwd])
-    info = (ctypes.c_int * 3)()
+    info = (ctypes.c_int * len(GRID_KEYS))()
     solve, _ = _kernel() if lib is None else _entries(lib)
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream(e.device).cuda_stream
-        err = solve(connectivity // 2, B, H, W, max_outer, n_sweeps,
-                    relabel_iters, unroll, e.data_ptr(), rf, rb,
-                    work.data_ptr(), fg.data_ptr(), ctrl.data_ptr(), stream,
-                    info)
+        err = solve(n_dirs, B, H, W, max_outer, n_sweeps, relabel_iters,
+                    unroll, e.data_ptr(), rf, rb, work.data_ptr(),
+                    fg.data_ptr(), ctrl.data_ptr(), stream, info)
     if err != 0:
         raise RuntimeError(f"grid_mincut kernel launch failed: CUDA error "
                            f"{err}")
     grid_mincut_cuda.kernel_launches += 1
-    return fg, ctrl, dict(blocks=info[0], blocks_per_sm=info[1],
-                          registers=info[2])
+    grid = dict(zip(GRID_KEYS, info))
+    if grid["halo"] != sweep_halo(connectivity):
+        raise RuntimeError(f"grid_mincut's sweep tiles have a halo of "
+                           f"{grid['halo']}, not sweep_halo's "
+                           f"{sweep_halo(connectivity)}: its output is wrong")
+    return fg, ctrl, grid
 
 
 #: Launches of the min-cut kernel since the count was last set to 0.
@@ -458,13 +559,14 @@ def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
     n_sweeps = _n_sweeps(sweeps_per_round, unroll)
     fg, ctrl, grid = grid_mincut_cuda(e, rf, rb, connectivity, max_outer,
                                       n_sweeps, relabel_iters, unroll)
-    # The tallies go to pinned host memory behind the solve: no sync, and
-    # `counts` keeps no device memory.
-    host = torch.empty(ctrl.shape, dtype=ctrl.dtype, pin_memory=True)
-    host.copy_(ctrl, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(ctrl.device))
-    counts._record_kernel(host, done, n_sweeps, grid)
+    if counts.recording:
+        # The tallies go to pinned host memory behind the solve: no sync,
+        # and `counts` keeps no device memory.
+        host = torch.empty(ctrl.shape, dtype=ctrl.dtype, pin_memory=True)
+        host.copy_(ctrl, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(ctrl.device))
+        counts._record_kernel(host, done, n_sweeps, grid)
     return fg, e, rf, rb
 
 

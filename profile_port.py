@@ -17,8 +17,10 @@ slows the host, not the kernels, so busy time is set against the
 unprofiled wall time.
 
 With --kernels it first times the min-cut kernel (csrc/grid_mincut.cu)
-on the main path's first GrabCut iteration at 1536^2, as built and with
-its loads through L1 (plain loads instead of ld.global.cg), beside its
+on the main path's first GrabCut iteration at 1536^2, as built and in
+variants of its tiles, loads and occupancy (CUT_VARIANTS; one turns on
+the in-kernel tallies and timers of push sweeps and relabels, which the
+committed build leaves out), beside its
 bytes bound, its barrier floor (its grid-wide barriers times an empty
 barrier's time on the same grid) and the plain version, and profiles the
 GrabCut stage alone (wall, device busy share).  Then it times K1 (bf16,
@@ -798,24 +800,131 @@ def cleanup_profile() -> None:
 
 # Min-cut kernel variants: (name, [(text in csrc/grid_mincut.cu,
 # replacement)]).
+# Edits that turn on the min-cut's in-kernel tallies and timers.
+CUT_STATS = ("#include <cooperative_groups.h>",
+             "#define GRID_MINCUT_STATS\n#include <cooperative_groups.h>")
+# Edits that make a block start each tile's loads into one of two sweep
+# windows and then sweep its previous tile in the other, so that the next
+# window loads while this one sweeps (cp.async groups).
+CUT_PREFETCH = [
+    ("""  asm volatile("cp.async.wait_all;\\n" ::: "memory");
+}
+""", """  asm volatile("cp.async.wait_all;\\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\\n" :: "n"(N) : "memory");
+}
+"""),
+    ("      SWEEP_BYTES > RELAX_BYTES ? SWEEP_BYTES : RELAX_BYTES;",
+     "      2 * SWEEP_BYTES > RELAX_BYTES ? 2 * SWEEP_BYTES : RELAX_BYTES;"),
+    ("""  uint8_t* now = s.quiet[k & 1];
+  each_tile(""", """  uint8_t* now = s.quiet[k & 1];
+  long long pat = -1, pbase = 0;
+  int py0 = 0, px0 = 0, pw = 0;
+  auto sweep = [&]() {
+    const bool quiet = sweep_window<ND>(
+        s, sp, hn, pbase, py0, px0,
+        Window<ND>(sm + pw * Tiles<ND>::SWEEP_BYTES));
+    if (threadIdx.x == 0) {
+      now[pat] = quiet && k > 0;
+      ++t.swept;
+      if (quiet) stat(t.quiet);
+    }
+  };
+  each_tile("""),
+    ("""    load_window<ND>(s, sp, h, base, y0, x0, Window<ND>(sm));
+    cp_async_wait();
+    __syncthreads();
+    // Sweep 0 reads the caller's planes, which may hold -0: its output
+    // differs from its input there.
+    const bool quiet =
+        sweep_window<ND>(s, sp, hn, base, y0, x0, Window<ND>(sm));
+    if (threadIdx.x == 0) {
+      now[at] = quiet && k > 0;
+      ++t.swept;
+      if (quiet) stat(t.quiet);
+    }
+  });
+""", """    const int w = pat >= 0 ? pw ^ 1 : 0;
+    load_window<ND>(s, sp, h, base, y0, x0,
+                    Window<ND>(sm + w * Tiles<ND>::SWEEP_BYTES));
+    cp_async_commit();
+    if (pat >= 0) {
+      cp_async_wait_group<1>();
+      __syncthreads();
+      sweep();
+    }
+    pat = at;
+    pbase = base;
+    py0 = y0;
+    px0 = x0;
+    pw = w;
+  });
+  if (pat >= 0) {
+    cp_async_wait_group<0>();
+    __syncthreads();
+    sweep();
+  }
+"""),
+]
+CUT_TILE_32x16 = ("constexpr int TILE_H = 32, TILE_W = 32;",
+                  "constexpr int TILE_H = 32, TILE_W = 16;")
 CUT_VARIANTS = [
     ("as built", []),
-    ("loads through L1 (plain ld, not ld.global.cg)",
-     [("{ return __ldcg(p); }", "{ return *p; }")]),
+    ("as built, with the in-kernel tallies and timers (GRID_MINCUT_STATS)",
+     [CUT_STATS]),
+    ("next tile's window prefetched by cp.async while this one sweeps "
+     "(two windows, one block a SM)", CUT_PREFETCH),
+    ("sweep tile 32 x 16", [CUT_TILE_32x16]),
+    ("sweep tile 32 x 16, next tile's window prefetched (two windows, two "
+     "blocks a SM)", [CUT_TILE_32x16, *CUT_PREFETCH]),
+    ("tile loads through registers (ld.global.cg), not cp.async",
+     [("""  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n"
+               :: "r"(s), "l"(src) : "memory");""",
+       """  (void)s;
+  *reinterpret_cast<unsigned*>(dst) =
+      __ldcg(reinterpret_cast<const unsigned*>(src));""")]),
+    ("3 blocks a SM (registers capped at 80 by the launch bounds)",
+     [("__launch_bounds__(THREADS, 2) grid_mincut_kernel",
+       "__launch_bounds__(THREADS, 3) grid_mincut_kernel")]),
+    ("no quiet tile skipped (each swept, quiet ones adding +0)",
+     [("    if (j > 0) {\n      bool busy = false;",
+       "    if (false) {\n      bool busy = false;")]),
+    ("no relax tile skipped (each relaxes its steps)",
+     [("        if (sub > 0) {", "        if (false) {")]),
+    ("every tile swept in full (no quiet-window shortcut, no skip)",
+     [("    if (j > 0) {\n      bool busy = false;",
+       "    if (false) {\n      bool busy = false;"),
+      ("  if (!__syncthreads_or(active)) {",
+       "  if (!__syncthreads_or(true)) {")]),
+    ("sweep tile 32 x 64 (rows x columns: halo share 1.30, not 1.41; "
+     "one block a SM)",
+     [("constexpr int TILE_H = 32, TILE_W = 32;",
+       "constexpr int TILE_H = 32, TILE_W = 64;")]),
+    ("relax tile 32 x 64 (not 32 x 32)",
+     [("constexpr int RELAX_H = 32, RELAX_W = 32;",
+       "constexpr int RELAX_H = 32, RELAX_W = 64;")]),
 ]
 
 
 def variant_solve(lib, problem) -> tuple:
     """One solve of `problem` (excess, r_fwd, r_bwd, options) by a
-    variant's build of the kernel on fresh copies: (fg, e, planes)."""
+    variant's build of the kernel on fresh copies: (fg, e, planes, grid,
+    ctrl), ctrl the kernel's tallies, on the card."""
     from gcn_grabcut_torch.ops import maxflow as mf
     excess, r_fwd, r_bwd, kw = problem
     e, rf, rb = mf.working_copies(excess, r_fwd, r_bwd)
-    fg, _, _ = mf.grid_mincut_cuda(
+    fg, ctrl, grid = mf.grid_mincut_cuda(
         e, rf, rb, kw.get("connectivity", 8), kw.get("max_outer", 400),
         mf._n_sweeps(kw.get("sweeps_per_round", 48), kw.get("unroll", 4)),
         kw.get("relabel_iters"), kw.get("unroll", 4), lib=lib)
-    return fg, e, rf + rb
+    return fg, e, rf + rb, grid, ctrl
 
 
 def mincut_kernel() -> None:
@@ -848,8 +957,20 @@ def mincut_kernel() -> None:
                                         *want[3])))
         ms = cs.time_ms(lambda: variant_solve(lib, problem), reps=3,
                         warmup=1)
+        grid, tally = got[3], mf.kernel_tally(got[4])
+        stats = ""
+        if tally["sweep_us"]:
+            stats = (f"; in the kernel {tally['sweep_us'] / 1e3:.3f} ms of "
+                     f"push sweeps, {tally['relabel_us'] / 1e3:.3f} ms of "
+                     f"relabels; quiet tiles swept {tally['quiet_tiles']} "
+                     f"of {tally['swept_tiles']}, relax tiles skipped "
+                     f"{tally['relax_skipped']} (relaxed "
+                     f"{tally['relax_tiles']})")
         print(f"  min-cut variant {label}: {ms:.4f} ms, bits "
-              f"{'equal' if same else 'DIFFER'}", flush=True)
+              f"{'equal' if same else 'DIFFER'}; {grid['blocks_per_sm']} "
+              f"blocks a SM, {grid['registers']} registers, "
+              f"{grid['smem_bytes']} B of shared memory a block{stats}",
+              flush=True)
 
     def stage():
         grabcut_batch_device(rgbs, trimaps, pipe.gc_config)

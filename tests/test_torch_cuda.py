@@ -193,19 +193,36 @@ def test_lock_step_grabcut_on_card_matches_loop(cuda):
 # ------------------------------------------------------------- the min-cut
 
 # Each case: connectivity, which of mincut_lattices' images, the solve's
-# options, and whether it resumes from a first solve's flow.  The images
-# converge after 0, a few and many rounds; max_outer and relabel_iters
-# bind in their cases.  tests/test_torch_mincut_kernel.py holds the plain
-# version to the JAX package on the same cases.
+# options, whether it resumes from a first solve's flow, and the lattice's
+# (H, W).  The images converge after 0, a few and many rounds; max_outer
+# and relabel_iters bind in their cases.  The border cases put the
+# kernel's tiles (32 x 32 a sweep, 32 x 64 a relax) across the image's
+# edges at shapes that are no multiple of them, one lattice thinner than a
+# tile's halo; unroll6 runs a relax block as two sub-blocks; signed-zeros
+# hands the solve -0 for every zero of its planes, which the plain
+# version's adds of +0 turn into +0 in every sweep, over one round in which
+# the kernel skips the quiet tiles far from the strips.
+# tests/test_torch_mincut_kernel.py holds the plain version to the JAX
+# package on the same cases.
 MINCUT_KW = dict(sweeps_per_round=8, unroll=2)
 MINCUT_CASES = {
-    "conn8": (8, (1,), MINCUT_KW, False),
-    "conn4": (4, (1, 2), MINCUT_KW, False),
-    "lock-step": (8, (0, 1, 2), MINCUT_KW, False),
-    "carried": (8, (0, 1, 2), MINCUT_KW, True),
-    "max-outer": (8, (0, 1, 2), dict(MINCUT_KW, max_outer=2), False),
-    "relabel-iters": (4, (0, 1, 2), dict(MINCUT_KW, relabel_iters=3), False),
-    "unroll1-odd": (8, (1, 2), dict(sweeps_per_round=5, unroll=1), False),
+    "conn8": (8, (1,), MINCUT_KW, False, (40, 44)),
+    "conn4": (4, (1, 2), MINCUT_KW, False, (40, 44)),
+    "lock-step": (8, (0, 1, 2), MINCUT_KW, False, (40, 44)),
+    "carried": (8, (0, 1, 2), MINCUT_KW, True, (40, 44)),
+    "max-outer": (8, (0, 1, 2), dict(MINCUT_KW, max_outer=2), False,
+                  (40, 44)),
+    "relabel-iters": (4, (0, 1, 2), dict(MINCUT_KW, relabel_iters=3), False,
+                      (40, 44)),
+    "unroll1-odd": (8, (1, 2), dict(sweeps_per_round=5, unroll=1), False,
+                    (37, 41)),
+    "border-37x67": (8, (0, 1, 2), MINCUT_KW, False, (37, 67)),
+    "border-conn4": (4, (1, 2), MINCUT_KW, False, (37, 67)),
+    "thin-3-rows": (8, (1, 2), MINCUT_KW, False, (3, 67)),
+    "unroll6": (8, (1, 2), dict(sweeps_per_round=12, unroll=6), False,
+                (40, 44)),
+    "signed-zeros": (8, (0, 2), dict(MINCUT_KW, max_outer=1), False,
+                     (40, 140)),
 }
 
 
@@ -229,8 +246,7 @@ def mincut_case(name):
     """(excess, r_fwd, r_bwd, connectivity, options) of a case as CPU
     tensors.  A carried case resumes from the plain version's first solve
     with a seeded terminal delta on every image but the first."""
-    conn, images, kw, carried = MINCUT_CASES[name]
-    h, w = (37, 41) if name.endswith("odd") else (40, 44)
+    conn, images, kw, carried, (h, w) = MINCUT_CASES[name]
     ex, caps = mincut_lattices(h=h, w=w)
     offsets = maxflow.OFFSETS_8 if conn == 8 else maxflow.OFFSETS_4
     ex = torch.from_numpy(ex[list(images)])
@@ -246,6 +262,12 @@ def mincut_case(name):
         ex = e1 + torch.from_numpy(delta)
         r_fwd = tuple(r.contiguous() for r in r_fwd)
         r_bwd = tuple(r.contiguous() for r in r_bwd)
+    if name == "signed-zeros":
+        def negate_zeros(t):
+            return torch.where(t == 0, -0.0, t)
+        ex = negate_zeros(ex)
+        r_fwd = tuple(negate_zeros(r) for r in r_fwd)
+        r_bwd = tuple(negate_zeros(r) for r in r_bwd)
     return ex, r_fwd, r_bwd, conn, kw
 
 
@@ -703,3 +725,23 @@ def test_sharded_gradients_repeat_and_agree_across_halos(cuda):
     for a, b in (runs["pallas_ring"], runs["xla"],
                  (runs["pallas_ring"][0], runs["xla"][0])):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_mincut_kernel_refuses_another_halo(cuda, monkeypatch):
+    """The kernel's sweep tiles report the halo they were compiled with,
+    which is ops.maxflow.sweep_halo's at 4- and 8-connectivity; where the
+    two differ the wrapper raises after the launch, which it counts."""
+    for name in ("conn8", "conn4"):
+        ex, r_fwd, _, conn, kw = mincut_case(name)
+        e = ex.to(cuda)
+        rf = tuple(r.to(cuda) for r in r_fwd)
+        _, _, grid = maxflow.grid_mincut_cuda(
+            e.clone(), tuple(r.clone() for r in rf),
+            tuple(r.clone() for r in rf), conn)
+        assert grid["halo"] == maxflow.sweep_halo(conn) == {8: 3, 4: 1}[conn]
+    halo = maxflow.sweep_halo(conn)
+    monkeypatch.setattr(maxflow, "sweep_halo", lambda c: halo - 1)
+    before = maxflow.grid_mincut_cuda.kernel_launches
+    with pytest.raises(RuntimeError, match="halo"):
+        maxflow.grid_mincut_cuda(e, rf, rf, conn)
+    assert maxflow.grid_mincut_cuda.kernel_launches == before + 1

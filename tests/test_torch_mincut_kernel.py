@@ -6,7 +6,8 @@ cases whose semantics the kernel copies (4- and 8-connectivity, a lock-step
 batch whose images converge at different rounds, a carried flow,
 ``max_outer`` and ``relabel_iters`` binding); the counts it tallies; the
 kernel wrapper's input checks; and the counts of a kernel solve, read from
-its tallies only when a count is read.  tests/test_torch_cuda.py holds the
+its tallies only when a count is read; and that nothing is recorded until
+a caller asks (`counts.reset()`).  tests/test_torch_cuda.py holds the
 kernel to the plain version on the same cases on the card.
 """
 
@@ -33,6 +34,11 @@ COUNTS_BEFORE = {
     "max-outer": ([0, 2, 2], 184, 94),
     "relabel-iters": ([0, 3, 0], 20, 14),
     "unroll1-odd": ([6, 18], 1160, 1179),
+    "border-37x67": ([0, 4, 14], 1018, 524),
+    "border-conn4": ([3, 32], 2898, 1482),
+    "thin-3-rows": ([2, 6], 476, 245),
+    "unroll6": ([4, 7], 438, 81),
+    "signed-zeros": ([0, 1], 416, 209),
 }
 
 
@@ -137,14 +143,18 @@ class FakeEvent:
 
 
 def test_kernel_solve_counts_are_read_when_read():
-    """A kernel solve's tallies (stamp, relabel steps, barriers,
-    image-steps, then each image's rounds) stay in its host ctrl buffer
+    """A kernel solve's tallies (relabel steps, barriers, image-steps,
+    height copies, sweep tiles swept, relax tiles relaxed, then a
+    GRID_MINCUT_STATS build's quiet tiles swept, relax tiles skipped and
+    microseconds of sweeps and relabels, then each image's rounds, then
+    each image's relax stamp) stay in its host ctrl buffer
     until its event has passed and a count is read; plain and kernel
     solves keep their order, and the grid stays beside the tallies."""
     tmf.counts.reset()
     ex, r_fwd, r_bwd, conn, kw = mincut_case("conn8")
     tmf.grid_mincut_batch(ex, r_fwd, r_bwd, conn, **kw)
-    ctrl = torch.tensor([9, 36, 400, 72, 3, 0, 7], dtype=torch.int32)
+    ctrl = torch.tensor([36, 400, 72, 1, 5, 6, 11, 4, 80, 20, 3, 0, 7, 9,
+                         2, 9], dtype=torch.int32)
     done = FakeEvent(False)
     grid = dict(blocks=528, blocks_per_sm=4, registers=64)
     tmf.counts._record_kernel(ctrl, done, 8, grid)
@@ -156,6 +166,10 @@ def test_kernel_solve_counts_are_read_when_read():
     assert tmf.counts.syncs == 40
     (tally,) = tmf.counts.kernel_tallies
     assert tally["barriers"] == 400 and tally["relabel_image_steps"] == 72
+    assert tally["image_copies"] == 1 and tally["swept_tiles"] == 5
+    assert tally["relax_tiles"] == 6 and tally["quiet_tiles"] == 11
+    assert tally["relax_skipped"] == 4
+    assert tally["sweep_us"] == 80 and tally["relabel_us"] == 20
     assert tally["blocks"] == 528 and tally["registers"] == 64
     assert tally["rounds"].tolist() == [3, 0, 7]
     assert tmf.kernel_tally(ctrl)["barriers"] == 400
@@ -172,7 +186,8 @@ def test_kernel_tallies_are_read_as_their_solves_end():
         if events:
             events[-1].passed = True        # the previous solve has ended
         events.append(FakeEvent(False))
-        ctrl = torch.tensor([0, i, 2 * i, i, 1], dtype=torch.int32)
+        ctrl = torch.tensor([i, 2 * i, i, 0, 0, 0, 0, 0, 0, 0, 1, 0],
+                            dtype=torch.int32)
         tmf.counts._record_kernel(ctrl, events[-1], 4, grid)
         assert len(tmf.counts._pending) == 1
     assert sum(e.waits for e in events) == 0
@@ -181,3 +196,63 @@ def test_kernel_tallies_are_read_as_their_solves_end():
     assert not tmf.counts._pending
     assert [t["barriers"] for t in tmf.counts.kernel_tallies] == [
         2 * i for i in range(50)]
+
+
+def test_counts_record_nothing_until_reset(monkeypatch):
+    """A process that never calls `counts.reset()` keeps no entry however
+    many solves it makes (a long-lived server); after a reset the counts
+    read as before."""
+    fresh = tmf.SolverCounts()
+    monkeypatch.setattr(tmf, "counts", fresh)
+    ex, r_fwd, r_bwd, conn, kw = mincut_case("relabel-iters")
+    for _ in range(50):
+        tmf.grid_mincut_batch(ex, r_fwd, r_bwd, conn, **kw)
+    assert not fresh.recording
+    assert fresh._calls == [] and fresh._pending == []
+    assert fresh.rounds == [] and fresh.relabel_steps == 0
+    fresh.reset()
+    tmf.grid_mincut_batch(ex, r_fwd, r_bwd, conn, **kw)
+    rounds, steps, syncs = COUNTS_BEFORE["relabel-iters"]
+    assert [r.tolist() for r in fresh.rounds] == [rounds]
+    assert fresh.relabel_steps == steps and fresh.syncs == syncs
+
+
+def test_kernel_solves_copy_tallies_only_when_recording(monkeypatch):
+    """A kernel solve (mocked: planes on the meta device, the launch a
+    stand-in) takes no pinned copy and no event while `counts` is not
+    recording, and one of each once it is."""
+    fresh = tmf.SolverCounts()
+    monkeypatch.setattr(tmf, "counts", fresh)
+    pinned, events = [], []
+    real_empty = torch.empty
+
+    def empty(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            pinned.append(args)
+        return real_empty(*args, **kwargs)
+
+    def event():
+        events.append(FakeEvent(True))
+        events[-1].record = lambda stream: None
+        return events[-1]
+
+    def launch(e, rf, rb, *args):
+        ctrl = torch.zeros(tmf.CTRL_HEAD + 2 * e.shape[0], dtype=torch.int32)
+        return (torch.zeros(e.shape, dtype=torch.bool, device=e.device),
+                ctrl, dict(blocks=1))
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(tmf, "grid_mincut_cuda", launch)
+    ex, r_fwd, r_bwd, conn, kw = mincut_case("lock-step")
+    meta = (ex.to("meta"), tuple(r.to("meta") for r in r_fwd),
+            tuple(r.to("meta") for r in r_bwd))
+    for _ in range(50):
+        tmf.grid_mincut_batch(*meta, conn, **kw)
+    assert pinned == [] and events == []
+    assert fresh._calls == [] and fresh._pending == []
+    fresh.reset()
+    tmf.grid_mincut_batch(*meta, conn, **kw)
+    assert len(pinned) == 1 and len(events) == 1
+    assert [r.tolist() for r in fresh.rounds] == [[0, 0, 0]]
