@@ -46,7 +46,8 @@ Phases, each of which exits non-zero on failure:
      synthetic image with 10 000 SLIC segments and a seeded ResGCNNet at
      D=128, n_layers=6 -- a warm run, then a timed run with the kernel
      launch counts set to 0 just before and read just after (K1, the
-     segment sum and the min-cut, one launch per GrabCut iteration); the
+     segment sum, the min-cut, one launch per GrabCut iteration, the
+     connectivity kernel and the mask components kernel); the
      card's forward is then held against the plain forward on the CPU;
   5. the graph-sharded path on the same graph and model: the forward
      through mesh_aggregators over 4 ranks with the ring halo (K2) and the
@@ -192,6 +193,24 @@ Phases, each of which exits non-zero on failure:
      block of `unroll` steps 9 where a height can move), the kernel's own
      traffic (tiles with their halos, mincut_design) and the barrier floor
      (its barriers times an empty barrier's time, on the same grid).
+ 17. the batched, sync-free graph build and clean-up: the connectivity
+     kernel (csrc/slic_connectivity.cu: SLIC's orphan absorption and
+     enforce_connectivity in one launch) and the mask components kernel
+     (csrc/mask_components.cu: the clean-up's connected components in
+     one launch) against their plain versions on the card, bit for bit,
+     on the inputs recorded at their call sites in the dense cell's
+     segment_batch (B=8 at 512^2 and its 0.75-scale rebuild) and the
+     large cell's (1536^2), and on cap cases (a spiral with max_sweeps 2,
+     a serpentine with max_iters 2), each with its ms, the plain
+     version's wall ms, its component blocks, absorption rounds or sweeps,
+     and its bytes bound; one launch of each a build or clean-up (two of
+     the connectivity kernel a dense batch: its two scales); the batched
+     build (both scales), projection, trimap stage and clean-up at B=8
+     against each image alone, bit for bit; no host sync in the build,
+     the projection, the trimap stage or the clean-up
+     (torch.cuda.set_sync_debug_mode("error")); the dense B=8
+     graph_build and images/s and serving's requests/s beside the
+     per-image build's figures.
 The fp32 training steps on the card (phases 8 and 9) and the data-parallel
 and solo steps of phase 11 each run twice and fail unless the two are
 bit-identical.
@@ -203,8 +222,9 @@ Phase 1 also reports whether cv2, PIL, networkx, matplotlib and yaml
 import (information only; visualise draws with cv2 without matplotlib).
 Kernel times are device times: the launches run back to back behind a
 device sleep, so the host's launch cost is not counted.
-The last lines are the kernels' JSON record (K1, K2, K3, the segment sum
-and the min-cut, whose record adds its barrier floor), the card's name and
+The last lines are the kernels' JSON record (K1, K2, K3, the segment sum,
+the min-cut, whose record adds its barrier floor, the connectivity kernel
+and the mask components kernel), the card's name and
 power limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
 """
@@ -388,6 +408,13 @@ LOCK_STEP_BATCHES = (1, 2, 4, 8)
 # grid-wide barriers timed for its barrier floor.
 CUT_BOUND_OUTER = 2
 CUT_BARRIERS = 2000
+# Phase 17: the cap cases of the connectivity kernel (max_sweeps) and the
+# mask components kernel (max_iters), and the figures of the per-image
+# build that the batched one replaced (PERF.md section 5, run G: H100
+# 80GB HBM3, 700.00 W).
+CONNECT_CAP, COMPONENTS_CAP = 2, 2
+BUILD_BEFORE = {"graph_build_s": 0.4324, "dense_images_s": 5.98,
+                "serving_requests_s": 7.8180}
 
 
 def optional_packages() -> str:
@@ -934,9 +961,10 @@ def segment_cases(dev) -> tuple[dict, dict]:
                               f"{band[1].n}")
 
     # region_statistics' planes (ops/region.py), unsorted pixels.
-    lab = im.rgb_to_lab(rgb)
-    planes = region_planes(segments, lab, im.rgb_to_hsv(rgb),
-                           im.gradient_magnitude(im.rgb_to_gray(rgb)))
+    rgb1 = rgb[None]
+    planes = region_planes(arrays["segments"], im.rgb_to_lab(rgb1),
+                           im.rgb_to_hsv(rgb1),
+                           im.gradient_magnitude(im.rgb_to_gray(rgb1)))
     cases["region_stats"] = SegCase(segments.reshape(-1),
                                     planes.reshape(-1, planes.shape[-1]), k,
                                     False, f"region planes {IMAGE_HW}^2 x "
@@ -950,7 +978,7 @@ def segment_cases(dev) -> tuple[dict, dict]:
                                       f"clean-up {IMAGE_HW}^2 x 1 unsorted "
                                       f"into {hw}")
     mask = torch.as_tensor(cleanup_mask(IMAGE_HW), device=dev)
-    labels = connected_components(mask > 0).long().reshape(-1)
+    labels = connected_components(mask[None] > 0).long().reshape(-1)
     clamped = labels.clamp_max(hw - 1)
     valid = (labels < hw).float()
     border = torch.zeros((IMAGE_HW, IMAGE_HW), device=dev)
@@ -1264,11 +1292,13 @@ def graph_on_card(imgs: list, cfg, dev):
 
 
 def run_main_path(dev, record: dict, seg_record: dict,
-                  cut_record: dict) -> None:
+                  cut_record: dict, build_records: dict) -> None:
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.graph_build import num_nodes_for
     from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops.connected import connected_components_cuda
     from gcn_grabcut_torch.ops.maxflow import grid_mincut_cuda
+    from gcn_grabcut_torch.ops.slic import repair_connectivity_cuda
     from gcn_grabcut_torch.ops.region import segment_sum
     from gcn_grabcut_torch.ops.spmm import banded_spmm
 
@@ -1288,22 +1318,30 @@ def run_main_path(dev, record: dict, seg_record: dict,
     banded_spmm.kernel_launches = 0
     segment_sum.kernel_launches = 0
     grid_mincut_cuda.kernel_launches = 0
+    repair_connectivity_cuda.kernel_launches = 0
+    connected_components_cuda.kernel_launches = 0
     t = time.perf_counter()
     res = pipe.segment_batch([img], sync_timing=True)[0]
     wall = time.perf_counter() - t
     launches = banded_spmm.kernel_launches
     seg_launches = segment_sum.kernel_launches
     cut_launches = grid_mincut_cuda.kernel_launches
+    repair_launches = repair_connectivity_cuda.kernel_launches
+    cc_launches = connected_components_cuda.kernel_launches
     record["launches"] = launches
     seg_record["launches"] = seg_launches
     cut_record["launches"] = cut_launches
+    build_records["slic_connectivity"]["launches"] = repair_launches
+    build_records["mask_components"]["launches"] = cc_launches
     stages = " ".join(f"{s}={v:.3f}s" for s, v in res.timing.items())
     fg = float(res.binary_mask.mean())
     tri = np.bincount(res.trimap.ravel(), minlength=4) / res.trimap.size
     print(f"main path timed run (B=1, {IMAGE_HW}^2, K={k}, ResGCNNet "
           f"D={HIDDEN} n={N_LAYERS}): {wall:.3f} s; {stages}; "
           f"banded_spmm launches={launches}, segment_sum launches="
-          f"{seg_launches}, grid_mincut launches={cut_launches}; trimap "
+          f"{seg_launches}, grid_mincut launches={cut_launches}, "
+          f"slic_connectivity launches={repair_launches}, mask_components "
+          f"launches={cc_launches}; trimap "
           f"BG/FG/PR_BG/PR_FG="
           f"{'/'.join(f'{v:.3f}' for v in tri)}; FG fraction={fg:.4f}",
           flush=True)
@@ -1316,6 +1354,11 @@ def run_main_path(dev, record: dict, seg_record: dict,
     if cut_launches != n_iter:
         fail(f"the main path launched the min-cut kernel {cut_launches} "
              f"times, expected {n_iter} (one per GrabCut iteration)")
+    if (repair_launches, cc_launches) != (1, 1):
+        fail(f"the main path launched the connectivity kernel "
+             f"{repair_launches} times and the components kernel "
+             f"{cc_launches} times, expected 1 each (one build, one "
+             f"clean-up)")
     if res.probs.shape != (k, 3) or not np.isfinite(res.probs).all():
         fail("posteriors are not finite (K, 3)")
     if not 0.0 < fg < 1.0:
@@ -2879,13 +2922,14 @@ def serve_reference(batcher, image: np.ndarray, threshold: float):
     return res, serve._unbox(res.binary_mask, geom)
 
 
-def run_serving(card: str) -> None:
+def run_serving(card: str) -> float:
     """cli.serve on the card: (a) the recommended ensemble at 512 px behind
     its micro-batcher, 8 clients and 16 requests, held against
     segment_batch and the JAX package's served masks; (b) one ResGCNNet at
     1536^2 / 10 000 superpixels, one request plain and one under
     profile_trace, 7 K1 launches each; (c) a FrameworkConfig round trip
-    and save_research_report on (a)'s results."""
+    and save_research_report on (a)'s results.  Returns (a)'s requests
+    per second."""
     import base64
     import hashlib
     import queue
@@ -2995,12 +3039,13 @@ def run_serving(card: str) -> None:
         ious_jax.append(iou(mask, jax_mask(i, alt)))
         fgs.append(payload["fg_ratio"])
     timings = sorted({a[1]["timing_ms"] for a in answers})
+    rate = len(plan) / wall
     print(f"serving (a), the recommended ensemble ({DENSE_HW} px canvas, "
           f"K={refs[0, False][0].probs.shape[0]}, bgc x3, --batch 8, "
           f"--batch-wait-ms {SERVE_WAIT_MS}; {card}): start-up (load + "
           f"warm-up) {startup:.3f} s; {len(plan)} requests from "
           f"{SERVE_CLIENTS} clients in {wall:.3f} s = "
-          f"{len(plan) / wall:.4f} requests/s; latency p50 "
+          f"{rate:.4f} requests/s; latency p50 "
           f"{np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f}"
           f" s, max {lat.max():.3f} s; groups {groups} (mean "
           f"{np.mean(groups):.2f}); batch timing_ms {timings}; FG "
@@ -3097,6 +3142,7 @@ def run_serving(card: str) -> None:
         print(f"serving (c): FrameworkConfig JSON round trip equal; "
               f"save_research_report {grid.shape[1]}x{grid.shape[0]} px, "
               f"{report.stat().st_size} bytes", flush=True)
+    return rate
 
 
 def run_data_parallel(dev, card: str, graphs: list, rings: dict,
@@ -3607,8 +3653,8 @@ def check_keep_largest_repeats(dev) -> None:
     mask[:, :6] = 1                                 # a frame-like strip
     rng = np.random.RandomState(11)
     post = (0.5 + 0.5 * rng.rand(hw, hw)).astype(np.float32)
-    m = torch.from_numpy(mask).to(dev)
-    p = torch.from_numpy(post).to(dev)
+    m = torch.from_numpy(mask).to(dev)[None]
+    p = torch.from_numpy(post).to(dev)[None]
     labels = connected_components(m > 0).long().reshape(-1).clamp_max(
         hw * hw - 1)
     planes = torch.stack([torch.ones(hw * hw, device=dev), p.reshape(-1)], 1)
@@ -3678,6 +3724,342 @@ def run_flat_colour(card: str) -> None:
           f"{cpu_res.binary_mask.mean():.4f}", flush=True)
 
 
+@contextlib.contextmanager
+def recording_calls(module, name: str):
+    """Records the positional arguments of every call of module.name (a
+    module-level function, looked up at call time) in the yielded list."""
+    fn = getattr(module, name)
+    calls: list = []
+
+    def recording(*args, **kwargs):
+        calls.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def spiral_labels(hw: int) -> np.ndarray:
+    """Label 1 on a one-pixel square spiral corridor (laps two apart) in
+    label 0, label 2 over the bottom-right corner: components that need
+    hundreds of Jacobi steps, and a label cut in two."""
+    lab = np.zeros((hw, hw), np.int64)
+    y = x = 1
+    lab[y, x] = 1
+    n = hw - 3
+    lengths = [n, n, n] + [m for m in range(n - 2, 0, -2) for _ in (0, 1)]
+    for i, length in enumerate(lengths):
+        dy, dx = ((0, 1), (1, 0), (0, -1), (-1, 0))[i % 4]
+        for _ in range(length):
+            y, x = y + dy, x + dx
+            lab[y, x] = 1
+    lab[-6:, -6:] = 2
+    return lab
+
+
+def serpentine_mask(hw: int) -> np.ndarray:
+    """One path along every other row, turning at alternate ends."""
+    m = np.zeros((hw, hw), bool)
+    for i, y in enumerate(range(1, hw - 1, 2)):
+        m[y, 1:hw - 1] = True
+        if y + 2 < hw - 1:
+            m[y + 1, hw - 2 if i % 2 == 0 else 1] = True
+    return m
+
+
+def wall_s(fn) -> float:
+    """Host seconds of fn() from a synchronised start to a synchronised
+    end (for the plain versions, which sync the host themselves)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def build_kernel_case(name: str, kernel, plain, pixels: int,
+                      bytes_per_px: int, loops) -> dict:
+    """One case of phase 17: the kernel against its plain version on the
+    card, bit for bit, with the kernel's device ms, the plain version's
+    wall ms and the bytes bound (the input read once and the labels
+    written once, over PEAK_BYTES_S)."""
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    info = loops()
+    ms = time_ms(kernel, reps=10, warmup=2)
+    plain_ms = 1e3 * wall_s(plain)
+    bound_ms = 1e3 * pixels * bytes_per_px / PEAK_BYTES_S
+    print(f"  {name}: {differ} labels differ from the plain version; "
+          f"kernel {ms:.4f} ms ({info}), plain {plain_ms:.4f} ms (wall), "
+          f"bytes bound {bound_ms:.4f} ms ({ms / bound_ms:.1f}x)",
+          flush=True)
+    if differ:
+        fail(f"{name}: the kernel's labels differ from the plain version's "
+             f"at {differ} pixels")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": float((got.long() - want.long()).abs().max())}
+
+
+def same_arrays(a: dict, b: dict, keys) -> list:
+    """The keys whose arrays differ in any bit."""
+    return [k for k in keys if a[k].shape != b[k].shape
+            or not same_bits(a[k], b[k])]
+
+
+def run_build_kernels(dev, card: str, records: dict,
+                      serving_rps: float) -> None:
+    """Phase 17: the batched, sync-free graph build and clean-up.  (a) The
+    connectivity kernel (csrc/slic_connectivity.cu) and the mask
+    components kernel (csrc/mask_components.cu) against their plain
+    versions on the card, bit for bit, on the inputs recorded at their
+    call sites in the dense cell's segment_batch (B=8 at 512^2 and its
+    0.75-scale rebuild) and in the large cell's (1536^2), and on the cap
+    cases (a spiral with max_sweeps CONNECT_CAP, a serpentine with
+    max_iters COMPONENTS_CAP); each kernel's ms, the plain version's,
+    its bytes bound.  (b) Launches per dense B=8 segment_batch and per
+    build.  (c) The batched build, trimap stage and clean-up at B=8
+    against each image alone, bit for bit.  (d) No host sync in
+    build_graph_batch_arrays, _project_probs_device, _trimap_stage_device
+    and _post_stage_device (torch.cuda.set_sync_debug_mode("error")).
+    (e) graph_build and dense B=8 images/s, and serving's requests/s,
+    beside the per-image build's (BUILD_BEFORE)."""
+    import gcn_grabcut_torch as gt
+    from gcn_grabcut_torch import pipeline as pl
+    from gcn_grabcut_torch.grabcut import grabcut_batch_device
+    from gcn_grabcut_torch.graph_build import build_graph_batch_arrays
+    from gcn_grabcut_torch.ops import connected as cc
+    from gcn_grabcut_torch.ops import image as im
+    from gcn_grabcut_torch.ops import slic as slic_ops
+
+    model, _ = load_ensemble()
+    cfg = gt.SuperpixelGraphConfig(n_segments=DENSE_SEGMENTS,
+                                   bg_connectivity=True)
+    pipe = gt.GCNGrabCutPipeline(model, cfg)
+    images = [make_image(DENSE_HW, s) for s in range(DENSE_IMAGES)]
+    with recording_calls(slic_ops, "repair_connectivity") as dense_rep, \
+            recording_calls(cc, "connected_components") as dense_cc:
+        pipe.segment_batch(images, **DENSE_SETTINGS)
+    large_cfg = gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
+    large_pipe = gt.GCNGrabCutPipeline(gt.ResGCNNet(
+        hidden_channels=HIDDEN, n_layers=N_LAYERS,
+        generator=torch.Generator().manual_seed(MODEL_SEED)), large_cfg)
+    with recording_calls(slic_ops, "repair_connectivity") as large_rep, \
+            recording_calls(cc, "connected_components") as large_cc:
+        large_pipe.segment_batch([make_image(IMAGE_HW)])
+    if len(dense_rep) != 2 or len(dense_cc) != 1 or len(large_rep) != 1 \
+            or len(large_cc) != 1:
+        fail(f"recorded {len(dense_rep)} / {len(large_rep)} repairs and "
+             f"{len(dense_cc)} / {len(large_cc)} labellings (dense / large)")
+
+    def repair_plain(labels, k, absorb, sweeps):
+        out = slic_ops.absorb_orphans_plain(labels, absorb)
+        return (slic_ops.enforce_connectivity_plain(out, k, sweeps)
+                if sweeps else out)
+
+    def repair_case(name, labels, k, absorb, sweeps):
+        return build_kernel_case(
+            name,
+            lambda: slic_ops.repair_connectivity_cuda(labels, k, absorb,
+                                                      sweeps),
+            lambda: repair_plain(labels, k, absorb, sweeps),
+            labels.numel(), 8,
+            lambda: slic_ops.kernel_loops(
+                slic_ops.repair_connectivity_cuda.last_ctrl))
+
+    def components_case(name, mask, conn, iters):
+        def loops():
+            c = cc.connected_components_cuda.last_ctrl
+            return f"{int(c[-1])} sweeps"
+        return build_kernel_case(
+            name, lambda: cc.connected_components_cuda(mask, conn, iters),
+            lambda: cc.connected_components_plain(mask, conn, iters),
+            mask.numel(), 5, loops)
+
+    print(f"phase 17 ({card}): the connectivity kernel "
+          f"(csrc/slic_connectivity.cu: absorb 4 sweeps, then "
+          f"enforce_connectivity) and the mask components kernel "
+          f"(csrc/mask_components.cu) against their plain versions, bit "
+          f"for bit", flush=True)
+    spiral = torch.as_tensor(np.stack([spiral_labels(96),
+                                       spiral_labels(96).T.copy()]),
+                             device=dev)
+    serp = torch.as_tensor(serpentine_mask(512)[None], device=dev)
+    rep = {}
+    for name, (labels, k) in (
+            (f"dense B={DENSE_IMAGES} {DENSE_HW}^2", dense_rep[0]),
+            (f"dense B={DENSE_IMAGES} 0.75-scale rebuild", dense_rep[1]),
+            (f"large {IMAGE_HW}^2", large_rep[0])):
+        rep[name] = repair_case(f"repair, {name}, K={k}", labels, k, 4, 64)
+    repair_case(f"repair, spiral 96^2 x 2, max_sweeps={CONNECT_CAP}",
+                spiral, 3, 0, CONNECT_CAP)
+    repair_case("absorb only, dense 4 sweeps", dense_rep[0][0], 1, 4, 0)
+    comp = {}
+    for name, (mask,) in ((f"dense B={DENSE_IMAGES} {DENSE_HW}^2",
+                           (dense_cc[0][0],)),
+                          (f"large {IMAGE_HW}^2", (large_cc[0][0],))):
+        comp[name] = components_case(f"components, {name}", mask, 8, 512)
+    for conn in (8, 4):
+        components_case(f"components, serpentine 512^2, {conn}-conn, "
+                        f"max_iters={COMPONENTS_CAP}", serp, conn,
+                        COMPONENTS_CAP)
+
+    # (b) Launches per dense B=8 batch.
+    slic_ops.repair_connectivity_cuda.kernel_launches = 0
+    cc.connected_components_cuda.kernel_launches = 0
+    pipe.segment_batch(images, **DENSE_SETTINGS)
+    a_batch = slic_ops.repair_connectivity_cuda.kernel_launches
+    b_batch = cc.connected_components_cuda.kernel_launches
+    rgbs = torch.as_tensor(np.stack(images), device=dev).float()
+    slic_ops.repair_connectivity_cuda.kernel_launches = 0
+    build_graph_batch_arrays(rgbs, cfg, device=dev)
+    a_build = slic_ops.repair_connectivity_cuda.kernel_launches
+    print(f"  launches per dense B={DENSE_IMAGES} segment_batch: "
+          f"connectivity {a_batch} (one a build: {DENSE_SETTINGS['ms_scales']}"
+          f"), components {b_batch}; per build_graph_batch_arrays: "
+          f"{a_build}", flush=True)
+    if (a_batch, b_batch, a_build) != (len(DENSE_SETTINGS["ms_scales"]), 1,
+                                       1):
+        fail("the batched build or clean-up did not launch its kernel once "
+             "a batch")
+
+    # (c) B=8 against each image alone: the build at both scales, the
+    # projection, the trimap stage on the batch's posteriors and the
+    # clean-up on the batch's GrabCut masks.
+    H = W = DENSE_HW
+    hw75 = tuple(max(int(round(DENSE_HW * 0.75)), 64) for _ in range(2))
+    keys = ("segments", "x", "edge_src", "edge_dst", "edge_attr",
+            "edge_mask", "node_mask", "node_area", "centroids", "prior",
+            "counts")
+    rgbs75 = im.resize_bilinear(rgbs, hw75)
+    out = build_graph_batch_arrays(rgbs, cfg, device=dev)
+    out75 = build_graph_batch_arrays(rgbs75, cfg, device=dev)
+    g, g75 = (pipe._graph(r)[1] for r in (rgbs, rgbs75))
+    probs, probs75 = pipe._predict_probs_batch(g), pipe._predict_probs_batch(
+        g75)
+    grays = im.rgb_to_gray(rgbs) / 255.0
+
+    def trimap_stage(sl):
+        px = torch.stack([
+            pl._project_probs_device(probs[sl], out["segments"][sl], (H, W)),
+            pl._project_probs_device(probs75[sl], out75["segments"][sl],
+                                     (H, W))]).mean(dim=0)
+        tri = pl._trimap_stage_device(
+            px, out["segments"][sl], grays[sl], out["prior"][sl],
+            out["node_mask"][sl], DENSE_SETTINGS["threshold_fg"],
+            DENSE_SETTINGS["threshold_bg"], DENSE_SETTINGS["filter_radius"])
+        return px, tri
+
+    px, trimaps = trimap_stage(slice(None))
+    masks = grabcut_batch_device(rgbs, trimaps, pipe.gc_config)
+    min_area = float(0.002 * H * W)
+
+    def post(sl, keep):
+        return pl._post_stage_device(masks[sl], trimaps[sl],
+                                     out["segments"][sl], min_area, keep,
+                                     True, px[sl][..., 1] if keep else None)
+
+    packed = {keep: post(slice(None), keep) for keep in (False, True)}
+    bad = []
+    for b in range(DENSE_IMAGES):
+        sl = slice(b, b + 1)
+        one = build_graph_batch_arrays(rgbs[sl], cfg, device=dev)
+        bad += [f"build {k} image {b}" for k in same_arrays(
+            {k: v[b] for k, v in out.items()},
+            {k: v[0] for k, v in one.items()}, keys)]
+        one75 = build_graph_batch_arrays(im.resize_bilinear(rgbs[sl], hw75),
+                                         cfg, device=dev)
+        bad += [f"0.75 build {k} image {b}" for k in same_arrays(
+            {k: v[b] for k, v in out75.items()},
+            {k: v[0] for k, v in one75.items()}, keys)]
+        px1, tri1 = trimap_stage(sl)
+        if not same_bits(px1[0], px[b]):
+            bad.append(f"pixel posteriors image {b}")
+        if not torch.equal(tri1[0], trimaps[b]):
+            bad.append(f"trimap image {b}")
+        for keep in (False, True):
+            if not torch.equal(post(sl, keep)[0], packed[keep][b]):
+                bad.append(f"clean-up (keep_largest={keep}) image {b}")
+    print(f"  B={DENSE_IMAGES} against each image alone (build at 1.0 and "
+          f"0.75, projection, trimap stage, clean-up both ways): "
+          f"{len(bad)} arrays differ {bad[:6]}", flush=True)
+    if bad:
+        fail(f"a batch changed an image's outputs: {bad[:6]}")
+
+    # (d) No host sync in the stages.
+    large_rgb = torch.as_tensor(make_image(IMAGE_HW)[None], device=dev
+                                ).float()
+    stages = {
+        f"build_graph_batch_arrays dense B={DENSE_IMAGES}":
+            lambda: build_graph_batch_arrays(rgbs, cfg, device=dev),
+        f"build_graph_batch_arrays large {IMAGE_HW}^2":
+            lambda: build_graph_batch_arrays(large_rgb, large_cfg,
+                                             device=dev),
+        "_project_probs_device (0.75 -> 1.0)":
+            lambda: pl._project_probs_device(probs75, out75["segments"],
+                                             (H, W)),
+        "_trimap_stage_device": lambda: trimap_stage(slice(None)),
+        "_post_stage_device": lambda: post(slice(None), False),
+        "_post_stage_device keep_largest": lambda: post(slice(None), True),
+    }
+    torch.cuda.synchronize()
+    for name, fn in stages.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            fail(f"{name} synchronised the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  host syncs under set_sync_debug_mode('error'): 0 in "
+          f"{', '.join(stages)}", flush=True)
+
+    # (e) The end-to-end figures beside the per-image build's.
+    builds = [wall_s(lambda: build_graph_batch_arrays(rgbs, cfg, device=dev))
+              for _ in range(3)]
+    batches = [wall_s(lambda: pipe.segment_batch(images, **DENSE_SETTINGS))
+               for _ in range(3)]
+    split8 = pipe.segment_batch(images, sync_timing=True,
+                                **DENSE_SETTINGS)[0].timing
+    ips = DENSE_IMAGES / float(np.median(batches))
+    print(f"  dense B={DENSE_IMAGES} ({card}): build_graph_batch_arrays "
+          f"median {float(np.median(builds)):.4f} s (per-image build "
+          f"{BUILD_BEFORE['graph_build_s']} s); segment_batch median "
+          f"{float(np.median(batches)):.4f} s = {ips:.2f} images/s (before "
+          f"{BUILD_BEFORE['dense_images_s']}); synchronised split "
+          f"{split(split8)}; serving {serving_rps:.4f} requests/s (before "
+          f"{BUILD_BEFORE['serving_requests_s']})", flush=True)
+
+    large_a, large_b = rep[f"large {IMAGE_HW}^2"], comp[f"large {IMAGE_HW}^2"]
+    dense_a = rep[f"dense B={DENSE_IMAGES} {DENSE_HW}^2"]
+    dense_b = comp[f"dense B={DENSE_IMAGES} {DENSE_HW}^2"]
+    records["slic_connectivity"].update({
+        "name": "slic_connectivity", "route": "cuda",
+        "source": "gcn_grabcut_torch/csrc/slic_connectivity.cu",
+        "replaces": "gcn_grabcut_tpu/ops/slic.py:216 (enforce_connectivity's "
+                    "lax.while_loops at :263 and :302, _absorb_orphans :173; "
+                    "XLA, not Pallas)",
+        "max_abs_err": large_a["max_abs_err"], "ms": large_a["ms"],
+        "plain_ms": large_a["plain_ms"], "bound_ms": large_a["bound_ms"],
+        "bound_by": "bytes", "dense_ms": dense_a["ms"],
+        "dense_bound_ms": dense_a["bound_ms"], "library_ms": None})
+    records["mask_components"].update({
+        "name": "mask_components", "route": "cuda",
+        "source": "gcn_grabcut_torch/csrc/mask_components.cu",
+        "replaces": "gcn_grabcut_tpu/ops/connected.py:44 "
+                    "(connected_components' lax.while_loop at :79; XLA, not "
+                    "Pallas)",
+        "max_abs_err": large_b["max_abs_err"], "ms": large_b["ms"],
+        "plain_ms": large_b["plain_ms"], "bound_ms": large_b["bound_ms"],
+        "bound_by": "bytes", "dense_ms": dense_b["ms"],
+        "dense_bound_ms": dense_b["bound_ms"], "library_ms": None})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3727,8 +4109,9 @@ def main() -> None:
     timed("gather audit", audit_gathers, dev, seg_arrays)
     del seg_arrays
     cut_record = {}
+    build_records = {"slic_connectivity": {}, "mask_components": {}}
     main_image = timed("main path", run_main_path, dev, record, seg_record,
-                       cut_record)
+                       cut_record, build_records)
     timed("sharded", run_sharded_path, dev, rings, k)
     dense = timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
@@ -3741,7 +4124,7 @@ def main() -> None:
     evaluated = timed("eval cli", run_eval_cli, card)
     timed("inference cli", run_inference_cli, evaluated, card)
     timed("variants", run_variants, dev, card, graphs)
-    timed("serving", run_serving, card)
+    serving_rps = timed("serving", run_serving, card)
     timed("data parallel", run_data_parallel, dev, card, graphs, rings, k)
     timed("data parallel variants", run_data_parallel_variants, dev, card,
           graphs, rings)
@@ -3750,12 +4133,16 @@ def main() -> None:
     timed("lock step", run_lock_step, dev, card, *dense)
     timed("min-cut kernel", run_mincut_kernel, dev, card, cut_record,
           main_image, dense)
+    timed("build kernels", run_build_kernels, dev, card, build_records,
+          serving_rps)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)
 
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"],
-                                  seg_record, cut_record]}))
+                                  seg_record, cut_record,
+                                  build_records["slic_connectivity"],
+                                  build_records["mask_components"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

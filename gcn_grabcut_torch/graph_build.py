@@ -8,9 +8,10 @@ is 2·(adjacency budget + K·n_nonlocal) directed slots.  Above
 LARGE_K_THRESHOLD (2048) superpixels the k-NN and the prior contrast run
 blocked; below it they are dense K x K.
 
-`build_graph_batch_arrays` builds a batch and keeps it on the device;
-`build_graph` builds one image into a `RegionGraph`, the host view the
-scalar API (the staged `segment`, `predict_probs`) works on.
+`build_graph_batch_arrays` builds a batch as (B, ...) tensors and keeps it
+on the device; `build_graph` builds one image through it (B = 1) into a
+`RegionGraph`, the host view the scalar API (the staged `segment`,
+`predict_probs`) works on.
 """
 
 from __future__ import annotations
@@ -53,24 +54,16 @@ def edge_budget_for(h: int, w: int, cfg: SuperpixelGraphConfig) -> int:
                 + edge_ops.nonlocal_budget(k, max(cfg.n_nonlocal, 1)))
 
 
-def _build_graph_arrays(rgb: torch.Tensor, cfg: SuperpixelGraphConfig
-                        ) -> dict:
-    """One image. rgb: (H, W, 3) float32 in 0..255."""
-    lab = im.rgb_to_lab(rgb)
-    segments = slic_ops.slic(lab, n_segments=cfg.n_segments,
-                             compactness=cfg.compactness,
-                             n_iter=cfg.slic_iters, smooth_sigma=cfg.sigma)
-    return _graph_arrays(rgb, lab, segments, cfg)
-
-
-def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
-                  segments: torch.Tensor, cfg: SuperpixelGraphConfig) -> dict:
-    """Everything after SLIC: region statistics, features, edges, prior."""
-    H, W, _ = rgb.shape
+def _graph_arrays(rgbs: torch.Tensor, labs: torch.Tensor,
+                 segments: torch.Tensor, cfg: SuperpixelGraphConfig) -> dict:
+    """Everything after SLIC for a batch: (B, H, W, 3) RGB and Lab and
+    (B, H, W) labels -> region statistics, features, edges and prior,
+    each with a leading B axis."""
+    B, H, W, _ = rgbs.shape
     k = slic_ops.slic_num_labels(H, W, cfg.n_segments)
-    hsv = im.rgb_to_hsv(rgb)
-    grad = im.gradient_magnitude(im.rgb_to_gray(rgb))
-    st = region_ops.region_statistics(segments, lab, hsv, grad, k)
+    hsv = im.rgb_to_hsv(rgbs)
+    grad = im.gradient_magnitude(im.rgb_to_gray(rgbs))
+    st = region_ops.region_statistics(segments, labs, hsv, grad, k)
     node_feats = region_ops.assemble_node_features(st)
 
     adj_pairs, shared, adj_mask = edge_ops.adjacency_pairs(
@@ -92,8 +85,9 @@ def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
                                      torch.zeros_like(nl_mask),
                                      torch.ones_like(nl_mask))
     src, dst, attr, emask = edge_ops.symmetrise(
-        torch.cat([adj_pairs, nl_pairs]), torch.cat([adj_attr, nl_attr]),
-        torch.cat([adj_mask, nl_mask]))
+        torch.cat([adj_pairs, nl_pairs], dim=1),
+        torch.cat([adj_attr, nl_attr], dim=1),
+        torch.cat([adj_mask, nl_mask], dim=1))
 
     # The geodesic relaxation covers the region grid's diameter (~2·sqrt(K)
     # hops).
@@ -104,7 +98,7 @@ def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
         geo_iters=geo_iters)
     return dict(
         segments=segments,
-        x=torch.cat([node_feats, pr], dim=1),       # (K, 19)
+        x=torch.cat([node_feats, pr], dim=-1),      # (B, K, 19)
         edge_src=src, edge_dst=dst, edge_attr=attr, edge_mask=emask,
         node_mask=st["valid"], node_area=st["area_ratio"],
         centroids=st["centroids"], prior=pr, counts=st["counts"],
@@ -114,12 +108,18 @@ def _graph_arrays(rgb: torch.Tensor, lab: torch.Tensor,
 def build_graph_batch_arrays(rgbs, config: Optional[SuperpixelGraphConfig]
                              = None, device=None) -> dict:
     """(B, H, W, 3) RGB (array or tensor, 0..255) -> dict of batched
-    tensors with a leading B axis, on `device` (default: the card)."""
+    tensors with a leading B axis, on `device` (default: the card).  One
+    batched pass (the JAX package's vmap): no loop over the images and no
+    host sync; image b's arrays equal its arrays built alone, bit for
+    bit."""
     cfg = config or SuperpixelGraphConfig()
     dev = resolve_device(device)
     rgbs = torch.as_tensor(rgbs, device=dev).float()
-    outs = [_build_graph_arrays(rgb, cfg) for rgb in rgbs]
-    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+    labs = im.rgb_to_lab(rgbs)
+    segments = slic_ops.slic(labs, n_segments=cfg.n_segments,
+                             compactness=cfg.compactness,
+                             n_iter=cfg.slic_iters, smooth_sigma=cfg.sigma)
+    return _graph_arrays(rgbs, labs, segments, cfg)
 
 
 @dataclasses.dataclass
@@ -184,19 +184,17 @@ def build_graph(image: np.ndarray,
                 device=None) -> RegionGraph:
     """Build the attributed superpixel graph of one (H, W, 3) uint8 RGB
     image on `device` (default: the card)."""
-    cfg = config or SuperpixelGraphConfig()
-    dev = resolve_device(device)
-    out = _build_graph_arrays(torch.as_tensor(np.asarray(image), device=dev
-                                              ).float(), cfg)
-    batch = make_graph_batch(**{key: out[key][None] for key in (
+    out = build_graph_batch_arrays(np.asarray(image)[None], config,
+                                   device=device)
+    batch = make_graph_batch(**{key: out[key] for key in (
         "x", "edge_src", "edge_dst", "edge_attr", "node_mask", "edge_mask",
         "node_area")})
     return RegionGraph(
-        segments=out["segments"].cpu().numpy().astype(np.int32),
+        segments=out["segments"][0].cpu().numpy().astype(np.int32),
         graph=batch,
-        centroids=out["centroids"].cpu().numpy(),
-        prior=out["prior"].cpu().numpy(),
-        n_nodes=out["x"].shape[0],
+        centroids=out["centroids"][0].cpu().numpy(),
+        prior=out["prior"][0].cpu().numpy(),
+        n_nodes=out["x"].shape[1],
     )
 
 

@@ -1,9 +1,10 @@
 """Connected-component labelling and small-component mask clean-up.
 
-Counterpart of ``gcn_grabcut_tpu/ops/connected.py``.  Each sweep is one
-8-neighbour min stencil followed by a run-min along rows and along columns,
-repeated to the fixpoint; a component is labelled by the minimum linear
-index it contains (background: H*W).
+Counterpart of ``gcn_grabcut_tpu/ops/connected.py``, over a batch: masks
+are (B, H, W).  Each sweep is one 8-neighbour min stencil followed by a
+run-min along rows and along columns, repeated to the fixpoint; a
+component is labelled by the minimum linear index it contains within its
+image (background: H*W).
 
 The JAX package propagates along runs with a segmented min-scan
 (``lax.associative_scan``) forward and backward; together the two scans
@@ -12,13 +13,24 @@ a ``scatter_reduce("amin")`` over run ids from ``cumsum(is_bg)`` and a
 gather back.  Integer arithmetic: the labels equal the JAX package's
 exactly.
 
+On the card `connected_components` is one launch of the hand-written
+kernel ``csrc/mask_components.cu``, which decides each image's loop there
+(the JAX package's ``lax.while_loop``); on the CPU it runs
+`connected_components_plain`, the eager sweeps, which test the batch's
+convergence on the host once a sweep.  The two give the same labels.
+
 The clean-up's per-component sums (sizes, border counts, posterior mass)
-run in a fixed order on every device (`ops.region.segment_sum`): a float
-``index_add_`` adds in no fixed order on CUDA, which could flip a
-runner-up sitting at the keep-largest gate from one run to the next.
+run in a fixed order on every device (`ops.region.segment_sum`, segment
+b·H·W + label): a float ``index_add_`` adds in no fixed order on CUDA,
+which could flip a runner-up sitting at the keep-largest gate from one run
+to the next.  Every maximum and test of the clean-up is per image, so an
+image's mask in a batch is its mask alone.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,37 +50,42 @@ KEEP_LARGEST_CONF_GATE = 0.75
 
 def _run_min(lab: torch.Tensor, mask: torch.Tensor, bg: int, dim: int
              ) -> torch.Tensor:
-    """Each foreground pixel takes the min of `lab` over its maximal
-    foreground run along `dim`; background pixels get `bg`."""
-    if dim == 0:
-        return _run_min(lab.T, mask.T, bg, 1).T
-    H, W = lab.shape
-    run = torch.cumsum((~mask).long(), dim=1)            # run id per row
-    key = (torch.arange(H, device=lab.device)[:, None] * (W + 1)
-           + run).reshape(-1)
-    mins = torch.full((H * (W + 1),), bg, dtype=lab.dtype,
+    """Each foreground pixel of (B, H, W) `lab` takes the min of `lab` over
+    its maximal foreground run along `dim` (2: rows, 1: columns);
+    background pixels get `bg`."""
+    if dim == 1:
+        return _run_min(lab.transpose(1, 2), mask.transpose(1, 2), bg,
+                        2).transpose(1, 2)
+    B, H, W = lab.shape
+    run = torch.cumsum((~mask).long(), dim=2)            # run id per row
+    rows = torch.arange(B * H, device=lab.device).reshape(B, H, 1)
+    key = (rows * (W + 1) + run).reshape(-1)
+    mins = torch.full((B * H * (W + 1),), bg, dtype=lab.dtype,
                       device=lab.device).scatter_reduce(
         0, key, lab.reshape(-1), reduce="amin", include_self=True)
-    return torch.where(mask, mins[key].reshape(H, W), bg)
+    return torch.where(mask, mins[key].reshape(B, H, W), bg)
 
 
-def connected_components(mask: torch.Tensor, connectivity: int = 8,
-                         max_iters: int = 512) -> torch.Tensor:
-    """Label the connected True-regions of `mask` (H, W): (H, W) int32,
-    each component by its minimum linear index, background H*W."""
-    H, W = mask.shape
+def connected_components_plain(mask: torch.Tensor, connectivity: int = 8,
+                               max_iters: int = 512) -> torch.Tensor:
+    """The kernel's plain version: eager sweeps of the (B, H, W) batch
+    until a sweep changes no image or `max_iters` sweeps are done.  An
+    image whose sweep changed nothing is at its fixpoint, where further
+    sweeps change nothing: its labels are those of its own loop."""
+    B, H, W = mask.shape
     bg = H * W
     nbrs = _NEIGHBOURS_8 if connectivity == 8 else _NEIGHBOURS_4
-    idx = torch.arange(H * W, device=mask.device).reshape(H, W)
+    idx = torch.arange(H * W, device=mask.device).reshape(1, H, W)
     lab = torch.where(mask, idx, bg)
     for _ in range(max_iters):
         lp = F.pad(lab, (1, 1, 1, 1), value=bg)
         new = lab
         for dy, dx in nbrs:
-            new = torch.minimum(new, lp[1 - dy:1 - dy + H, 1 - dx:1 - dx + W])
+            new = torch.minimum(new, lp[:, 1 - dy:1 - dy + H,
+                                        1 - dx:1 - dx + W])
         new = torch.where(mask, new, bg)
+        new = _run_min(new, mask, bg, 2)
         new = _run_min(new, mask, bg, 1)
-        new = _run_min(new, mask, bg, 0)
         changed = bool((new < lab).any())
         lab = new
         if not changed:
@@ -76,18 +93,92 @@ def connected_components(mask: torch.Tensor, connectivity: int = 8,
     return lab.to(torch.int32)
 
 
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, its argument types set once."""
+    from ..kernels import load
+    fn = load("mask_components").mask_components
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def connected_components_cuda(mask: torch.Tensor, connectivity: int = 8,
+                              max_iters: int = 512) -> torch.Tensor:
+    """Launch csrc/mask_components.cu on the current stream: the plain
+    version's labels for a (B, H, W) bool CUDA mask, (B, H, W) int32.  One
+    launch, no host sync; a refused launch raises."""
+    if mask.device.type != "cuda" or mask.dtype != torch.bool:
+        raise ValueError(f"connected_components_cuda takes a bool CUDA "
+                         f"mask, got {mask.dtype} on {mask.device}")
+    if mask.dim() != 3 or mask.numel() == 0:
+        raise ValueError(f"connected_components_cuda takes a non-empty "
+                         f"(B, H, W) mask, got {tuple(mask.shape)}")
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity {connectivity} (4 or 8)")
+    B, H, W = mask.shape
+    if H * W >= 2 ** 31 - 1:
+        raise ValueError(f"connected_components_cuda takes H W < 2^31 - 1, "
+                         f"got {H} x {W}")
+    mask = mask.contiguous()
+    out = torch.empty((B, H, W), dtype=torch.int32, device=mask.device)
+    # The row pass's output and the column pass's forward minima.
+    work = torch.empty((2, B, H, W), dtype=torch.int32, device=mask.device)
+    # Per image: the sweep in which it last changed (a stamp), read and
+    # written in alternate slots.
+    ctrl = torch.zeros(2 * B + 1, dtype=torch.int32, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        err = _kernel()(B, H, W, connectivity, max_iters,
+                        mask.data_ptr(), out.data_ptr(), work.data_ptr(),
+                        ctrl.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mask_components kernel launch failed: CUDA "
+                           f"error {err}")
+    connected_components_cuda.kernel_launches += 1
+    connected_components_cuda.last_ctrl = ctrl
+    return out
+
+
+#: Launches of the mask-components kernel since the count was last set
+#: to 0.
+connected_components_cuda.kernel_launches = 0
+#: The last launch's ctrl words, left on the card; the last one holds the
+#: sweeps it ran.
+connected_components_cuda.last_ctrl = None
+
+
+def connected_components(mask: torch.Tensor, connectivity: int = 8,
+                         max_iters: int = 512) -> torch.Tensor:
+    """Label the connected True-regions of each (H, W) image of `mask`
+    (B, H, W): (B, H, W) int32, each component by its minimum linear index
+    in its image, background H*W.  CUDA masks run the kernel, CPU masks
+    the plain version."""
+    if mask.device.type == "cpu":
+        return connected_components_plain(mask, connectivity, max_iters)
+    return connected_components_cuda(mask.bool(), connectivity, max_iters)
+
+
+def _per_image(v: torch.Tensor) -> torch.Tensor:
+    """(B,) per-image values broadcast over (B, H, W)."""
+    return v[:, None, None]
+
+
 def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
                 posterior: torch.Tensor | None = None) -> torch.Tensor:
-    """Drop components below `min_area` pixels (never all of them), or keep
-    the largest non-frame-like component, optionally with runner-ups whose
-    mean posterior is within KEEP_LARGEST_CONF_GATE of the winner's.
-    (H, W) uint8 in {0, 1}."""
-    H, W = mask.shape
+    """For each (H, W) image of `mask` (B, H, W): drop components below
+    `min_area` pixels (never all of them), or keep the largest
+    non-frame-like component, optionally with runner-ups whose mean
+    posterior is within KEEP_LARGEST_CONF_GATE of the winner's.
+    (B, H, W) uint8 in {0, 1}.  No host sync: each of JAX's branches is a
+    ``torch.where`` on a per-image reduction."""
+    B, H, W = mask.shape
     hw = H * W
     labels = connected_components(mask > 0, connectivity=8).long()
-    flat = labels.reshape(-1)
-    clamped = flat.clamp_max(hw - 1)
-    valid_px = (flat < hw).float()
+    clamped = labels.clamp_max(hw - 1)
+    seg = (clamped + torch.arange(B, device=mask.device
+                                  ).reshape(B, 1, 1) * hw).reshape(-1)
+    valid_px = (labels < hw).float()
 
     planes = [valid_px]
     if keep_largest:
@@ -96,37 +187,42 @@ def _clean_mask(mask: torch.Tensor, min_area: float, keep_largest: bool,
         on_border[-1, :] = 1.0
         on_border[:, 0] = 1.0
         on_border[:, -1] = 1.0
-        planes.append(on_border.reshape(-1) * valid_px)
+        planes.append(on_border * valid_px)
         if posterior is not None:
-            planes.append(posterior.reshape(-1).float() * valid_px)
-    sums = segment_sum(clamped, torch.stack(planes, dim=1), hw)
-    sizes = sums[:, 0]
-    comp_size = torch.where(labels < hw, sizes[clamped].reshape(H, W), 0.0)
+            planes.append(posterior.float() * valid_px)
+    sums = segment_sum(seg, torch.stack(planes, dim=-1).reshape(B * hw, -1),
+                       B * hw)
+
+    def per_pixel(col):
+        return sums[:, col][seg].reshape(B, H, W)
+
+    comp_size = torch.where(labels < hw, per_pixel(0), 0.0)
 
     keep_minarea = comp_size >= min_area
-    largest_sz = comp_size.max()
-    if not bool(keep_minarea.any()):
-        keep_minarea = (comp_size >= largest_sz) & (comp_size > 0)
+    largest_sz = comp_size.amax(dim=(1, 2))
+    keep_minarea = torch.where(
+        _per_image(keep_minarea.any(dim=2).any(dim=1)), keep_minarea,
+        (comp_size >= _per_image(largest_sz)) & (comp_size > 0))
     if not keep_largest:
         return keep_minarea.to(torch.uint8)
 
     # Components hugging much of the border are frame-like: demoted unless
     # nothing else exists.
-    border_cnt = sums[:, 1]
     perimeter = float(2 * (H + W) - 4)
-    frame_like = border_cnt[clamped].reshape(H, W) / perimeter > 0.3
+    frame_like = per_pixel(1) / perimeter > 0.3
     eff_size = torch.where(frame_like, 0.0, comp_size)
-    score = eff_size if bool((eff_size > 0).any()) else comp_size
-    keep = (score >= score.max()) & (score > 0)
+    score = torch.where(_per_image((eff_size > 0).any(dim=2).any(dim=1)),
+                        eff_size, comp_size)
+    keep = (score >= _per_image(score.amax(dim=(1, 2)))) & (score > 0)
     if posterior is None:
         return keep.to(torch.uint8)
 
-    pmass = sums[:, 2]
-    pmass_px = torch.where(labels < hw, pmass[clamped].reshape(H, W), 0.0)
+    pmass_px = torch.where(labels < hw, per_pixel(2), 0.0)
     mean_p = pmass_px / comp_size.clamp_min(1.0)
-    winner_mean = torch.where(keep, mean_p, 0.0).max()
+    winner_mean = torch.where(keep, mean_p, 0.0).amax(dim=(1, 2))
     confident = ((eff_size > 0) & ~keep
-                 & (mean_p >= KEEP_LARGEST_CONF_GATE * winner_mean)
+                 & (mean_p >= KEEP_LARGEST_CONF_GATE
+                    * _per_image(winner_mean))
                  & (comp_size >= min_area))
     return (keep | confident).to(torch.uint8)
 
@@ -144,7 +240,7 @@ def clean_mask(mask, min_area_ratio: float = 0.002,
         return mask
     dev = resolve_device(device)
     post = (None if posterior is None
-            else torch.as_tensor(np.asarray(posterior), device=dev))
-    out = _clean_mask(torch.as_tensor(mask, device=dev),
+            else torch.as_tensor(np.asarray(posterior), device=dev)[None])
+    out = _clean_mask(torch.as_tensor(mask, device=dev)[None],
                       min_area_ratio * mask.size, keep_largest, post)
-    return out.cpu().numpy()
+    return out[0].cpu().numpy()

@@ -3,11 +3,16 @@ guided filters, bilinear resize.
 
 Counterpart of ``gcn_grabcut_tpu/ops/image.py``.  Colour functions take
 (..., 3) float32 RGB in 0..255 and keep the channel axis last; filters take
-(..., H, W) planes.  The box filter keeps the cumulative-sum formulation so
-its float32 rounding follows the JAX package's.
+(..., H, W) planes, so every function takes a leading batch axis, and an
+image's planes in a batch are its planes alone, bit for bit.  The box
+filter keeps the cumulative-sum formulation so its float32 rounding follows
+the JAX package's.  Constants reach the card by one copy from pinned
+memory per device (no host sync).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,12 +35,31 @@ def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
 
 
+def _to_device(arrays, device: torch.device) -> tuple:
+    """Host numpy arrays as tensors on `device`, a card's copied from
+    pinned memory without blocking the host (no sync)."""
+    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+                 if device.type == "cuda" else torch.from_numpy(a)
+                 for a in arrays)
+
+
+@functools.cache
+def _xyz_constants(device: torch.device) -> tuple:
+    """The RGB -> XYZ matrix and the D65 white point, float32 on
+    `device`, copied there once."""
+    return _to_device((np.asarray(_XYZ_FROM_RGB, np.float32),
+                       np.asarray(_WHITE_D65, np.float32)), device)
+
+
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     """CIELAB (D65, 2° observer) as skimage.color.rgb2lab."""
     rgb01 = (rgb.float() / 255.0).clamp(0.0, 1.0)
     lin = srgb_to_linear(rgb01)
-    m = torch.tensor(_XYZ_FROM_RGB, dtype=torch.float32, device=rgb.device)
-    white = torch.tensor(_WHITE_D65, dtype=torch.float32, device=rgb.device)
+    m, white = _xyz_constants(rgb.device)
+    # cuBLAS picks this product's kernel by its size, so a batch could
+    # round an image's XYZ differently than the image alone; at the build's
+    # shapes it does not (chip_smoke phase 17 holds the whole build to
+    # that), and the einsum keeps the per-image build's bits.
     xyz = torch.einsum("...c,kc->...k", lin, m) / white
     eps = 0.008856
     kappa = 7.787
@@ -94,22 +118,26 @@ def gradient_magnitude(gray: torch.Tensor) -> torch.Tensor:
 
 def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     """(2r+1)^2 mean filter of (..., H, W) planes with REFLECT_101 borders
-    (cv2.blur), as two cumulative-sum window passes."""
+    (cv2.blur), as two cumulative-sum window passes.  Each cumulative sum
+    runs along an axis that is not the last, which CUDA scans one element
+    after another per column, as the CPU does: a scan along the last axis
+    may split its rows into tiles by their place in the batch, and so round
+    an image's sums differently in a batch than alone."""
     if radius <= 0:
         return img
     k = 2 * radius + 1
     H, W = img.shape[-2:]
     x = reflect101_pad(img, radius)
 
-    def window_sum(a, dim, out_len):
-        c = torch.cumsum(a, dim=dim)
-        upper = c.narrow(dim, k - 1, out_len)
-        lower = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)),
-                           c.narrow(dim, 0, out_len - 1)], dim=dim)
+    def window_sum(a, out_len):
+        c = torch.cumsum(a, dim=-2)
+        upper = c.narrow(-2, k - 1, out_len)
+        lower = torch.cat([torch.zeros_like(c.narrow(-2, 0, 1)),
+                           c.narrow(-2, 0, out_len - 1)], dim=-2)
         return upper - lower
 
-    s = window_sum(x, -2, H)
-    s = window_sum(s, -1, W)
+    s = window_sum(x, H)
+    s = window_sum(s.transpose(-1, -2), W).transpose(-1, -2)
     return s / float(k * k)
 
 
@@ -134,20 +162,54 @@ def _linear_resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
+@functools.cache
+def _resize_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero taps of `_linear_resize_weights(n_in, n_out)`: (T,
+    n_out) input indices in ascending order and their weights, padded with
+    index 0 and weight 0."""
+    w = _linear_resize_weights(n_in, n_out)
+    nz = w != 0
+    taps = max(int(nz.sum(axis=0).max()), 1)
+    idx = np.zeros((taps, n_out), np.int64)
+    wt = np.zeros((taps, n_out), np.float32)
+    for j in range(n_out):
+        rows = np.nonzero(nz[:, j])[0]
+        idx[:len(rows), j] = rows
+        wt[:len(rows), j] = w[rows, j]
+    return idx, wt
+
+
+@functools.cache
+def _device_taps(n_in: int, n_out: int, device: torch.device) -> tuple:
+    """`_resize_taps` on `device`, copied there once."""
+    return _to_device(_resize_taps(n_in, n_out), device)
+
+
+def _resize_axis(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
+    """Resample axis `dim` of `x` to `n_out` samples: each output a chain
+    of multiply-adds over its taps in ascending input order."""
+    idx, wt = _device_taps(x.shape[dim], n_out, x.device)
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+    out = x.index_select(dim, idx[0]) * wt[0].reshape(shape)
+    for t in range(1, idx.shape[0]):
+        out = out + x.index_select(dim, idx[t]) * wt[t].reshape(shape)
+    return out
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: tuple) -> torch.Tensor:
     """(B, H, W, C) -> (B, H', W', C) bilinear resize with
     ``jax.image.resize(..., "linear")``'s weights (antialiased when
-    downsampling): two small fp32 matmuls with host-built weights."""
+    downsampling), rows then columns.  The JAX package takes each axis as
+    a matmul with the dense weights; here each output sums its few nonzero
+    taps in a fixed order, so an image's resize in a batch is its resize
+    alone, on every device."""
     H, W = x.shape[1:3]
     out = x.float()
     if out_hw[0] != H:
-        wh = torch.from_numpy(_linear_resize_weights(H, out_hw[0])).to(
-            x.device)
-        out = torch.einsum("bhwc,hi->biwc", out, wh)
+        out = _resize_axis(out, 1, out_hw[0])
     if out_hw[1] != W:
-        ww = torch.from_numpy(_linear_resize_weights(W, out_hw[1])).to(
-            x.device)
-        out = torch.einsum("bhwc,wj->bhjc", out, ww)
+        out = _resize_axis(out, 2, out_hw[1])
     return out
 
 

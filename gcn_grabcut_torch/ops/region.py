@@ -304,40 +304,45 @@ segment_sum.kernel_launches = 0
 
 
 
-def region_reduce(segments: torch.Tensor, planes: torch.Tensor, k: int
-                  ) -> torch.Tensor:
-    """Sum each of C image planes over regions: (H, W, C) -> (K, C)."""
-    return segment_sum(segments.reshape(-1),
-                       planes.reshape(-1, planes.shape[-1]), k)
+def ordered_sum(values: torch.Tensor) -> torch.Tensor:
+    """(...) sums of `values` (..., n) over the last axis, each a chain of
+    adds in index order (`segment_sum` on sorted ids): the same bits at
+    every batch size and on every device, where a reduction kernel's order
+    may change with the shape."""
+    lead, n = values.shape[:-1], values.shape[-1]
+    rows = math.prod(lead)
+    idx = torch.arange(rows * n, device=values.device) // n
+    return segment_sum(idx, values.reshape(-1, 1), rows,
+                       is_sorted=True).reshape(lead)
 
 
 def region_boundaries(segments: torch.Tensor) -> torch.Tensor:
-    """Inner region boundaries: pixels with a 4-neighbour of another
-    label (edge-replicated borders)."""
+    """Inner region boundaries of (B, H, W) label maps: pixels with a
+    4-neighbour of another label (edge-replicated borders)."""
     lb = segments
-    up = torch.cat([lb[:1], lb[:-1]], dim=0)
-    dn = torch.cat([lb[1:], lb[-1:]], dim=0)
-    lf = torch.cat([lb[:, :1], lb[:, :-1]], dim=1)
-    rt = torch.cat([lb[:, 1:], lb[:, -1:]], dim=1)
+    up = torch.cat([lb[:, :1], lb[:, :-1]], dim=1)
+    dn = torch.cat([lb[:, 1:], lb[:, -1:]], dim=1)
+    lf = torch.cat([lb[:, :, :1], lb[:, :, :-1]], dim=2)
+    rt = torch.cat([lb[:, :, 1:], lb[:, :, -1:]], dim=2)
     return (up != lb) | (dn != lb) | (lf != lb) | (rt != lb)
 
 
 def region_planes(segments: torch.Tensor, lab: torch.Tensor,
                   hsv: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-    """The (H, W, 15) planes `region_statistics` sums over regions: ones,
-    Lab, Lab², HSV, y / H, x / W, the boundary flag, the gradient and the
-    gradient scaled to its maximum."""
-    H, W = segments.shape
+    """The (B, H, W, 15) planes `region_statistics` sums over regions:
+    ones, Lab, Lab², HSV, y / H, x / W, the boundary flag, the gradient and
+    the gradient scaled to its image's maximum."""
+    B, H, W = segments.shape
     dev = segments.device
     yy = (torch.arange(H, dtype=torch.float32, device=dev) / H
-          )[:, None].expand(H, W)
+          )[:, None].expand(B, H, W)
     xx = (torch.arange(W, dtype=torch.float32, device=dev) / W
-          )[None, :].expand(H, W)
+          )[None, :].expand(B, H, W)
     boundaries = region_boundaries(segments).float()
-    grad_scaled = grad / (grad.max() + 1e-6)
+    grad_scaled = grad / (grad.amax(dim=(1, 2), keepdim=True) + 1e-6)
 
     return torch.cat([
-        torch.ones((H, W, 1), device=dev),
+        torch.ones((B, H, W, 1), device=dev),
         lab, lab ** 2, hsv,
         yy[..., None], xx[..., None],
         boundaries[..., None], grad[..., None], grad_scaled[..., None],
@@ -346,54 +351,61 @@ def region_planes(segments: torch.Tensor, lab: torch.Tensor,
 
 def region_statistics(segments: torch.Tensor, lab: torch.Tensor,
                       hsv: torch.Tensor, grad: torch.Tensor, k: int) -> dict:
-    """All per-region reductions in one segment pass."""
-    H, W = segments.shape
-    sums = region_reduce(segments, region_planes(segments, lab, hsv, grad),
-                         k)                                      # (K, 15)
+    """All per-region reductions of (B, H, W) label maps in one segment
+    pass over ids b·K + label: (B, K, ...) statistics.  A region's chain
+    of adds is the same rows in the same order as its image's alone."""
+    B, H, W = segments.shape
+    ids = segments.long() + torch.arange(
+        B, device=segments.device).reshape(B, 1, 1) * k
+    planes = region_planes(segments, lab, hsv, grad)
+    sums = segment_sum(ids.reshape(-1), planes.reshape(-1, planes.shape[-1]),
+                       B * k).reshape(B, k, -1)                # (B, K, 15)
 
-    counts = sums[:, 0]
+    counts = sums[..., 0]
     safe = counts.clamp_min(1.0)
-    mean_lab = sums[:, 1:4] / safe[:, None]
-    sq_lab = sums[:, 4:7] / safe[:, None]
+    mean_lab = sums[..., 1:4] / safe[..., None]
+    sq_lab = sums[..., 4:7] / safe[..., None]
     return {
         "counts": counts,
         "safe": safe,
         "area_ratio": counts / float(H * W),
         "mean_lab": mean_lab,
         "std_lab": torch.sqrt((sq_lab - mean_lab ** 2).clamp_min(0.0)),
-        "mean_hsv": sums[:, 7:10] / safe[:, None],
-        "centroids": torch.stack([sums[:, 10] / safe, sums[:, 11] / safe],
-                                 dim=1),
-        "boundary_px": sums[:, 12],
-        "mean_grad": sums[:, 13] / safe,
-        "mean_grad_n": sums[:, 14] / safe,
+        "mean_hsv": sums[..., 7:10] / safe[..., None],
+        "centroids": torch.stack([sums[..., 10] / safe, sums[..., 11] / safe],
+                                 dim=-1),
+        "boundary_px": sums[..., 12],
+        "mean_grad": sums[..., 13] / safe,
+        "mean_grad_n": sums[..., 14] / safe,
         "valid": (counts > 0).float(),
     }
 
 
 def assemble_node_features(st: dict) -> torch.Tensor:
-    """(K, 16) node features, colour statistics min-max normalised over
-    valid regions, padded / empty regions zeroed."""
+    """(B, K, 16) node features, colour statistics min-max normalised over
+    each image's valid regions, padded / empty regions zeroed."""
     valid = st["valid"]
     perimeter = st["boundary_px"].clamp_min(1.0)
     iso = ((4 * math.pi * st["counts"]) / perimeter ** 2).clamp(0.0, 1.0)
     centre_dist = torch.linalg.vector_norm(st["centroids"] - 0.5,
-                                           dim=1) / 0.707
+                                           dim=-1) / 0.707
     feats = torch.cat([
         st["mean_lab"], st["std_lab"], st["mean_hsv"], st["centroids"],
-        st["area_ratio"][:, None], iso[:, None],
-        (st["mean_grad"] / 255.0)[:, None],
-        (st["boundary_px"] / st["safe"])[:, None],
-        centre_dist[:, None],
-    ], dim=1)
+        st["area_ratio"][..., None], iso[..., None],
+        (st["mean_grad"] / 255.0)[..., None],
+        (st["boundary_px"] / st["safe"])[..., None],
+        centre_dist[..., None],
+    ], dim=-1)
 
     def minmax_norm(cols):
-        v = valid[:, None] > 0
-        mn = torch.where(v, cols, torch.full_like(cols, 1e30)).amin(dim=0)
-        mx = torch.where(v, cols, torch.full_like(cols, -1e30)).amax(dim=0)
+        v = valid[..., None] > 0
+        mn = torch.where(v, cols, torch.full_like(cols, 1e30)).amin(
+            dim=1, keepdim=True)
+        mx = torch.where(v, cols, torch.full_like(cols, -1e30)).amax(
+            dim=1, keepdim=True)
         return (cols - mn) / (mx - mn + 1e-6)
 
-    feats = torch.cat([minmax_norm(feats[:, 0:3]), minmax_norm(feats[:, 3:6]),
-                       feats[:, 6:]], dim=1)
+    feats = torch.cat([minmax_norm(feats[..., 0:3]),
+                       minmax_norm(feats[..., 3:6]), feats[..., 6:]], dim=-1)
     feats = torch.nan_to_num(feats, nan=0.0, posinf=1.0, neginf=0.0)
-    return feats * valid[:, None]
+    return feats * valid[..., None]

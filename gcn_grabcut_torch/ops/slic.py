@@ -1,21 +1,32 @@
-"""SLIC superpixels on a fixed seed grid, at static shapes.
+"""SLIC superpixels on a fixed seed grid, at static shapes, over a batch.
 
-Counterpart of ``gcn_grabcut_tpu/ops/slic.py``: cluster seeds live on a
-``gh x gw`` grid (K = gh·gw labels, static), each pixel searches the 3x3
-grid neighbourhood of its home cell, a fixed number of k-means iterations
-run in LABXY space, and connectivity is repaired by orphan absorption and a
-min-label component pass.
+Counterpart of ``gcn_grabcut_tpu/ops/slic.py`` (which the JAX package
+vmaps over a batch): cluster seeds live on a ``gh x gw`` grid (K = gh·gw
+labels, static), each pixel searches the 3x3 grid neighbourhood of its home
+cell, a fixed number of k-means iterations run in LABXY space, and
+connectivity is repaired by orphan absorption and a min-label component
+pass.  Images are (B, H, W, 3), labels (B, H, W).
 
 The JAX package moves values between pixels and cells with one-hot matmuls
 (a TPU workaround for slow gathers); here the same exchange is a gather
-(cells -> pixels) and a fixed-order segment sum (pixels -> cells; the same
-labels in every run on the card).  The sums are the same up to float32
-summation order, so near-tied argmins can flip at a few pixels: compare
-labels by agreement, not bit equality.
+(cells -> pixels) and a fixed-order segment sum over ids b·K + label
+(pixels -> cells; the same labels in every run on the card, and an image's
+chains in a batch are its chains alone).  The sums are the same up to
+float32 summation order, so near-tied argmins can flip at a few pixels:
+compare labels with the JAX package's by agreement, not bit equality.
+
+The connectivity repair (`repair_connectivity`: `_absorb_orphans`, then
+`enforce_connectivity`) is on the card one launch of the hand-written
+kernel ``csrc/slic_connectivity.cu``, which decides each image's loops
+there (the JAX package's ``lax.while_loop``s); on the CPU it runs the plain
+versions, eager loops that test the batch's convergence on the host.  The
+two give the same labels.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -39,7 +50,7 @@ def slic_num_labels(h: int, w: int, n_segments: int) -> int:
 
 
 def _gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian of an (H, W, C) image, reflect borders."""
+    """Separable Gaussian of (B, H, W, C) images, reflect borders."""
     radius = max(1, int(3 * sigma + 0.5))
     x = torch.arange(-radius, radius + 1, dtype=torch.float32,
                      device=img.device)
@@ -48,22 +59,22 @@ def _gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
 
     def conv_axis(a, dim):
         n = a.shape[dim]
-        hwc = a.permute(2, 0, 1)[None]                   # (1, C, H, W)
-        pad = (0, 0, radius, radius) if dim == 0 else (radius, radius, 0, 0)
-        ap = F.pad(hwc, pad, mode="reflect")[0].permute(1, 2, 0)
+        bchw = a.permute(0, 3, 1, 2)                     # (B, C, H, W)
+        pad = (0, 0, radius, radius) if dim == 1 else (radius, radius, 0, 0)
+        ap = F.pad(bchw, pad, mode="reflect").permute(0, 2, 3, 1)
         out = torch.zeros_like(a)
         for i in range(2 * radius + 1):
             out = out + k[i] * ap.narrow(dim, i, n)
         return out
 
-    return conv_axis(conv_axis(img, 0), 1)
+    return conv_axis(conv_axis(img, 1), 2)
 
 
 def slic(lab: torch.Tensor, n_segments: int = 300, compactness: float = 10.0,
          n_iter: int = 10, smooth_sigma: float = 1.0) -> torch.Tensor:
-    """Segment `lab` (H, W, 3) into K = gh*gw superpixels; (H, W) int64
-    labels in [0, K)."""
-    H, W, _ = lab.shape
+    """Segment each image of `lab` (B, H, W, 3) into K = gh*gw
+    superpixels; (B, H, W) int64 labels in [0, K)."""
+    B, H, W, _ = lab.shape
     dev = lab.device
     gh, gw = grid_shape(H, W, n_segments)
     K = gh * gw
@@ -82,53 +93,55 @@ def slic(lab: torch.Tensor, n_segments: int = 300, compactness: float = 10.0,
     cyx = torch.stack(torch.meshgrid(cy, cx, indexing="ij"), dim=-1)
     seed_y = cyx[..., 0].long().clamp(0, H - 1)
     seed_x = cyx[..., 1].long().clamp(0, W - 1)
-    centers = torch.cat([lab[seed_y, seed_x], cyx], dim=-1)   # (gh, gw, 5)
+    centers = torch.cat([lab[:, seed_y, seed_x],
+                         cyx.expand(B, gh, gw, 2)], dim=-1)  # (B, gh, gw, 5)
 
     base_cy = (yy[:, 0] / sy).long().clamp(0, gh - 1)          # (H,)
     base_cx = (xx[0, :] / sx).long().clamp(0, gw - 1)          # (W,)
     inv_s2 = (compactness / s_avg) ** 2
-    dys = torch.tensor([o[0] for o in _OFFSETS], device=dev)
-    dxs = torch.tensor([o[1] for o in _OFFSETS], device=dev)
+    # _OFFSETS' (dy, dx), made on the device: no host copy.
+    dys = torch.arange(9, device=dev) // 3 - 1
+    dxs = torch.arange(9, device=dev) % 3 - 1
 
     def shifted_centers(c):
-        """(gh, gw, 9, 5): candidate centre per cell and offset."""
-        cp = F.pad(c.permute(2, 0, 1), (1, 1, 1, 1), value=_BIG)
-        return torch.stack([cp[:, 1 + dy:1 + dy + gh, 1 + dx:1 + dx + gw]
+        """(B, gh, gw, 9, 5): candidate centre per cell and offset."""
+        cp = F.pad(c.permute(0, 3, 1, 2), (1, 1, 1, 1), value=_BIG)
+        return torch.stack([cp[:, :, 1 + dy:1 + dy + gh, 1 + dx:1 + dx + gw]
                             for dy, dx in _OFFSETS], dim=-1
-                           ).permute(1, 2, 3, 0)
+                           ).permute(0, 2, 3, 4, 1)
 
     def assign(c):
-        """Best of 9 candidates per pixel: (labels, offset index)."""
-        cand = shifted_centers(c)[base_cy[:, None], base_cx[None, :]]
-        d_lab = ((lab[:, :, None, :] - cand[..., :3]) ** 2).sum(dim=-1)
+        """Best of 9 candidates per pixel: (B, H, W) labels."""
+        cand = shifted_centers(c)[:, base_cy[:, None], base_cx[None, :]]
+        d_lab = ((lab[:, :, :, None, :] - cand[..., :3]) ** 2).sum(dim=-1)
         d_xy = ((yy[..., None] - cand[..., 3]) ** 2
                 + (xx[..., None] - cand[..., 4]) ** 2)
-        choice = torch.argmin(d_lab + d_xy * inv_s2, dim=-1)   # (H, W)
-        lbl = ((base_cy[:, None] + dys[choice]) * gw
-               + base_cx[None, :] + dxs[choice])
-        return lbl
+        choice = torch.argmin(d_lab + d_xy * inv_s2, dim=-1)   # (B, H, W)
+        return ((base_cy[:, None] + dys[choice]) * gw
+                + base_cx[None, :] + dxs[choice])
 
-    feats = torch.cat([lab, yy[..., None], xx[..., None],
-                       torch.ones((H, W, 1), device=dev)], dim=-1)
+    feats = torch.cat([lab, yy.expand(B, H, W)[..., None],
+                       xx.expand(B, H, W)[..., None],
+                       torch.ones((B, H, W, 1), device=dev)], dim=-1)
     flat_feats = feats.reshape(-1, 6)
+    offset = torch.arange(B, device=dev).reshape(B, 1, 1) * K
     for _ in range(n_iter):
         lbl = assign(centers)
-        total = segment_sum(lbl.reshape(-1), flat_feats, K)
-        total = total.reshape(gh, gw, 6)
+        total = segment_sum((lbl + offset).reshape(-1), flat_feats, B * K)
+        total = total.reshape(B, gh, gw, 6)
         cnts = total[..., 5]
         means = total[..., :5] / cnts.clamp_min(1.0)[..., None]
         centers = torch.where((cnts > 0)[..., None], means, centers)
-    labels = assign(centers)
-    labels = _absorb_orphans(labels, n_sweeps=4)
-    return enforce_connectivity(labels, K)
+    return repair_connectivity(assign(centers), K)
 
 
 def _edge_neighbours(lb: torch.Tensor):
-    """(up, down, left, right) neighbours with edge replication."""
-    up = torch.cat([lb[:1], lb[:-1]], dim=0)
-    dn = torch.cat([lb[1:], lb[-1:]], dim=0)
-    lf = torch.cat([lb[:, :1], lb[:, :-1]], dim=1)
-    rt = torch.cat([lb[:, 1:], lb[:, -1:]], dim=1)
+    """(up, down, left, right) neighbours of (B, H, W) with edge
+    replication."""
+    up = torch.cat([lb[:, :1], lb[:, :-1]], dim=1)
+    dn = torch.cat([lb[:, 1:], lb[:, -1:]], dim=1)
+    lf = torch.cat([lb[:, :, :1], lb[:, :, :-1]], dim=2)
+    rt = torch.cat([lb[:, :, 1:], lb[:, :, -1:]], dim=2)
     return up, dn, lf, rt
 
 
@@ -138,10 +151,11 @@ def _parity(H: int, W: int, device) -> torch.Tensor:
     return (yy + xx) % 2
 
 
-def _absorb_orphans(labels: torch.Tensor, n_sweeps: int = 2) -> torch.Tensor:
-    """A pixel none of whose 4-neighbours shares its label adopts the most
-    frequent neighbouring label (checkerboard half-sweeps)."""
-    parity = _parity(*labels.shape, labels.device)
+def absorb_orphans_plain(labels: torch.Tensor, n_sweeps: int = 2
+                         ) -> torch.Tensor:
+    """The plain version of `_absorb_orphans`: checkerboard half-sweeps of
+    the (B, H, W) batch, eager."""
+    parity = _parity(*labels.shape[1:], labels.device)
 
     def half_sweep(lb, phase):
         nbrs = _edge_neighbours(lb)
@@ -162,24 +176,27 @@ def _absorb_orphans(labels: torch.Tensor, n_sweeps: int = 2) -> torch.Tensor:
 
 
 def _fill_neighbours(a: torch.Tensor, fill):
-    """(up, down, left, right) neighbours, out-of-image filled."""
-    row = torch.full_like(a[:1], fill)
-    col = torch.full_like(a[:, :1], fill)
-    return (torch.cat([row, a[:-1]], dim=0), torch.cat([a[1:], row], dim=0),
-            torch.cat([col, a[:, :-1]], dim=1),
-            torch.cat([a[:, 1:], col], dim=1))
+    """(up, down, left, right) neighbours of (B, H, W), out-of-image
+    filled."""
+    row = torch.full_like(a[:, :1], fill)
+    col = torch.full_like(a[:, :, :1], fill)
+    return (torch.cat([row, a[:, :-1]], dim=1),
+            torch.cat([a[:, 1:], row], dim=1),
+            torch.cat([col, a[:, :, :-1]], dim=2),
+            torch.cat([a[:, :, 1:], col], dim=2))
 
 
-def enforce_connectivity(labels: torch.Tensor, k: int,
-                         max_sweeps: int = 64) -> torch.Tensor:
-    """Make every label one connected region: min-index components, keep
-    each label's largest component, minor fragments adopt a neighbouring
-    major label.  Loops test convergence once per block of steps, as the
-    JAX while loops do."""
-    H, W = labels.shape
+def enforce_connectivity_plain(labels: torch.Tensor, k: int,
+                               max_sweeps: int = 64) -> torch.Tensor:
+    """The plain version of `enforce_connectivity` on (B, H, W): each loop
+    runs until a block changes no image, or `max_sweeps` blocks.  An image
+    whose block changed nothing is at its fixpoint, where further blocks
+    change nothing: its labels are those of its own loops (JAX's vmapped
+    while loops)."""
+    B, H, W = labels.shape
     hw = H * W
     dev = labels.device
-    idx = torch.arange(hw, device=dev).reshape(H, W)
+    idx = torch.arange(hw, device=dev).reshape(1, H, W).expand(B, H, W)
     nb_l = _fill_neighbours(labels, -1)
     same = [n == labels for n in nb_l]
     big = torch.full_like(idx, hw)
@@ -197,17 +214,21 @@ def enforce_connectivity(labels: torch.Tensor, k: int,
         if not changed:
             break
 
-    flat_comp = comp.reshape(-1)
-    sizes = torch.zeros(hw, dtype=torch.float32, device=dev).index_add_(
-        0, flat_comp, torch.ones(hw, dtype=torch.float32, device=dev))
-    comp_size = sizes[flat_comp].reshape(H, W)
+    # Component and label ids offset per image: b·hw + comp, b·k + label.
+    comp_id = (comp + torch.arange(B, device=dev).reshape(B, 1, 1) * hw
+               ).reshape(-1)
+    sizes = torch.zeros(B * hw, dtype=torch.float32, device=dev).index_add_(
+        0, comp_id, torch.ones(B * hw, dtype=torch.float32, device=dev))
+    comp_size = sizes[comp_id].reshape(B, H, W)
     # (size, -comp) in float32, as the JAX package computes it: ties and
     # float32 rounding resolve identically.
     score = comp_size * hw - comp.float()
-    label_best = torch.full((k,), float("-inf"), device=dev).scatter_reduce(
-        0, labels.reshape(-1), score.reshape(-1), reduce="amax",
-        include_self=True)
-    minor = score < label_best[labels]
+    label_id = (labels + torch.arange(B, device=dev).reshape(B, 1, 1) * k
+                ).reshape(-1)
+    label_best = torch.full((B * k,), float("-inf"), device=dev
+                            ).scatter_reduce(0, label_id, score.reshape(-1),
+                                             reduce="amax", include_self=True)
+    minor = score < label_best[label_id].reshape(B, H, W)
 
     parity = _parity(H, W, dev)
     for _ in range(max_sweeps):
@@ -227,3 +248,104 @@ def enforce_connectivity(labels: torch.Tensor, k: int,
         if not changed:
             break
     return labels
+
+
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, its argument types set once."""
+    from ..kernels import load
+    fn = load("slic_connectivity").slic_connectivity
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def repair_connectivity_cuda(labels: torch.Tensor, k: int,
+                             absorb_sweeps: int, max_sweeps: int
+                             ) -> torch.Tensor:
+    """Launch csrc/slic_connectivity.cu on the current stream: the plain
+    versions' `absorb_orphans_plain(labels, absorb_sweeps)` and then, when
+    `max_sweeps` > 0, `enforce_connectivity_plain(..., k, max_sweeps)`, for
+    (B, H, W) CUDA labels in [0, k); (B, H, W) int64.  One launch, no host
+    sync; a refused launch raises."""
+    if labels.device.type != "cuda":
+        raise ValueError(f"repair_connectivity_cuda takes CUDA labels, got "
+                         f"{labels.device}")
+    if labels.dim() != 3 or labels.numel() == 0:
+        raise ValueError(f"repair_connectivity_cuda takes non-empty (B, H, W)"
+                         f" labels, got {tuple(labels.shape)}")
+    B, H, W = labels.shape
+    if H * W >= 2 ** 24 or k < 1:
+        raise ValueError(f"repair_connectivity_cuda takes H W < 2^24 (sizes "
+                         f"exact in float32) and k >= 1, got {H} x {W}, k "
+                         f"{k}")
+    if absorb_sweeps < 0 or max_sweeps < 0:
+        raise ValueError(f"absorb_sweeps {absorb_sweeps}, max_sweeps "
+                         f"{max_sweeps} (>= 0)")
+    src = labels.to(torch.int32).contiguous()
+    out = torch.empty((B, H, W), dtype=torch.int32, device=labels.device)
+    n = B * H * W
+    # Two component planes, the component sizes (int32 words), the
+    # labels' best scores (B k words) and the minor flags (a byte a pixel).
+    work = torch.empty(4 * (3 * n + B * k) + n, dtype=torch.uint8,
+                       device=labels.device)
+    # Per image: the block (and the absorption round) in which it last
+    # changed, in alternate slots; then the blocks and rounds run.
+    ctrl = torch.zeros(4 * B + 2, dtype=torch.int32, device=labels.device)
+    with torch.cuda.device(labels.device):
+        stream = torch.cuda.current_stream(labels.device).cuda_stream
+        err = _kernel()(B, H, W, k, absorb_sweeps, max_sweeps,
+                        src.data_ptr(), out.data_ptr(), work.data_ptr(),
+                        ctrl.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"slic_connectivity kernel launch failed: CUDA "
+                           f"error {err}")
+    repair_connectivity_cuda.kernel_launches += 1
+    repair_connectivity_cuda.last_ctrl = ctrl
+    return out.long()
+
+
+#: Launches of the connectivity kernel since the count was last set to 0.
+repair_connectivity_cuda.kernel_launches = 0
+#: The last launch's ctrl words, left on the card (`kernel_loops` reads
+#: them).
+repair_connectivity_cuda.last_ctrl = None
+
+
+def kernel_loops(ctrl: torch.Tensor) -> dict:
+    """The component blocks and absorption rounds a launch ran (host)."""
+    c = ctrl.cpu()
+    return {"blocks": int(c[-2]), "rounds": int(c[-1])}
+
+
+def repair_connectivity(labels: torch.Tensor, k: int, absorb_sweeps: int = 4,
+                        max_sweeps: int = 64) -> torch.Tensor:
+    """SLIC's connectivity repair of (B, H, W) labels in [0, k):
+    `_absorb_orphans(labels, absorb_sweeps)`, then
+    `enforce_connectivity(..., k, max_sweeps)`.  One kernel launch on the
+    card; the plain versions on the CPU."""
+    if labels.device.type == "cpu":
+        return enforce_connectivity_plain(
+            absorb_orphans_plain(labels, absorb_sweeps), k, max_sweeps)
+    return repair_connectivity_cuda(labels, k, absorb_sweeps, max_sweeps)
+
+
+def _absorb_orphans(labels: torch.Tensor, n_sweeps: int = 2) -> torch.Tensor:
+    """A pixel none of whose 4-neighbours shares its label adopts the most
+    frequent neighbouring label (checkerboard half-sweeps), for (B, H, W)
+    labels (on the card: in [0, 2^31))."""
+    if labels.device.type == "cpu":
+        return absorb_orphans_plain(labels, n_sweeps)
+    return repair_connectivity_cuda(labels, 1, n_sweeps, 0)
+
+
+def enforce_connectivity(labels: torch.Tensor, k: int,
+                         max_sweeps: int = 64) -> torch.Tensor:
+    """Make every label of each (H, W) image of `labels` (B, H, W), in
+    [0, k), one connected region: min-index components, keep each label's
+    largest component, minor fragments adopt a neighbouring major label.
+    Loops test convergence once per block of steps, as the JAX while loops
+    do, and each image stops on its own."""
+    if labels.device.type == "cpu":
+        return enforce_connectivity_plain(labels, k, max_sweeps)
+    return repair_connectivity_cuda(labels, k, 0, max_sweeps)

@@ -2,7 +2,8 @@
 
 Counterpart of ``gcn_grabcut_tpu/pipeline.py``.  `segment_batch` (and
 `segment` in its default options, at B=1) runs:
-  1. superpixel graph build with its prior;
+  1. superpixel graph build with its prior, the batch as (B, ...)
+     tensors in one pass with no host sync;
   2. the model's forward (ResGCNNet, GCNTrimapNet, GATTrimapNet or an
      ensemble) -> posteriors: one stacked dense forward up to
      LARGE_NODE_THRESHOLD nodes, above it the large-graph forward per
@@ -12,7 +13,8 @@ Counterpart of ``gcn_grabcut_tpu/pipeline.py``.  `segment_batch` (and
   3. edge-aware trimap (guided filter) with prior seeding;
   4. GrabCut (GMMs + push-relabel min-cut), the batch in lock step up to
      BATCH_SOLVE_PIXEL_BUDGET pixels, above it image by image;
-  5. connected-component clean-up and bit-packed output.
+  5. connected-component clean-up, batched (one kernel launch on the
+     card), and bit-packed output.
 Stages stay on the device until the one packed pull at the end.
 `segment_stream` keeps two such batches in flight.
 
@@ -49,7 +51,7 @@ from .models.factory import (apply_model, probs_to_node_trimap,
                              project_planes)
 from .models.large import apply_large
 from .ops import image as im
-from .ops.connected import _clean_mask, clean_mask
+from .ops.connected import _clean_mask, _per_image, clean_mask
 
 
 def _batch_budget() -> int:
@@ -208,44 +210,55 @@ def _erode_box(mask: np.ndarray, size: int) -> np.ndarray:
     return (n_zero == 0).astype(mask.dtype)
 
 
-def _threshold_and_seed(px1, gray, thr_fg, thr_bg, filter_radius: int):
-    """(H, W, 4) planes [P(BG), P(FG), seed_fg, seed_bg] -> uint8 trimap:
-    guided-filter the posteriors, threshold, and when a probable side is
-    missing entirely promote the highest-prior regions to it."""
-    tri = _threshold(px1[..., 0], px1[..., 1], gray, thr_fg, thr_bg,
+def _threshold_and_seed(px, gray, thr_fg, thr_bg, filter_radius: int):
+    """(B, H, W, 4) planes [P(BG), P(FG), seed_fg, seed_bg] -> (B, H, W)
+    uint8 trimaps: guided-filter the posteriors, threshold, and where an
+    image's trimap lacks a probable side entirely promote its
+    highest-prior regions to it."""
+    tri = _threshold(px[..., 0], px[..., 1], gray, thr_fg, thr_bg,
                      filter_radius)
-    has_fg = ((tri == TRIMAP_FG) | (tri == TRIMAP_PROB_FG)).any()
-    has_bg = ((tri == TRIMAP_BG) | (tri == TRIMAP_PROB_BG)).any()
-    tri = torch.where(has_fg | (px1[..., 2] <= 0), tri, TRIMAP_PROB_FG
-                      ).to(torch.uint8)
-    tri = torch.where(has_bg | (px1[..., 3] <= 0), tri, TRIMAP_PROB_BG
-                      ).to(torch.uint8)
+    has_fg = ((tri == TRIMAP_FG) | (tri == TRIMAP_PROB_FG)).flatten(1).any(1)
+    has_bg = ((tri == TRIMAP_BG) | (tri == TRIMAP_PROB_BG)).flatten(1).any(1)
+    tri = torch.where(_per_image(has_fg) | (px[..., 2] <= 0), tri,
+                      TRIMAP_PROB_FG).to(torch.uint8)
+    tri = torch.where(_per_image(has_bg) | (px[..., 3] <= 0), tri,
+                      TRIMAP_PROB_BG).to(torch.uint8)
     return tri
 
 
 def _seed_planes(prior, nm, seed_frac: float = 0.1) -> torch.Tensor:
-    """(K, 2) [seed_fg, seed_bg]: masks of the ~seed_frac highest-prior
-    valid regions on each side."""
-    n_valid = nm.sum().clamp_min(1.0)
-    n_seed = int(torch.round(seed_frac * n_valid).clamp_min(1).item())
+    """(B, K, 2) [seed_fg, seed_bg]: masks of each image's ~seed_frac
+    highest-prior valid regions on each side.  The count stays on the
+    device, as the JAX package's does."""
+    K = nm.shape[-1]
+    n_valid = nm.sum(dim=-1).clamp_min(1.0)      # integer-valued: exact
+    n_seed = torch.round(seed_frac * n_valid).clamp_min(1).long()
+    pick = (n_seed - 1).clamp_max(K - 1)[:, None]
 
     def seed_mask(score):
         s = torch.where(nm > 0, score, -1.0)
-        kth = torch.sort(s, descending=True).values[
-            min(n_seed - 1, s.shape[0] - 1)]
+        kth = torch.sort(s, dim=-1, descending=True).values.gather(-1, pick)
         return (s >= kth).float()
 
-    return torch.stack([seed_mask(prior[:, 0]), seed_mask(prior[:, 1])],
+    return torch.stack([seed_mask(prior[..., 0]), seed_mask(prior[..., 1])],
                        dim=-1)
+
+
+def _project_batch(planes: torch.Tensor, segments: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B, K, C) per-region planes -> (B, H, W, C) pixel planes through
+    each image's label map: an exact gather."""
+    b = torch.arange(planes.shape[0], device=planes.device)[:, None, None]
+    return planes[b, segments.long()]
 
 
 def _project_probs_device(probs, segments, out_hw: tuple) -> torch.Tensor:
     """(B, K, 3) probs + (B, h, w) segments -> (B, H, W, 2) pixel planes
     [P(BG), P(FG)], bilinearly resized to `out_hw` when the graph was
     built at another scale (the multi-scale path)."""
-    px = torch.stack([project_planes(torch.stack(
-        [p[:, CLASS_BG], p[:, CLASS_FG]], dim=-1).float(), s)
-        for p, s in zip(probs, segments)])
+    px = _project_batch(torch.stack([probs[..., CLASS_BG],
+                                     probs[..., CLASS_FG]], dim=-1).float(),
+                        segments)
     if tuple(px.shape[1:3]) != tuple(out_hw):
         px = im.resize_bilinear(px, out_hw)
     return px
@@ -256,14 +269,10 @@ def _trimap_stage_device(px_probs, segments, grays, priors, node_masks,
                          filter_radius: int) -> torch.Tensor:
     """(B, H, W, 2) pixel posteriors [P(BG), P(FG)] -> (B, H, W) uint8
     trimaps, the prior seed planes projected from the full-resolution
-    graph."""
-    out = []
-    for px, seg, gray, prior, nm in zip(px_probs, segments, grays, priors,
-                                        node_masks):
-        seeds = project_planes(_seed_planes(prior, nm), seg)
-        out.append(_threshold_and_seed(torch.cat([px, seeds], dim=-1), gray,
-                                       thr_fg, thr_bg, filter_radius))
-    return torch.stack(out)
+    graph.  Batched, as the JAX package's vmaps are, with no host sync."""
+    seeds = _project_batch(_seed_planes(priors, node_masks), segments)
+    return _threshold_and_seed(torch.cat([px_probs, seeds], dim=-1), grays,
+                               thr_fg, thr_bg, filter_radius)
 
 
 def _post_stage_device(masks, trimaps, segments, min_area: float,
@@ -271,11 +280,10 @@ def _post_stage_device(masks, trimaps, segments, min_area: float,
                        pfg=None) -> torch.Tensor:
     """Component clean-up + output packing: one (B, bytes) uint8 buffer per
     batch -- the mask at 1 bit/px, the trimap at 2 bits/px and, optionally,
-    the label map at 2 bytes/px, in the JAX package's planar layout."""
-    cleaned = torch.stack([
-        _clean_mask(m, min_area, keep_largest,
-                    None if pfg is None else pfg[b])
-        for b, m in enumerate(masks)])
+    the label map at 2 bytes/px, in the JAX package's planar layout.  The
+    clean-up runs on the batch (one components kernel launch on the card),
+    with no host sync."""
+    cleaned = _clean_mask(masks, min_area, keep_largest, pfg)
     B, H, W = masks.shape
     hw = H * W
 

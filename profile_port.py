@@ -2,6 +2,9 @@
 """Where the port's main path spends the card's time.
 
     python3 profile_port.py            # the main path under torch.profiler
+    python3 profile_port.py --dense    # the dense B=8 target: its stages
+                                       # and its graph build's busy share,
+                                       # launches, host syncs, top kernels
     python3 profile_port.py --kernels  # what holds the min-cut, K1, K2,
                                        # K3 and the segment sum back, and
                                        # the banded GAT attention
@@ -775,7 +778,7 @@ def cleanup_profile() -> None:
 
     dev = torch.device("cuda")
     hw = cs.IMAGE_HW * cs.IMAGE_HW
-    mask = torch.as_tensor(res.binary_mask, device=dev) > 0
+    mask = torch.as_tensor(res.binary_mask[None], device=dev) > 0
     post = torch.rand((hw,), device=dev)
 
     def components():
@@ -1013,10 +1016,93 @@ def gat_attention() -> None:
                f"{segment_sum.kernel_launches})", wall, call)
 
 
+def dense_target(device=None, hw: int | None = None,
+                 n_images: int | None = None):
+    """The dense B=8 target: the recommended configuration (the 3-member
+    bgc ensemble of chip_smoke.DENSE_CHECKPOINTS, 500 superpixels with
+    bg_connectivity, chip_smoke.DENSE_SETTINGS: ms_scales (1.0, 0.75)) on
+    n_images make_image(hw, s) images (default 8 at 512 px).  Returns
+    (pipeline, images, segment_batch settings)."""
+    from pathlib import Path
+
+    import chip_smoke as cs
+    import gcn_grabcut_torch as gt
+
+    hw = cs.DENSE_HW if hw is None else hw
+    n_images = cs.DENSE_IMAGES if n_images is None else n_images
+    root = Path(__file__).resolve().parent
+    model, _ = gt.load_model_auto(
+        ",".join(str(root / p) for p in cs.DENSE_CHECKPOINTS), device=device)
+    pipe = gt.GCNGrabCutPipeline(model, gt.SuperpixelGraphConfig(
+        n_segments=cs.DENSE_SEGMENTS, bg_connectivity=True), device=device)
+    images = [cs.make_image(hw, s) for s in range(n_images)]
+    return pipe, images, dict(cs.DENSE_SETTINGS)
+
+
+def host_syncs(fn) -> int:
+    """The host syncs fn() makes: the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def dense_profile() -> None:
+    """The dense B=8 target's segment_batch (stage split, synchronised) and
+    its graph build, the full-scale build and the 0.75-scale rebuild each
+    alone: wall time, device busy share, device activities (launches),
+    host syncs and heaviest kernels."""
+    import chip_smoke as cs
+    from gcn_grabcut_torch.graph_build import build_graph_batch_arrays
+    from gcn_grabcut_torch.ops import image as im
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe, images, settings = dense_target()
+    pipe.segment_batch(images, **settings)                     # warm
+    t = time.perf_counter()
+    res = pipe.segment_batch(images, sync_timing=True, **settings)[0]
+    batch_wall = time.perf_counter() - t
+    print(f"dense B={len(images)} segment_batch ({cs.DENSE_HW}^2, "
+          f"{settings}): {batch_wall:.3f} s = {len(images) / batch_wall:.2f}"
+          f" images/s "
+          f"synchronised; stages: " + " ".join(
+              f"{k}={v:.4f}s" for k, v in res.timing.items()), flush=True)
+    rgbs = torch.as_tensor(np.stack(images), device=pipe.device).float()
+    hw = max(int(round(cs.DENSE_HW * 0.75)), 64)
+    rgbs75 = im.resize_bilinear(rgbs, (hw, hw))
+    for label, x in (("full scale", rgbs), ("0.75-scale rebuild", rgbs75)):
+        def build():
+            return build_graph_batch_arrays(x, pipe.sp_config,
+                                            device=pipe.device)
+        build()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        syncs = host_syncs(build)
+        report(f"graph build, dense B={len(images)} {label} ({syncs} host "
+               f"syncs)", wall, build)
+    report(f"segment_batch, dense B={len(images)}", batch_wall,
+           lambda: pipe.segment_batch(images, **settings))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", flush=True)
         sys.exit(1)
+    if "--dense" in sys.argv[1:]:
+        import chip_smoke as cs
+        print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
+        dense_profile()
+        return
     if "--kernels" in sys.argv[1:]:
         import chip_smoke as cs
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)

@@ -745,3 +745,119 @@ def test_mincut_kernel_refuses_another_halo(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="halo"):
         maxflow.grid_mincut_cuda(e, rf, rf, conn)
     assert maxflow.grid_mincut_cuda.kernel_launches == before + 1
+
+
+def fragmented_labels(B: int, hw: int, grid: int, seed: int) -> np.ndarray:
+    """SLIC-like labels whose cell borders wander pixel by pixel."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    out = []
+    for _ in range(B):
+        jy = np.clip(yy + r.randint(-3, 4, (hw, hw)), 0, hw - 1)
+        jx = np.clip(xx + r.randint(-3, 4, (hw, hw)), 0, hw - 1)
+        out.append((jy * grid // hw) * grid + jx * grid // hw)
+    return np.stack(out).astype(np.int64)
+
+
+# (labels, k, absorb_sweeps, max_sweeps): fragmented SLIC-like maps at two
+# sizes, the spiral at the cap of both loops, orphan absorption alone.
+def connectivity_cases():
+    import chip_smoke as cs
+    spiral = np.stack([cs.spiral_labels(96), cs.spiral_labels(96).T.copy()])
+    return {
+        "fragmented-96": (fragmented_labels(3, 96, 10, 0), 100, 4, 64),
+        "fragmented-512": (fragmented_labels(2, 512, 22, 1), 484, 4, 64),
+        "fragmented-odd": (fragmented_labels(2, 77, 7, 2)[:, :77, :61], 49,
+                           4, 64),
+        "spiral-cap-1": (spiral, 3, 0, 1),
+        "spiral-cap-2": (spiral, 3, 0, 2),
+        "absorb-only": (fragmented_labels(2, 128, 12, 3), 1, 2, 0),
+    }
+
+
+@pytest.mark.parametrize("case", ["fragmented-96", "fragmented-512",
+                                  "fragmented-odd", "spiral-cap-1",
+                                  "spiral-cap-2", "absorb-only"])
+def test_slic_connectivity_kernel_matches_plain(cuda, case):
+    """csrc/slic_connectivity.cu against its plain versions on the card:
+    the same labels, every image stopping on its own, caps included."""
+    from gcn_grabcut_torch.ops import slic
+    labels, k, absorb, sweeps = connectivity_cases()[case]
+    lab = torch.from_numpy(np.ascontiguousarray(labels)).to(cuda)
+    before = slic.repair_connectivity_cuda.kernel_launches
+    got = slic.repair_connectivity_cuda(lab, k, absorb, sweeps)
+    assert slic.repair_connectivity_cuda.kernel_launches == before + 1
+    want = slic.absorb_orphans_plain(lab, absorb)
+    if sweeps:
+        want = slic.enforce_connectivity_plain(want, k, sweeps)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("max_iters", [2, 512])
+def test_mask_components_kernel_matches_plain(cuda, connectivity, max_iters):
+    """csrc/mask_components.cu against its plain version on the card: a
+    serpentine (capped at 2 sweeps), random masks and ragged widths."""
+    import chip_smoke as cs
+    from gcn_grabcut_torch.ops import connected
+    r = np.random.RandomState(connectivity + max_iters)
+    masks = [cs.serpentine_mask(96)[None], r.rand(3, 96, 96) > 0.45,
+             r.rand(2, 70, 131) > 0.3, np.ones((1, 33, 40), bool),
+             np.zeros((1, 20, 20), bool)]
+    for m in masks:
+        mask = torch.from_numpy(np.ascontiguousarray(m)).to(cuda)
+        got = connected.connected_components_cuda(mask, connectivity,
+                                                  max_iters)
+        want = connected.connected_components_plain(mask, connectivity,
+                                                    max_iters)
+        assert torch.equal(got, want), m.shape
+
+
+def test_build_kernels_sync_no_host(cuda):
+    from gcn_grabcut_torch.ops import connected, slic
+    lab = torch.from_numpy(fragmented_labels(2, 96, 10, 5)).to(cuda)
+    mask = lab % 3 == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slic.repair_connectivity_cuda(lab, 100, 4, 64)
+        connected.connected_components_cuda(mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_graph_batch_on_the_card_equals_each_image_alone(cuda):
+    """build_graph_batch_arrays, the trimap stage and the clean-up on the
+    card: image b of a batch of three bit for bit as built alone."""
+    from gcn_grabcut_torch import pipeline as tpipe
+    r = np.random.RandomState(8)
+    imgs = (r.rand(3, 128, 128, 3) * 255).astype(np.uint8)
+    imgs[:, 40:90, 30:100] //= 3
+    cfg = gt.SuperpixelGraphConfig(n_segments=120, bg_connectivity=True)
+    batch = gt.build_graph_batch_arrays(imgs, cfg, device=cuda)
+    k = batch["x"].shape[1]
+    probs = torch.softmax(torch.from_numpy(
+        r.randn(3, k, 3).astype(np.float32)).to(cuda), -1)
+    grays = torch.from_numpy(imgs).to(cuda).float().mean(-1) / 255.0
+    px = tpipe._project_probs_device(probs, batch["segments"], (128, 128))
+    tri = tpipe._trimap_stage_device(px, batch["segments"], grays,
+                                     batch["prior"], batch["node_mask"],
+                                     0.6, 0.6, 4)
+    masks = (tri == 1) | (tri == 3)
+    post = tpipe._post_stage_device(masks.to(torch.uint8), tri,
+                                    batch["segments"], 30.0, True, True,
+                                    px[..., 1])
+    for b in range(3):
+        sl = slice(b, b + 1)
+        one = gt.build_graph_batch_arrays(imgs[sl], cfg, device=cuda)
+        for key, v in batch.items():
+            assert torch.equal(v[b], one[key][0]), key
+        t1 = tpipe._trimap_stage_device(px[sl], one["segments"], grays[sl],
+                                        one["prior"], one["node_mask"], 0.6,
+                                        0.6, 4)
+        assert torch.equal(t1[0], tri[b])
+        p1 = tpipe._post_stage_device(masks[sl].to(torch.uint8), tri[sl],
+                                      one["segments"], 30.0, True, True,
+                                      px[sl][..., 1])
+        assert torch.equal(p1[0], post[b])

@@ -168,10 +168,10 @@ def test_dense_knn_matches_jax(jax_stages):
     ml[7] = ml[8]                        # a tie in distance
     jp, jm = jedges.nonlocal_pairs(adj_pairs, adj_mask, jnp.asarray(ml),
                                    jnp.asarray(valid), K, 4)
-    tp, tm = tedges.nonlocal_pairs(t(adj_pairs), t(adj_mask), t(ml),
-                                   t(valid), K, 4)
-    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
-    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    tp, tm = tedges.nonlocal_pairs(t(adj_pairs)[None], t(adj_mask)[None],
+                                   t(ml)[None], t(valid)[None], K, 4)
+    np.testing.assert_array_equal(tm[0].numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))
 
 
 @pytest.mark.parametrize("geodesic", [False, True])
@@ -184,9 +184,9 @@ def test_dense_prior_matches_jax(jax_stages, geodesic):
         segments, lab, K, stats=stats, adjacency=adjacency,
         geo_iters=geo_iters))
     got = tprior.compute_auto_prior(
-        t(segments).long(), K, stats=tuple(t(a) for a in stats),
+        t(segments).long()[None], K, stats=tuple(t(a)[None] for a in stats),
         adjacency=None if adjacency is None else tuple(
-            t(a) for a in adjacency), geo_iters=geo_iters).numpy()
+            t(a)[None] for a in adjacency), geo_iters=geo_iters)[0].numpy()
     np.testing.assert_allclose(got, want, atol=PRIOR_TOL)
 
 
@@ -221,13 +221,13 @@ def test_geodesic_prior_matches_jax(jax_stages):
         want = np.asarray(jprior.boundary_connectivity_bg(
             adj_pairs, adj_mask, st["mean_lab"], jnp.asarray(border),
             st["valid"], K, n_iters))
-        args = (t(adj_pairs), t(adj_mask), t(ml), t(border), t(valid), K,
-                n_iters)
+        args = tuple(t(a)[None] for a in (adj_pairs, adj_mask, ml, border,
+                                          valid)) + (K, n_iters)
         # The distances are exact: a min is order-free.
         np.testing.assert_array_equal(
-            tprior.geodesic_distance(*args).numpy(),
+            tprior.geodesic_distance(*args)[0].numpy(),
             _relax_reference(w, src, dst, d0, n_iters))
-        got = tprior.boundary_connectivity_bg(*args).numpy()
+        got = tprior.boundary_connectivity_bg(*args)[0].numpy()
         # The weights within the exp's rounding.
         np.testing.assert_allclose(got, want, atol=PRIOR_TOL, rtol=0)
     assert 0 < (want > 0.5).mean() < 1

@@ -234,8 +234,8 @@ def test_connected_components_exact(i, connectivity):
     m = random_masks()[i]
     j = np.asarray(jcc.connected_components(jnp.asarray(m),
                                             connectivity=connectivity))
-    t = tcc.connected_components(torch.from_numpy(m),
-                                 connectivity=connectivity).numpy()
+    t = tcc.connected_components(torch.from_numpy(m)[None],
+                                 connectivity=connectivity)[0].numpy()
     np.testing.assert_array_equal(t, j)
 
 
@@ -251,9 +251,9 @@ def test_clean_mask_exact(i, mode):
     j = np.asarray(jcc._clean_mask_jit(
         jnp.asarray(m), jnp.float32(min_area), keep_largest,
         None if post is None else jnp.asarray(post)))
-    t = tcc._clean_mask(torch.from_numpy(m), min_area, keep_largest,
-                        None if post is None else torch.from_numpy(post))
-    np.testing.assert_array_equal(t.numpy(), j)
+    t = tcc._clean_mask(torch.from_numpy(m)[None], min_area, keep_largest,
+                        None if post is None else torch.from_numpy(post)[None])
+    np.testing.assert_array_equal(t[0].numpy(), j)
 
 
 @pytest.mark.parametrize("want_segments", [True, False])

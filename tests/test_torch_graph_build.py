@@ -48,14 +48,15 @@ def builds():
         jcfg.sigma, jcfg.connectivity, jcfg.n_nonlocal, jcfg.slic_iters)
     jout = {k: np.array(v) for k, v in jout.items()}
     tcfg = tgb.SuperpixelGraphConfig(n_segments=N_SEGMENTS)
-    rgb = torch.from_numpy(img).float()
-    tout = tgb._build_graph_arrays(rgb, tcfg)
+    rgb = torch.from_numpy(img).float()[None]
+    tout = {k: v[0] for k, v in tgb.build_graph_batch_arrays(
+        rgb, tcfg, device="cpu").items()}
     # Everything after SLIC, on the JAX segments.
     lab = torch.from_numpy(np.array(jim.rgb_to_lab(jnp.asarray(
-        img, jnp.float32))))
+        img, jnp.float32))))[None]
     tgiven = tgb._graph_arrays(rgb, lab, torch.from_numpy(
-        jout["segments"]).long(), tcfg)
-    return img, jout, tout, {k: v.numpy() for k, v in tgiven.items()}
+        jout["segments"]).long()[None], tcfg)
+    return img, jout, tout, {k: v[0].numpy() for k, v in tgiven.items()}
 
 
 def test_sizes_and_budgets_match():
@@ -135,11 +136,11 @@ def test_blocked_knn_matches_jax():
     valid[50:80] = 0.0
     jp, jm = jedges.nonlocal_pairs_banded(jnp.asarray(ml), jnp.asarray(valid),
                                           k, 4, exclude_window=25, block=256)
-    tp, tm = tedges.nonlocal_pairs_banded(torch.from_numpy(ml),
-                                          torch.from_numpy(valid), k, 4,
+    tp, tm = tedges.nonlocal_pairs_banded(torch.from_numpy(ml)[None],
+                                          torch.from_numpy(valid)[None], k, 4,
                                           exclude_window=25, block=256)
-    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
-    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tm[0].numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tp[0].numpy(), np.asarray(jp))
 
 
 def test_blocked_contrast_matches_jax():
@@ -151,7 +152,8 @@ def test_blocked_contrast_matches_jax():
     aw /= aw.sum()
     j = np.asarray(jprior._contrast_blocked(
         jnp.asarray(ml), jnp.asarray(ct), jnp.asarray(aw), k, 0.4))
-    t = tprior._contrast_blocked(torch.from_numpy(ml), torch.from_numpy(ct),
-                                 torch.from_numpy(aw), k, 0.4).numpy()
+    t = tprior._contrast_blocked(torch.from_numpy(ml)[None],
+                                 torch.from_numpy(ct)[None],
+                                 torch.from_numpy(aw)[None], k, 0.4)[0].numpy()
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
 

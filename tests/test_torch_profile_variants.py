@@ -1,6 +1,7 @@
 """profile_port.py's kernel variants are textual edits of the committed CUDA
 sources.  Each edit's text must still be in its source, or the variant
-cannot be built on the card; this holds them to the sources on the CPU."""
+cannot be built on the card; this holds them to the sources on the CPU, and
+builds the dense B=8 target's graphs on the CPU at a small size."""
 
 import pytest
 
@@ -51,3 +52,25 @@ def test_the_block_path_design_is_kept_with_its_interface():
     assert "long_segment_kernel" in src
     assert ('extern "C" int segment_reduce(int dtype, int op, const void* '
             'values,') in src
+
+
+def test_dense_target_builds_on_the_cpu():
+    """The dense B=8 target (the recommended ensemble, bg_connectivity,
+    ms_scales) at 96 px on the CPU: its pipeline builds the batch's graphs
+    in one pass, with a leading B axis."""
+    import numpy as np
+    import torch
+    from gcn_grabcut_torch.graph_build import build_graph_batch_arrays
+
+    torch.set_num_threads(1)
+    pipe, images, settings = pp.dense_target(device="cpu", hw=96,
+                                             n_images=2)
+    assert pipe.sp_config.bg_connectivity and settings["ms_scales"] == (
+        1.0, 0.75)
+    out = build_graph_batch_arrays(np.stack(images), pipe.sp_config,
+                                   device="cpu")
+    k = out["x"].shape[1]
+    assert out["segments"].shape == (2, 96, 96) and out["x"].shape == (2, k,
+                                                                       19)
+    assert int(out["segments"].max()) < k
+    assert bool(torch.isfinite(out["prior"]).all())
