@@ -200,10 +200,13 @@ Phases, each of which exits non-zero on failure:
      one launch) against their plain versions on the card, bit for bit,
      on the inputs recorded at their call sites in the dense cell's
      segment_batch (B=8 at 512^2 and its 0.75-scale rebuild) and the
-     large cell's (1536^2), and on cap cases (a spiral with max_sweeps 2,
-     a serpentine with max_iters 2), each with its ms, the plain
-     version's wall ms, its component blocks, absorption rounds or sweeps,
-     and its bytes bound; one launch of each a build or clean-up (two of
+     large cell's (1536^2), and on cap cases (a spiral with max_sweeps 1,
+     2, 3 and 5, a serpentine with max_iters 1, 2, 3 and 5), each with
+     its ms, the plain version's wall ms, its component blocks, absorption
+     rounds or sweeps held to the plain version's, the connectivity
+     kernel's tiles run and skipped, its bytes bound, and its grid-wide
+     barriers and barrier floor (its barriers times an empty barrier's
+     time on its own grid); one launch of each a build or clean-up (two of
      the connectivity kernel a dense batch: its two scales); the batched
      build (both scales), projection, trimap stage and clean-up at B=8
      against each image alone, bit for bit; no host sync in the build,
@@ -408,11 +411,13 @@ LOCK_STEP_BATCHES = (1, 2, 4, 8)
 # grid-wide barriers timed for its barrier floor.
 CUT_BOUND_OUTER = 2
 CUT_BARRIERS = 2000
-# Phase 17: the cap cases of the connectivity kernel (max_sweeps) and the
-# mask components kernel (max_iters), and the figures of the per-image
-# build that the batched one replaced (PERF.md section 5, run G: H100
-# 80GB HBM3, 700.00 W).
+# Phase 17: the cap cases of the connectivity kernel (max_sweeps: 1, 3 and
+# 5 stop its super-blocks of 16 steps inside one) and the mask components
+# kernel (max_iters), and the figures of the per-image build that the
+# batched one replaced (PERF.md section 5, run G: H100 80GB HBM3, 700.00 W).
 CONNECT_CAP, COMPONENTS_CAP = 2, 2
+CONNECT_CAPS = (1, CONNECT_CAP, 3, 5)
+COMPONENTS_CAPS = (1, COMPONENTS_CAP, 3, 5)
 BUILD_BEFORE = {"graph_build_s": 0.4324, "dense_images_s": 5.98,
                 "serving_requests_s": 7.8180}
 
@@ -1895,13 +1900,8 @@ def barrier_us(shape: tuple, connectivity: int = 8) -> float:
     from gcn_grabcut_torch.ops import maxflow as mf
     _, H, W = shape
     dev = torch.device("cuda")
-    mf.barrier_loop_cuda(connectivity, H, W, 10, dev)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    mf.barrier_loop_cuda(connectivity, H, W, CUT_BARRIERS, dev)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) * 1e3 / CUT_BARRIERS
+    return loop_barrier_us(
+        lambda n: mf.barrier_loop_cuda(connectivity, H, W, n, dev))
 
 
 def mincut_case(name: str, excess, r_fwd, r_bwd, kw: dict, card: str
@@ -3780,60 +3780,29 @@ def wall_s(fn) -> float:
     return time.perf_counter() - t
 
 
-def build_kernel_case(name: str, kernel, plain, pixels: int,
-                      bytes_per_px: int, loops) -> dict:
-    """One case of phase 17: the kernel against its plain version on the
-    card, bit for bit, with the kernel's device ms, the plain version's
-    wall ms and the bytes bound (the input read once and the labels
-    written once, over PEAK_BYTES_S)."""
-    got = kernel()
-    want = plain()
-    torch.cuda.synchronize()
-    differ = int((got != want).sum())
-    info = loops()
-    ms = time_ms(kernel, reps=10, warmup=2)
-    plain_ms = 1e3 * wall_s(plain)
-    bound_ms = 1e3 * pixels * bytes_per_px / PEAK_BYTES_S
-    print(f"  {name}: {differ} labels differ from the plain version; "
-          f"kernel {ms:.4f} ms ({info}), plain {plain_ms:.4f} ms (wall), "
-          f"bytes bound {bound_ms:.4f} ms ({ms / bound_ms:.1f}x)",
-          flush=True)
-    if differ:
-        fail(f"{name}: the kernel's labels differ from the plain version's "
-             f"at {differ} pixels")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "max_abs_err": float((got.long() - want.long()).abs().max())}
+def loop_barrier_us(loop) -> float:
+    """Device microseconds of one empty grid-wide barrier, loop(n)
+    launching n of them on a kernel's grid."""
+    loop(10)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loop(CUT_BARRIERS)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / CUT_BARRIERS
 
 
-def same_arrays(a: dict, b: dict, keys) -> list:
-    """The keys whose arrays differ in any bit."""
-    return [k for k in keys if a[k].shape != b[k].shape
-            or not same_bits(a[k], b[k])]
-
-
-def run_build_kernels(dev, card: str, records: dict,
-                      serving_rps: float) -> None:
-    """Phase 17: the batched, sync-free graph build and clean-up.  (a) The
-    connectivity kernel (csrc/slic_connectivity.cu) and the mask
-    components kernel (csrc/mask_components.cu) against their plain
-    versions on the card, bit for bit, on the inputs recorded at their
-    call sites in the dense cell's segment_batch (B=8 at 512^2 and its
-    0.75-scale rebuild) and in the large cell's (1536^2), and on the cap
-    cases (a spiral with max_sweeps CONNECT_CAP, a serpentine with
-    max_iters COMPONENTS_CAP); each kernel's ms, the plain version's,
-    its bytes bound.  (b) Launches per dense B=8 segment_batch and per
-    build.  (c) The batched build, trimap stage and clean-up at B=8
-    against each image alone, bit for bit.  (d) No host sync in
-    build_graph_batch_arrays, _project_probs_device, _trimap_stage_device
-    and _post_stage_device (torch.cuda.set_sync_debug_mode("error")).
-    (e) graph_build and dense B=8 images/s, and serving's requests/s,
-    beside the per-image build's (BUILD_BEFORE)."""
+def build_kernel_inputs(dev) -> tuple:
+    """Phase 17's inputs to the connectivity kernel and the mask
+    components kernel: those recorded at their call sites in the dense
+    cell's segment_batch (B=8 at 512^2 and its 0.75-scale rebuild) and the
+    large cell's (1536^2), and the cap cases (a spiral with max_sweeps
+    CONNECT_CAPS, orphans alone, a serpentine with max_iters
+    COMPONENTS_CAPS).  Returns ({name: (labels, k, absorb_sweeps,
+    max_sweeps)}, {name: (mask, connectivity, max_iters)}, (the dense
+    pipeline, its images, its config, the large config))."""
     import gcn_grabcut_torch as gt
-    from gcn_grabcut_torch import pipeline as pl
-    from gcn_grabcut_torch.grabcut import grabcut_batch_device
-    from gcn_grabcut_torch.graph_build import build_graph_batch_arrays
     from gcn_grabcut_torch.ops import connected as cc
-    from gcn_grabcut_torch.ops import image as im
     from gcn_grabcut_torch.ops import slic as slic_ops
 
     model, _ = load_ensemble()
@@ -3855,58 +3824,210 @@ def run_build_kernels(dev, card: str, records: dict,
             or len(large_cc) != 1:
         fail(f"recorded {len(dense_rep)} / {len(large_rep)} repairs and "
              f"{len(dense_cc)} / {len(large_cc)} labellings (dense / large)")
-
-    def repair_plain(labels, k, absorb, sweeps):
-        out = slic_ops.absorb_orphans_plain(labels, absorb)
-        return (slic_ops.enforce_connectivity_plain(out, k, sweeps)
-                if sweeps else out)
-
-    def repair_case(name, labels, k, absorb, sweeps):
-        return build_kernel_case(
-            name,
-            lambda: slic_ops.repair_connectivity_cuda(labels, k, absorb,
-                                                      sweeps),
-            lambda: repair_plain(labels, k, absorb, sweeps),
-            labels.numel(), 8,
-            lambda: slic_ops.kernel_loops(
-                slic_ops.repair_connectivity_cuda.last_ctrl))
-
-    def components_case(name, mask, conn, iters):
-        def loops():
-            c = cc.connected_components_cuda.last_ctrl
-            return f"{int(c[-1])} sweeps"
-        return build_kernel_case(
-            name, lambda: cc.connected_components_cuda(mask, conn, iters),
-            lambda: cc.connected_components_plain(mask, conn, iters),
-            mask.numel(), 5, loops)
-
-    print(f"phase 17 ({card}): the connectivity kernel "
-          f"(csrc/slic_connectivity.cu: absorb 4 sweeps, then "
-          f"enforce_connectivity) and the mask components kernel "
-          f"(csrc/mask_components.cu) against their plain versions, bit "
-          f"for bit", flush=True)
     spiral = torch.as_tensor(np.stack([spiral_labels(96),
                                        spiral_labels(96).T.copy()]),
                              device=dev)
     serp = torch.as_tensor(serpentine_mask(512)[None], device=dev)
-    rep = {}
-    for name, (labels, k) in (
-            (f"dense B={DENSE_IMAGES} {DENSE_HW}^2", dense_rep[0]),
-            (f"dense B={DENSE_IMAGES} 0.75-scale rebuild", dense_rep[1]),
-            (f"large {IMAGE_HW}^2", large_rep[0])):
-        rep[name] = repair_case(f"repair, {name}, K={k}", labels, k, 4, 64)
-    repair_case(f"repair, spiral 96^2 x 2, max_sweeps={CONNECT_CAP}",
-                spiral, 3, 0, CONNECT_CAP)
-    repair_case("absorb only, dense 4 sweeps", dense_rep[0][0], 1, 4, 0)
-    comp = {}
-    for name, (mask,) in ((f"dense B={DENSE_IMAGES} {DENSE_HW}^2",
-                           (dense_cc[0][0],)),
-                          (f"large {IMAGE_HW}^2", (large_cc[0][0],))):
-        comp[name] = components_case(f"components, {name}", mask, 8, 512)
+    repairs = {
+        f"dense B={DENSE_IMAGES} {DENSE_HW}^2": (*dense_rep[0][:2], 4, 64),
+        f"dense B={DENSE_IMAGES} 0.75-scale rebuild": (*dense_rep[1][:2], 4,
+                                                       64),
+        f"large {IMAGE_HW}^2": (*large_rep[0][:2], 4, 64)}
+    for cap in CONNECT_CAPS:
+        repairs[f"spiral 96^2 x 2, max_sweeps={cap}"] = (spiral, 3, 0, cap)
+    repairs["absorb only, dense 4 sweeps"] = (dense_rep[0][0], 1, 4, 0)
+    labellings = {
+        f"dense B={DENSE_IMAGES} {DENSE_HW}^2": (dense_cc[0][0], 8, 512),
+        f"large {IMAGE_HW}^2": (large_cc[0][0], 8, 512)}
     for conn in (8, 4):
-        components_case(f"components, serpentine 512^2, {conn}-conn, "
-                        f"max_iters={COMPONENTS_CAP}", serp, conn,
-                        COMPONENTS_CAP)
+        for cap in COMPONENTS_CAPS:
+            labellings[f"serpentine 512^2, {conn}-conn, max_iters={cap}"] = (
+                serp, conn, cap)
+    return repairs, labellings, (pipe, images, cfg, large_cfg)
+
+
+def connectivity_traffic(info: dict, shape: tuple, absorb: int,
+                         super_steps: int) -> int:
+    """The connectivity kernel's own traffic in bytes, from its tallies:
+    what its design moves, beside the bytes the repair needs (the bound).
+    An orphan pass reads a 50 x 50 window of labels for each 32 x 32 tile
+    and writes the labels (the last, before the components, also the
+    same-label bits and a zero size: 9 bytes a pixel); a super-block reads
+    a (32 + 2 super_steps)^2 window of components and bits for each tile
+    it runs (5 bytes a pixel; the first only the bits) and writes the
+    tile's components; the size, score and flag passes read the
+    components three times and the labels once and write the flags (17
+    bytes a pixel); an absorption pass reads the same window of labels and
+    flags for each tile it runs (5 bytes a pixel) and writes the tile's;
+    the last pass copies labels, counted whole (8 bytes a pixel)."""
+    B, H, W = shape
+    n = B * H * W
+    tiles = B * -(-H // 32) * -(-W // 32)
+    tile, orphan_win = 32 * 32, 50 * 50
+    win = (32 + 2 * super_steps) ** 2
+    passes = max(1, -(-absorb // 4))
+    total = passes * (tiles * orphan_win * 4 + n * 4)
+    if not info["blocks"]:
+        return total
+    total += n * 5
+    total += tiles * (win + tile * 4)
+    total += (info["tiles_run"] - tiles) * (win * 5 + tile * 4)
+    total += n * 17
+    total += info["absorb_tiles_run"] * (win + tile) * 5
+    return total + n * 8
+
+
+def components_traffic(info: dict, shape: tuple, band_rows: int) -> int:
+    """The mask components kernel's own traffic in bytes, from its sweeps:
+    a sweep's row pass reads each band's labels and one row above and
+    below ((R + 2) / R x 4 bytes a pixel; the first sweep the 1-byte mask
+    instead) and writes the rows' minima (4); the column pass reads the
+    minima twice and the labels once (the first sweep the mask) and writes
+    the labels (counted whole).  Every image is counted in every sweep:
+    for a batch whose images stop early this is an upper bound."""
+    B, H, W = shape
+    n = B * H * W
+    halo = (band_rows + 2) / band_rows
+    if not info["sweeps"]:
+        return n * 5
+    first = n * (halo + 4 + 8 + 1 + 4)
+    return int(first + (info["sweeps"] - 1) * n * (halo * 4 + 4 + 8 + 4 + 4))
+
+
+def build_kernel_case(name: str, kernel, plain, pixels: int,
+                      bytes_per_px: int, tally, floor_us: float,
+                      traffic) -> dict:
+    """One case of phase 17: the kernel against its plain version on the
+    card, bit for bit, and its loop counts against the plain version's,
+    with the kernel's device ms, the plain version's wall ms, the bytes
+    bound (the input read once and the labels written once, over
+    PEAK_BYTES_S), its own traffic over PEAK_BYTES_S (traffic(tallies) in
+    bytes) and the barrier floor (its barriers times an empty barrier's
+    floor_us on its grid).  tally() gives the kernel's counts and the
+    plain version's (after kernel() and plain() ran)."""
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    info, plain_counts = tally()
+    ms = time_ms(kernel, reps=10, warmup=2)
+    plain_ms = 1e3 * wall_s(plain)
+    bound_ms = 1e3 * pixels * bytes_per_px / PEAK_BYTES_S
+    own_ms = 1e3 * traffic(info) / PEAK_BYTES_S
+    floor_ms = info["barriers"] * floor_us / 1e3
+    print(f"  {name}: {differ} labels differ from the plain version; "
+          f"kernel {ms:.4f} ms ({info}; the plain version's "
+          f"{plain_counts}), plain {plain_ms:.4f} ms (wall), bytes bound "
+          f"{bound_ms:.4f} ms ({ms / bound_ms:.1f}x), own traffic "
+          f"{own_ms:.4f} ms, barrier floor {floor_ms:.4f} ms "
+          f"({floor_us:.3f} us a barrier)", flush=True)
+    if differ:
+        fail(f"{name}: the kernel's labels differ from the plain version's "
+             f"at {differ} pixels")
+    if any(info[k] != v for k, v in plain_counts.items()):
+        fail(f"{name}: the kernel's loop counts {info} are not the plain "
+             f"version's {plain_counts}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "own_traffic_ms": own_ms, "barriers": info["barriers"],
+            "barrier_floor_ms": floor_ms,
+            "max_abs_err": float((got.long() - want.long()).abs().max())}
+
+
+def repair_case(name: str, labels, k: int, absorb: int, sweeps: int,
+                floor_us: float) -> dict:
+    """build_kernel_case for the connectivity kernel (8 bytes a pixel: the
+    labels read and written once); its tallies include tiles run and
+    skipped."""
+    from gcn_grabcut_torch.ops import slic as slic_ops
+
+    def plain():
+        out = slic_ops.absorb_orphans_plain(labels, absorb)
+        return (slic_ops.enforce_connectivity_plain(out, k, sweeps)
+                if sweeps else out)
+
+    def tally():
+        info = slic_ops.kernel_tally(
+            slic_ops.repair_connectivity_cuda.last_ctrl)
+        want = (slic_ops.enforce_connectivity_plain.last_loops if sweeps
+                else {"blocks": 0, "rounds": 0})
+        return info, want
+
+    super_steps = slic_ops.kernel_grid()["super_steps"]
+    return build_kernel_case(
+        f"repair, {name}, K={k}",
+        lambda: slic_ops.repair_connectivity_cuda(labels, k, absorb, sweeps),
+        plain, labels.numel(), 8, tally, floor_us,
+        lambda info: connectivity_traffic(info, tuple(labels.shape), absorb,
+                                          super_steps))
+
+
+def components_case(name: str, mask, conn: int, iters: int,
+                    floor_us: float) -> dict:
+    """build_kernel_case for the mask components kernel (5 bytes a pixel:
+    the mask read once, the labels written once)."""
+    from gcn_grabcut_torch.ops import connected as cc
+
+    def tally():
+        info = cc.kernel_tally(cc.connected_components_cuda.last_ctrl)
+        return info, {"sweeps": cc.connected_components_plain.last_sweeps}
+
+    band = cc.kernel_grid(*mask.shape[1:])["band_rows"]
+    return build_kernel_case(
+        f"components, {name}",
+        lambda: cc.connected_components_cuda(mask, conn, iters),
+        lambda: cc.connected_components_plain(mask, conn, iters),
+        mask.numel(), 5, tally, floor_us,
+        lambda info: components_traffic(info, tuple(mask.shape), band))
+
+
+def same_arrays(a: dict, b: dict, keys) -> list:
+    """The keys whose arrays differ in any bit."""
+    return [k for k in keys if a[k].shape != b[k].shape
+            or not same_bits(a[k], b[k])]
+
+
+def run_build_kernels(dev, card: str, records: dict,
+                      serving_rps: float) -> None:
+    """Phase 17: the batched, sync-free graph build and clean-up.  (a) The
+    connectivity kernel (csrc/slic_connectivity.cu) and the mask
+    components kernel (csrc/mask_components.cu) against their plain
+    versions on the card, bit for bit, with the plain version's loop
+    counts, on build_kernel_inputs' cases; each kernel's ms, the plain
+    version's, its bytes bound, its barriers and barrier floor, and the
+    connectivity kernel's tiles run and skipped.  (b) Launches per dense
+    B=8 segment_batch and per build.  (c) The batched build, trimap stage
+    and clean-up at B=8 against each image alone, bit for bit.  (d) No
+    host sync in build_graph_batch_arrays, _project_probs_device,
+    _trimap_stage_device and _post_stage_device
+    (torch.cuda.set_sync_debug_mode("error")).  (e) graph_build and dense
+    B=8 images/s, and serving's requests/s, beside the per-image build's
+    (BUILD_BEFORE)."""
+    from gcn_grabcut_torch import pipeline as pl
+    from gcn_grabcut_torch.grabcut import grabcut_batch_device
+    from gcn_grabcut_torch.graph_build import build_graph_batch_arrays
+    from gcn_grabcut_torch.ops import connected as cc
+    from gcn_grabcut_torch.ops import image as im
+    from gcn_grabcut_torch.ops import slic as slic_ops
+
+    repairs, labellings, (pipe, images, cfg, large_cfg) = \
+        build_kernel_inputs(dev)
+    print(f"phase 17 ({card}): the connectivity kernel "
+          f"(csrc/slic_connectivity.cu: absorb 4 sweeps, then "
+          f"enforce_connectivity; grid {slic_ops.kernel_grid()}) and the "
+          f"mask components kernel (csrc/mask_components.cu) against their "
+          f"plain versions, bit for bit", flush=True)
+    a_floor = loop_barrier_us(lambda n: slic_ops.barrier_loop_cuda(n, dev))
+    rep = {name: repair_case(name, *case, floor_us=a_floor)
+           for name, case in repairs.items()}
+    comp = {}
+    for name, (mask, conn, iters) in labellings.items():
+        _, H, W = mask.shape
+        floor = loop_barrier_us(
+            lambda n, H=H, W=W: cc.barrier_loop_cuda(H, W, n, dev))
+        if name.startswith(("dense", "large")):
+            print(f"  components grid at {H} x {W}: {cc.kernel_grid(H, W)}",
+                  flush=True)
+        comp[name] = components_case(name, mask, conn, iters, floor)
 
     # (b) Launches per dense B=8 batch.
     slic_ops.repair_connectivity_cuda.kernel_launches = 0
@@ -4046,8 +4167,11 @@ def run_build_kernels(dev, card: str, records: dict,
                     "XLA, not Pallas)",
         "max_abs_err": large_a["max_abs_err"], "ms": large_a["ms"],
         "plain_ms": large_a["plain_ms"], "bound_ms": large_a["bound_ms"],
-        "bound_by": "bytes", "dense_ms": dense_a["ms"],
-        "dense_bound_ms": dense_a["bound_ms"], "library_ms": None})
+        "bound_by": "bytes", "own_traffic_ms": large_a["own_traffic_ms"],
+        "barriers": large_a["barriers"],
+        "barrier_floor_ms": large_a["barrier_floor_ms"],
+        "dense_ms": dense_a["ms"], "dense_bound_ms": dense_a["bound_ms"],
+        "library_ms": None})
     records["mask_components"].update({
         "name": "mask_components", "route": "cuda",
         "source": "gcn_grabcut_torch/csrc/mask_components.cu",
@@ -4056,8 +4180,11 @@ def run_build_kernels(dev, card: str, records: dict,
                     "Pallas)",
         "max_abs_err": large_b["max_abs_err"], "ms": large_b["ms"],
         "plain_ms": large_b["plain_ms"], "bound_ms": large_b["bound_ms"],
-        "bound_by": "bytes", "dense_ms": dense_b["ms"],
-        "dense_bound_ms": dense_b["bound_ms"], "library_ms": None})
+        "bound_by": "bytes", "own_traffic_ms": large_b["own_traffic_ms"],
+        "barriers": large_b["barriers"],
+        "barrier_floor_ms": large_b["barrier_floor_ms"],
+        "dense_ms": dense_b["ms"], "dense_bound_ms": dense_b["bound_ms"],
+        "library_ms": None})
 
 
 def main() -> None:

@@ -8,6 +8,10 @@
     python3 profile_port.py --kernels  # what holds the min-cut, K1, K2,
                                        # K3 and the segment sum back, and
                                        # the banded GAT attention
+    python3 profile_port.py --build-kernels [DIR ...]
+                                       # the connectivity and mask
+                                       # components kernels, their variants
+                                       # and other checkouts' designs
 
 Runs chip_smoke.py's main-path configuration on one GPU (a 1536x1536
 synthetic image, 10 000 SLIC segments, the seeded ResGCNNet at D=128,
@@ -53,12 +57,25 @@ chip_smoke.gat_layer_case) on the main path's 10 000-node graph: banded at
 device busy time and busy share, its launches of the segment-sum kernel
 (csrc/segment_sum.cu) and its heaviest kernels; and the main path's
 segment_batch under the profiler, then its clean-up's connected_components
-and component sums, each alone on the same mask.  Needs CUDA; imports nothing of JAX.
+and component sums, each alone on the same mask.
+
+With --build-kernels it times the connectivity kernel
+(csrc/slic_connectivity.cu) and the mask components kernel
+(csrc/mask_components.cu) on chip_smoke.py phase 17's cases (their inputs
+recorded at the dense and large cells' call sites, and the cap cases): as
+built and in variants (SLIC_VARIANTS, MASK_VARIANTS; two turn on the
+in-kernel stage timers, which the committed build leaves out), each with
+its bits against the plain version and its tallies, and the designs of the
+checkouts named after the flag (each a directory holding its own
+gcn_grabcut_torch/, e.g. a `git archive` of a parent commit unpacked into a
+git-ignored directory), each run in a process of its own before and after
+this checkout's on the same inputs.  Needs CUDA; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import sys
 import tempfile
@@ -990,6 +1007,151 @@ def mincut_kernel() -> None:
            stage)
 
 
+# Connectivity kernel (csrc/slic_connectivity.cu) variants: (name,
+# [(text in the source, replacement)]).  Each gives the same labels.
+SLIC_STATS = ("#include <cooperative_groups.h>",
+              "#define SLIC_CONNECTIVITY_STATS\n"
+              "#include <cooperative_groups.h>")
+SLIC_SUPER_16 = ("constexpr int SUPER = 8;", "constexpr int SUPER = 16;")
+SLIC_VARIANTS = [
+    ("as built", []),
+    ("with the stage timers (SLIC_CONNECTIVITY_STATS)", [SLIC_STATS]),
+    ("super-blocks of 16 steps", [SLIC_SUPER_16]),
+    ("super-blocks of 16 steps, with the stage timers",
+     [SLIC_SUPER_16, SLIC_STATS]),
+    ("no tile skipped (every tile runs every pass)",
+     [("      const int n_active = k == 0 ? tiles : ld(j.tcount + k % 3);",
+       "      const int n_active = k == 0 || ld(j.tcount + k % 3) ? tiles "
+       ": 0;"),
+      ("      const int n_active = a == 0 ? tiles : ld(j.tcount + kk % 3);",
+       "      const int n_active = a == 0 || ld(j.tcount + kk % 3) ? tiles "
+       ": 0;"),
+      ("    const int tl = all ? take : ld(j.active[k & 1] + take);",
+       "    const int tl = take;")]),
+    ("absorption passes of 1 round", [("constexpr int ABS_ROUNDS = 2;",
+                                       "constexpr int ABS_ROUNDS = 1;")]),
+    ("super-blocks of 4 steps, absorption passes of 1 round",
+     [("constexpr int SUPER = 8;", "constexpr int SUPER = 4;"),
+      ("constexpr int ABS_ROUNDS = 2;", "constexpr int ABS_ROUNDS = 1;")]),
+]
+# Mask components kernel (csrc/mask_components.cu) variants.
+MASK_VARIANTS = [
+    ("as built", []),
+    ("with the pass timers (MASK_COMPONENTS_STATS)",
+     [("#include <cooperative_groups.h>",
+       "#define MASK_COMPONENTS_STATS\n#include <cooperative_groups.h>")]),
+]
+# Where build_kernels leaves phase 17's inputs for another checkout's run.
+BUILD_INPUTS = "phase17_inputs.pt"
+
+
+def time_build_cases(label: str, repairs: dict, labellings: dict,
+                     slic_libs=((None, None),),
+                     mask_libs=((None, None),)) -> None:
+    """Each case of chip_smoke phase 17 through the gcn_grabcut_torch on
+    sys.path (this checkout's or another's): for each build of the
+    connectivity kernel in slic_libs and of the mask components kernel in
+    mask_libs ((variant name, library), None for the package's own), the
+    device ms per call, its bits against the plain version, and its
+    tallies (`kernel_tally` where the package has one)."""
+    import chip_smoke as cs
+    from gcn_grabcut_torch.ops import connected as cc
+    from gcn_grabcut_torch.ops import slic as slic_ops
+
+    def tally(mod, ctrl):
+        if hasattr(mod, "kernel_tally"):
+            return mod.kernel_tally(ctrl)
+        return mod.kernel_loops(ctrl) if mod is slic_ops else {
+            "sweeps": int(ctrl[-1])}
+
+    for variant, lib in slic_libs:
+        if hasattr(slic_ops, "kernel_grid"):
+            print(f"  A, {label}{', ' + variant if variant else ''}: grid "
+                  f"{slic_ops.kernel_grid(lib)}", flush=True)
+    for name, (labels, k, absorb, sweeps) in repairs.items():
+        want = slic_ops.absorb_orphans_plain(labels, absorb)
+        if sweeps:
+            want = slic_ops.enforce_connectivity_plain(want, k, sweeps)
+        for variant, lib in slic_libs:
+            kw = {} if lib is None else {"lib": lib}
+
+            def call():
+                return slic_ops.repair_connectivity_cuda(labels, k, absorb,
+                                                         sweeps, **kw)
+
+            same = torch.equal(call(), want)
+            info = tally(slic_ops, slic_ops.repair_connectivity_cuda.last_ctrl)
+            ms = cs.time_ms(call, reps=10, warmup=2)
+            print(f"  A, {label}{', ' + variant if variant else ''}: {name}: "
+                  f"{ms:.4f} ms, bits {'equal' if same else 'DIFFER'}; "
+                  f"{info}", flush=True)
+    for name, (mask, conn, iters) in labellings.items():
+        want = cc.connected_components_plain(mask, conn, iters)
+        for variant, lib in mask_libs:
+            kw = {} if lib is None else {"lib": lib}
+
+            def call():
+                return cc.connected_components_cuda(mask, conn, iters, **kw)
+
+            same = torch.equal(call(), want)
+            info = tally(cc, cc.connected_components_cuda.last_ctrl)
+            ms = cs.time_ms(call, reps=10, warmup=2)
+            print(f"  B, {label}{', ' + variant if variant else ''}: {name}: "
+                  f"{ms:.4f} ms, bits {'equal' if same else 'DIFFER'}; "
+                  f"{info}", flush=True)
+
+
+def build_kernels(others: list) -> None:
+    """The connectivity and mask components kernels on chip_smoke phase
+    17's cases (build_kernel_inputs): this checkout's as built and in
+    SLIC_VARIANTS and MASK_VARIANTS, and before and after them the
+    package of each checkout in `others` (a directory holding
+    gcn_grabcut_torch/, its kernels built there) in a process of its own
+    on the same inputs, so that the designs are compared in one call."""
+    import chip_smoke as cs
+    from gcn_grabcut_torch import kernels
+
+    dev = torch.device("cuda")
+    repairs, labellings, _ = cs.build_kernel_inputs(dev)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = kernels.BUILD_DIR / BUILD_INPUTS
+    torch.save({"repairs": {n: (c[0].cpu(), *c[1:])
+                            for n, c in repairs.items()},
+                "labellings": {n: (c[0].cpu(), *c[1:])
+                               for n, c in labellings.items()}}, path)
+
+    def others_run(when: str) -> None:
+        for d in others:
+            print(f"the design at {d} ({when}):", flush=True)
+            subprocess.run([sys.executable, __file__, "--time-build-kernels",
+                            str(path), d], check=True)
+
+    others_run("first")
+    slic_libs = build_variants("slic_connectivity", SLIC_VARIANTS, "slic")
+    mask_libs = build_variants("mask_components", MASK_VARIANTS, "mask")
+    print("this checkout's design:", flush=True)
+    time_build_cases("this checkout", repairs, labellings, slic_libs,
+                     mask_libs)
+    others_run("again, last")
+
+
+def time_build_kernels(inputs: str, package: str) -> None:
+    """build_kernels' run of another checkout's package, in this process:
+    its kernels on the saved inputs."""
+    package = os.path.abspath(package)
+    sys.path.insert(0, package)
+    import gcn_grabcut_torch
+    if not gcn_grabcut_torch.__file__.startswith(package):
+        raise RuntimeError(f"imported {gcn_grabcut_torch.__file__}, not the "
+                           f"package under {package}")
+    dev = torch.device("cuda")
+    saved = torch.load(inputs)
+    time_build_cases(
+        package,
+        {n: (c[0].to(dev), *c[1:]) for n, c in saved["repairs"].items()},
+        {n: (c[0].to(dev), *c[1:]) for n, c in saved["labellings"].items()})
+
+
 def gat_attention() -> None:
     """The banded GAT attention layer at 10k nodes under the profiler, as
     the edge list beside it: the evidence for or against a fused kernel
@@ -1102,6 +1264,14 @@ def main() -> None:
         import chip_smoke as cs
         print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
         dense_profile()
+        return
+    if sys.argv[1:2] == ["--time-build-kernels"]:
+        time_build_kernels(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--build-kernels"]:
+        import chip_smoke as cs
+        print(f"torch {torch.__version__}, {cs.gpu_line()}", flush=True)
+        build_kernels(sys.argv[2:])
         return
     if "--kernels" in sys.argv[1:]:
         import chip_smoke as cs

@@ -760,7 +760,9 @@ def fragmented_labels(B: int, hw: int, grid: int, seed: int) -> np.ndarray:
 
 
 # (labels, k, absorb_sweeps, max_sweeps): fragmented SLIC-like maps at two
-# sizes, the spiral at the cap of both loops, orphan absorption alone.
+# sizes, the spiral at the cap of both loops (caps 1, 2, 3 and 5 stop the
+# kernel's super-blocks of 16 steps inside one), orphan absorption alone,
+# and more orphan sweeps than the kernel runs in one pass.
 def connectivity_cases():
     import chip_smoke as cs
     spiral = np.stack([cs.spiral_labels(96), cs.spiral_labels(96).T.copy()])
@@ -771,16 +773,22 @@ def connectivity_cases():
                            4, 64),
         "spiral-cap-1": (spiral, 3, 0, 1),
         "spiral-cap-2": (spiral, 3, 0, 2),
+        "spiral-cap-3": (spiral, 3, 0, 3),
+        "spiral-cap-5": (spiral, 3, 0, 5),
         "absorb-only": (fragmented_labels(2, 128, 12, 3), 1, 2, 0),
+        "absorb-9-sweeps": (fragmented_labels(2, 96, 10, 4), 100, 9, 64),
     }
 
 
 @pytest.mark.parametrize("case", ["fragmented-96", "fragmented-512",
                                   "fragmented-odd", "spiral-cap-1",
-                                  "spiral-cap-2", "absorb-only"])
+                                  "spiral-cap-2", "spiral-cap-3",
+                                  "spiral-cap-5", "absorb-only",
+                                  "absorb-9-sweeps"])
 def test_slic_connectivity_kernel_matches_plain(cuda, case):
     """csrc/slic_connectivity.cu against its plain versions on the card:
-    the same labels, every image stopping on its own, caps included."""
+    the same labels, every image stopping on its own, caps included, and
+    the plain version's component blocks and absorption rounds."""
     from gcn_grabcut_torch.ops import slic
     labels, k, absorb, sweeps = connectivity_cases()[case]
     lab = torch.from_numpy(np.ascontiguousarray(labels)).to(cuda)
@@ -790,20 +798,24 @@ def test_slic_connectivity_kernel_matches_plain(cuda, case):
     want = slic.absorb_orphans_plain(lab, absorb)
     if sweeps:
         want = slic.enforce_connectivity_plain(want, k, sweeps)
+        assert (slic.kernel_loops(slic.repair_connectivity_cuda.last_ctrl)
+                == slic.enforce_connectivity_plain.last_loops)
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("connectivity", [4, 8])
-@pytest.mark.parametrize("max_iters", [2, 512])
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 5, 512])
 def test_mask_components_kernel_matches_plain(cuda, connectivity, max_iters):
     """csrc/mask_components.cu against its plain version on the card: a
-    serpentine (capped at 2 sweeps), random masks and ragged widths."""
+    serpentine (capped at 1, 2, 3 or 5 sweeps), random masks and ragged
+    widths and heights (a row band and a column segment cut short), with
+    the plain version's sweeps."""
     import chip_smoke as cs
     from gcn_grabcut_torch.ops import connected
     r = np.random.RandomState(connectivity + max_iters)
     masks = [cs.serpentine_mask(96)[None], r.rand(3, 96, 96) > 0.45,
              r.rand(2, 70, 131) > 0.3, np.ones((1, 33, 40), bool),
-             np.zeros((1, 20, 20), bool)]
+             np.zeros((1, 20, 20), bool), r.rand(2, 1543, 37) > 0.2]
     for m in masks:
         mask = torch.from_numpy(np.ascontiguousarray(m)).to(cuda)
         got = connected.connected_components_cuda(mask, connectivity,
@@ -811,6 +823,9 @@ def test_mask_components_kernel_matches_plain(cuda, connectivity, max_iters):
         want = connected.connected_components_plain(mask, connectivity,
                                                     max_iters)
         assert torch.equal(got, want), m.shape
+        assert (connected.kernel_tally(
+            connected.connected_components_cuda.last_ctrl)["sweeps"]
+            == connected.connected_components_plain.last_sweeps), m.shape
 
 
 def test_build_kernels_sync_no_host(cuda):

@@ -17,7 +17,11 @@ VARIANTS = ([("banded_spmm", f"k1-{i}", v)
             + [("segment_sum", f"seg-{i}", v)
                for i, v in enumerate(pp.SEGMENT_VARIANTS)]
             + [("grid_mincut", f"cut-{i}", v)
-               for i, v in enumerate(pp.CUT_VARIANTS)])
+               for i, v in enumerate(pp.CUT_VARIANTS)]
+            + [("slic_connectivity", f"slic-{i}", v)
+               for i, v in enumerate(pp.SLIC_VARIANTS)]
+            + [("mask_components", f"mask-{i}", v)
+               for i, v in enumerate(pp.MASK_VARIANTS)])
 
 
 @pytest.mark.parametrize("name,variant", [(n, v) for n, _, v in VARIANTS],
