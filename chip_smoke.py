@@ -1326,7 +1326,7 @@ def run_main_path(dev, record: dict, seg_record: dict,
     repair_connectivity_cuda.kernel_launches = 0
     connected_components_cuda.kernel_launches = 0
     t = time.perf_counter()
-    res = pipe.segment_batch([img], sync_timing=True)[0]
+    res = pipe.segment_batch([img])[0]
     wall = time.perf_counter() - t
     launches = banded_spmm.kernel_launches
     seg_launches = segment_sum.kernel_launches
@@ -1559,8 +1559,7 @@ def run_dense_path(dev, card: str) -> None:
     walls1 = []
     for b, img in enumerate(images):
         t = time.perf_counter()
-        one = pipe.segment_batch([img], sync_timing=True,
-                                 **DENSE_SETTINGS)[0]
+        one = pipe.segment_batch([img], **DENSE_SETTINGS)[0]
         walls1.append(time.perf_counter() - t)
         print(f"  dense B=1 image {b}: {walls1[-1]:.4f} s ({split(one.timing)};"
               f" FG {one.binary_mask.mean():.4f})", flush=True)
@@ -1569,8 +1568,7 @@ def run_dense_path(dev, card: str) -> None:
     res = pipe.segment_batch(images, **DENSE_SETTINGS)
     torch.cuda.synchronize()
     wall8 = time.perf_counter() - t
-    split8 = pipe.segment_batch(images, sync_timing=True,
-                                **DENSE_SETTINGS)[0].timing
+    split8 = pipe.segment_batch(images, **DENSE_SETTINGS)[0].timing
     k1 = banded_spmm.kernel_launches
     k = res[0].probs.shape[0]
     print(f"dense path timed runs ({DENSE_HW}^2, K={k}, bgc ensemble of "
@@ -1578,7 +1576,7 @@ def run_dense_path(dev, card: str) -> None:
           f"ms_scales={DENSE_SETTINGS['ms_scales']}; {card}): B=1 median "
           f"{float(np.median(walls1)):.4f} s over {len(walls1)} images; "
           f"B={DENSE_IMAGES} {wall8:.4f} s = {DENSE_IMAGES / wall8:.2f} "
-          f"images/s (synchronised split: {split(split8)}); banded_spmm "
+          f"images/s (device split: {split(split8)}); banded_spmm "
           f"launches={k1}", flush=True)
     if k1 != 0:
         fail(f"the dense path launched banded_spmm {k1} times")
@@ -2737,7 +2735,7 @@ def run_variants(dev, card: str, graphs: list) -> None:
         warm = time.perf_counter() - t
         banded_spmm.kernel_launches = 0
         t = time.perf_counter()
-        res = pipe.segment_batch([img], sync_timing=True)[0]
+        res = pipe.segment_batch([img])[0]
         wall = time.perf_counter() - t
         k1 = banded_spmm.kernel_launches
         k = res.probs.shape[0]
@@ -2848,7 +2846,7 @@ def run_variants(dev, card: str, graphs: list) -> None:
         model, meta = gt.load_model_auto(str(tmp / "gat/final_model.msgpack"))
         pipe = gt.GCNGrabCutPipeline(model, cfg)
         t = time.perf_counter()
-        res = pipe.segment_batch([img], sync_timing=True)[0]
+        res = pipe.segment_batch([img])[0]
         wall = time.perf_counter() - t
         print(f"trained GAT checkpoint (cli.train, meta variant "
               f"{meta['variant']}) -> load_model_auto -> segment_batch at "
@@ -3090,6 +3088,8 @@ def run_serving(card: str) -> float:
             runs.append((time.perf_counter() - t, seconds,
                          banded_spmm.kernel_launches, code, payload))
         traces = list(Path(tmp).glob("*.pt.trace.json"))
+        tallies = [json.loads(p.read_text())
+                   for p in Path(tmp).glob("*.mincut.json")]
         size = sum(p.stat().st_size for p in traces)
         t = time.perf_counter()
         events = [e for p in traces
@@ -3119,6 +3119,12 @@ def run_serving(card: str) -> float:
           f"{parse_s:.1f} s", flush=True)
     if len(traces) != 1 or not kernels or k1 < N_LAYERS + 1:
         fail("the profiler trace lacks the card's kernels or K1")
+    print(f"serving (b): profile_trace's min-cut tallies {tallies}",
+          flush=True)
+    n_iter = gt.GrabCutConfig().n_iter
+    if len(tallies) != 1 or tallies[0]["solves"] != n_iter \
+            or tallies[0]["barriers"] <= 0:
+        fail("profile_trace's tallies lack the traced request's solves")
 
     # (c) Tooling on (a)'s results.
     with tempfile.TemporaryDirectory() as tmp:
@@ -4145,14 +4151,13 @@ def run_build_kernels(dev, card: str, records: dict,
               for _ in range(3)]
     batches = [wall_s(lambda: pipe.segment_batch(images, **DENSE_SETTINGS))
                for _ in range(3)]
-    split8 = pipe.segment_batch(images, sync_timing=True,
-                                **DENSE_SETTINGS)[0].timing
+    split8 = pipe.segment_batch(images, **DENSE_SETTINGS)[0].timing
     ips = DENSE_IMAGES / float(np.median(batches))
     print(f"  dense B={DENSE_IMAGES} ({card}): build_graph_batch_arrays "
           f"median {float(np.median(builds)):.4f} s (per-image build "
           f"{BUILD_BEFORE['graph_build_s']} s); segment_batch median "
           f"{float(np.median(batches)):.4f} s = {ips:.2f} images/s (before "
-          f"{BUILD_BEFORE['dense_images_s']}); synchronised split "
+          f"{BUILD_BEFORE['dense_images_s']}); device split "
           f"{split(split8)}; serving {serving_rps:.4f} requests/s (before "
           f"{BUILD_BEFORE['serving_requests_s']})", flush=True)
 

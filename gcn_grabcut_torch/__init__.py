@@ -24,8 +24,9 @@ either package reads, and the CLIs ``python -m gcn_grabcut_torch.cli.
 {train,prepare_graphs,evaluate,inference}``.  It serves: ``python -m
 gcn_grabcut_torch.cli.serve`` answers HTTP requests through a
 micro-batcher in front of `segment_batch`.  Around it: `FrameworkConfig`
-(``config.py``), `StageTimer` and `profile_trace` on torch.profiler
-(``utils.py``), and the plots of ``visualise.py``.  The top level exports
+(``config.py``), `profile_trace` on torch.profiler and `trace_span`,
+which opens the program's own `layer.*` spans while a profiler records
+(``utils.py``, with the span table), and the plots of ``visualise.py``.  The top level exports
 every public name of the JAX package's.  Entry points run on the card
 unless the caller passes device="cpu" (the CLIs: --cpu).
 """

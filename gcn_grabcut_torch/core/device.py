@@ -20,9 +20,3 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:   # "cuda" names the current card
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def synchronize(device: torch.device) -> None:
-    """Wait for queued work on `device` (a no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

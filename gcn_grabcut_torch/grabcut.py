@@ -33,6 +33,7 @@ from .ops import gmm as gmm_ops
 from .ops import image as im
 from .ops.maxflow import (OFFSETS_8, _fresh_residuals, grid_mincut_batch,
                           grid_mincut_multilevel)
+from .utils import trace_span
 
 
 @dataclasses.dataclass
@@ -104,39 +105,44 @@ def _iterate(pix: torch.Tensor, mask: torch.Tensor, comp0: torch.Tensor,
     image has its own beta, GMMs and carried flow, and ends bit for bit
     where it would alone."""
     pix = pix.float()
-    caps, _ = _pairwise_caps(pix, gamma)
+    with trace_span("layer.grabcut.caps"):
+        caps, _ = _pairwise_caps(pix, gamma)
+        if ml_levels <= 0:
+            r_fwd, r_bwd = _fresh_residuals(caps, OFFSETS_8)
     lam = 9.0 * gamma
 
-    fg_sel, bg_sel = _class_masks(mask)
-    fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp0, n_components)
-    bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp0, n_components)
-    if ml_levels <= 0:
-        r_fwd, r_bwd = _fresh_residuals(caps, OFFSETS_8)
-    e_carry = torch.zeros_like(pix[..., 0])
-    E_prev = torch.zeros_like(pix[..., 0])
+    with trace_span("layer.grabcut.gmm"):
+        fg_sel, bg_sel = _class_masks(mask)
+        fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp0, n_components)
+        bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp0, n_components)
+        e_carry = torch.zeros_like(pix[..., 0])
+        E_prev = torch.zeros_like(pix[..., 0])
     comp = comp0
     for _ in range(n_iter):
-        fg_sel, bg_sel = _class_masks(mask)
-        # cv2 order: assign under the carried GMMs, then one re-fit.
-        comp = torch.where(fg_sel > 0, gmm_ops.assign_components(pix, fg_gmm),
-                           gmm_ops.assign_components(pix, bg_gmm))
-        fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp, n_components)
-        bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp, n_components)
+        with trace_span("layer.grabcut.gmm"):
+            fg_sel, bg_sel = _class_masks(mask)
+            # cv2 order: assign under the carried GMMs, then one re-fit.
+            comp = torch.where(fg_sel > 0,
+                               gmm_ops.assign_components(pix, fg_gmm),
+                               gmm_ops.assign_components(pix, bg_gmm))
+            fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp, n_components)
+            bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp, n_components)
 
-        # Terminal capacities: excess = fromSource - toSink, source = FG.
-        unknown = (gmm_ops.gmm_log_prob(pix, fg_gmm)
-                   - gmm_ops.gmm_log_prob(pix, bg_gmm)).clamp(-lam, lam)
-        E_t = torch.where(mask == TRIMAP_FG, lam,
-                          torch.where(mask == TRIMAP_BG, -lam, unknown))
+            # Terminal capacities: excess = fromSource - toSink, source = FG.
+            unknown = (gmm_ops.gmm_log_prob(pix, fg_gmm)
+                       - gmm_ops.gmm_log_prob(pix, bg_gmm)).clamp(-lam, lam)
+            E_t = torch.where(mask == TRIMAP_FG, lam,
+                              torch.where(mask == TRIMAP_BG, -lam, unknown))
+            # Flow recycling: add the terminal delta to the carried excess.
+            excess = e_carry + (E_t - E_prev)
         if ml_levels > 0:
             fg_side = torch.stack([
                 grid_mincut_multilevel(E_t[b], tuple(c[b] for c in caps),
                                        connectivity=8, levels=ml_levels)
                 for b in range(E_t.shape[0])])
         else:
-            # Flow recycling: add the terminal delta to the carried excess.
             fg_side, e_carry, r_fwd, r_bwd = grid_mincut_batch(
-                e_carry + (E_t - E_prev), r_fwd, r_bwd, connectivity=8)
+                excess, r_fwd, r_bwd, connectivity=8)
         E_prev = E_t
         probable = (mask == TRIMAP_PROB_BG) | (mask == TRIMAP_PROB_FG)
         relabel = torch.where(fg_side, TRIMAP_PROB_FG, TRIMAP_PROB_BG
@@ -243,9 +249,10 @@ def _repair(t: torch.Tensor):
 def _initial_components(pix: torch.Tensor, fg_sel: torch.Tensor, k: int
                         ) -> torch.Tensor:
     """initGMMs: seeded k-means per class (seeds 0 / 1)."""
-    fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
-    bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
-    return torch.where(fg_sel, fg_comp, bg_comp)
+    with trace_span("layer.grabcut.kmeans"):
+        fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
+        bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
+        return torch.where(fg_sel, fg_comp, bg_comp)
 
 
 def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,
@@ -262,19 +269,20 @@ def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,
     keeps its own labelling.  Initial components come from seeded k-means
     per class (seeds 0 / 1) over the batch unless `comp0` (B, H, W) is
     given."""
-    config = config or GrabCutConfig()
-    k = config.n_components
-    t, degenerate = _repair(trimaps.to(torch.uint8))
-    fg_sel = (t == TRIMAP_FG) | (t == TRIMAP_PROB_FG)
-    pix = preprocess_device(rgb.float(), config.color_space)
-    if comp0 is None:
-        comp0 = _initial_components(pix, fg_sel, k)
-    masks, _ = _grabcut_solve_batch(pix, t, comp0.long(), config.gamma,
-                                    config.n_iter, k)
-    solved = ((masks == TRIMAP_FG) | (masks == TRIMAP_PROB_FG)
-              ).to(torch.uint8)
-    return torch.where(degenerate[:, None, None], fg_sel.to(torch.uint8),
-                       solved)
+    with trace_span("layer.grabcut"):
+        config = config or GrabCutConfig()
+        k = config.n_components
+        t, degenerate = _repair(trimaps.to(torch.uint8))
+        fg_sel = (t == TRIMAP_FG) | (t == TRIMAP_PROB_FG)
+        pix = preprocess_device(rgb.float(), config.color_space)
+        if comp0 is None:
+            comp0 = _initial_components(pix, fg_sel, k)
+        masks, _ = _grabcut_solve_batch(pix, t, comp0.long(), config.gamma,
+                                        config.n_iter, k)
+        solved = ((masks == TRIMAP_FG) | (masks == TRIMAP_PROB_FG)
+                  ).to(torch.uint8)
+        return torch.where(degenerate[:, None, None],
+                           fg_sel.to(torch.uint8), solved)
 
 
 def grabcut_batch_loop(rgb: torch.Tensor, trimaps: torch.Tensor,

@@ -29,6 +29,7 @@ from .ops import image as im
 from .ops import prior as prior_ops
 from .ops import region as region_ops
 from .ops import slic as slic_ops
+from .utils import trace_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,41 +62,46 @@ def _graph_arrays(rgbs: torch.Tensor, labs: torch.Tensor,
     each with a leading B axis."""
     B, H, W, _ = rgbs.shape
     k = slic_ops.slic_num_labels(H, W, cfg.n_segments)
-    hsv = im.rgb_to_hsv(rgbs)
-    grad = im.gradient_magnitude(im.rgb_to_gray(rgbs))
-    st = region_ops.region_statistics(segments, labs, hsv, grad, k)
-    node_feats = region_ops.assemble_node_features(st)
+    with trace_span("layer.build.regions"):
+        hsv = im.rgb_to_hsv(rgbs)
+        grad = im.gradient_magnitude(im.rgb_to_gray(rgbs))
+        st = region_ops.region_statistics(segments, labs, hsv, grad, k)
+        node_feats = region_ops.assemble_node_features(st)
 
-    adj_pairs, shared, adj_mask = edge_ops.adjacency_pairs(
-        segments, k, cfg.connectivity)
-    adj_attr = edge_ops.pair_features(adj_pairs, adj_mask, st, shared,
-                                      torch.zeros_like(shared))
-    nl_k = max(cfg.n_nonlocal, 1)
-    if k > prior_ops.LARGE_K_THRESHOLD:
-        # SLIC grid order bounds adjacent labels to ±(gw + 1).
-        _, gw = slic_ops.grid_shape(H, W, cfg.n_segments)
-        nl_pairs, nl_mask = edge_ops.nonlocal_pairs_banded(
-            st["mean_lab"], st["valid"], k, nl_k, exclude_window=gw + 1)
-    else:
-        nl_pairs, nl_mask = edge_ops.nonlocal_pairs(
-            adj_pairs, adj_mask, st["mean_lab"], st["valid"], k, nl_k)
-    if cfg.n_nonlocal <= 0:
-        nl_mask = torch.zeros_like(nl_mask)
-    nl_attr = edge_ops.pair_features(nl_pairs, nl_mask, st,
-                                     torch.zeros_like(nl_mask),
-                                     torch.ones_like(nl_mask))
-    src, dst, attr, emask = edge_ops.symmetrise(
-        torch.cat([adj_pairs, nl_pairs], dim=1),
-        torch.cat([adj_attr, nl_attr], dim=1),
-        torch.cat([adj_mask, nl_mask], dim=1))
+    with trace_span("layer.build.edges"):
+        adj_pairs, shared, adj_mask = edge_ops.adjacency_pairs(
+            segments, k, cfg.connectivity)
+        adj_attr = edge_ops.pair_features(adj_pairs, adj_mask, st, shared,
+                                          torch.zeros_like(shared))
+        nl_k = max(cfg.n_nonlocal, 1)
+        if k > prior_ops.LARGE_K_THRESHOLD:
+            # SLIC grid order bounds adjacent labels to ±(gw + 1).
+            _, gw = slic_ops.grid_shape(H, W, cfg.n_segments)
+            nl_pairs, nl_mask = edge_ops.nonlocal_pairs_banded(
+                st["mean_lab"], st["valid"], k, nl_k, exclude_window=gw + 1)
+        else:
+            nl_pairs, nl_mask = edge_ops.nonlocal_pairs(
+                adj_pairs, adj_mask, st["mean_lab"], st["valid"], k, nl_k)
+        if cfg.n_nonlocal <= 0:
+            nl_mask = torch.zeros_like(nl_mask)
+        nl_attr = edge_ops.pair_features(nl_pairs, nl_mask, st,
+                                         torch.zeros_like(nl_mask),
+                                         torch.ones_like(nl_mask))
+        src, dst, attr, emask = edge_ops.symmetrise(
+            torch.cat([adj_pairs, nl_pairs], dim=1),
+            torch.cat([adj_attr, nl_attr], dim=1),
+            torch.cat([adj_mask, nl_mask], dim=1))
 
-    # The geodesic relaxation covers the region grid's diameter (~2·sqrt(K)
-    # hops).
-    geo_iters = min(int(2 * k ** 0.5) + 8, 96) if cfg.bg_connectivity else 0
-    pr = prior_ops.compute_auto_prior(
-        segments, k, stats=(st["counts"], st["mean_lab"], st["centroids"]),
-        adjacency=(adj_pairs, adj_mask) if cfg.bg_connectivity else None,
-        geo_iters=geo_iters)
+    with trace_span("layer.build.prior"):
+        # The geodesic relaxation covers the region grid's diameter
+        # (~2·sqrt(K) hops).
+        geo_iters = (min(int(2 * k ** 0.5) + 8, 96) if cfg.bg_connectivity
+                     else 0)
+        pr = prior_ops.compute_auto_prior(
+            segments, k,
+            stats=(st["counts"], st["mean_lab"], st["centroids"]),
+            adjacency=(adj_pairs, adj_mask) if cfg.bg_connectivity else None,
+            geo_iters=geo_iters)
     return dict(
         segments=segments,
         x=torch.cat([node_feats, pr], dim=-1),      # (B, K, 19)
@@ -112,14 +118,20 @@ def build_graph_batch_arrays(rgbs, config: Optional[SuperpixelGraphConfig]
     batched pass (the JAX package's vmap): no loop over the images and no
     host sync; image b's arrays equal its arrays built alone, bit for
     bit."""
-    cfg = config or SuperpixelGraphConfig()
-    dev = resolve_device(device)
-    rgbs = torch.as_tensor(rgbs, device=dev).float()
-    labs = im.rgb_to_lab(rgbs)
-    segments = slic_ops.slic(labs, n_segments=cfg.n_segments,
-                             compactness=cfg.compactness,
-                             n_iter=cfg.slic_iters, smooth_sigma=cfg.sigma)
-    return _graph_arrays(rgbs, labs, segments, cfg)
+    with trace_span("layer.build"):
+        cfg = config or SuperpixelGraphConfig()
+        dev = resolve_device(device)
+        rgbs = torch.as_tensor(rgbs, device=dev).float()
+        with trace_span("layer.build.slic"):
+            labs = im.rgb_to_lab(rgbs)
+            labels = slic_ops.slic_labels(
+                labs, n_segments=cfg.n_segments, compactness=cfg.compactness,
+                n_iter=cfg.slic_iters, smooth_sigma=cfg.sigma)
+        with trace_span("layer.build.connectivity"):
+            segments = slic_ops.repair_connectivity(
+                labels, slic_ops.slic_num_labels(*labels.shape[1:],
+                                                 cfg.n_segments))
+        return _graph_arrays(rgbs, labs, segments, cfg)
 
 
 @dataclasses.dataclass

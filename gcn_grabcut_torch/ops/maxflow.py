@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace_span, tracing
+
 # Undirected lattice directions: the offset (dy, dx) from p to the
 # neighbour "ahead" of it (cv2.grabCut's left / up / up-left / up-right).
 OFFSETS_4 = ((0, -1), (-1, 0))
@@ -80,18 +82,20 @@ def _resolve_params(H, W, connectivity, relabel_iters):
 
 
 class SolverCounts:
-    """The device solver's work since `reset()`: per call, each image's
-    outer rounds and push sweeps; in all, the global relabel's relaxation
-    steps (each over the call's whole working set) and the host syncs.
-    Nothing is recorded until a caller asks: `reset()` starts recording
-    (and clears what was recorded), so a process that never calls it keeps
-    no entry, and its kernel solves take no pinned copy and no event.
-    `syncs`, the plain version's host syncs, is a plain counter.  The plain
-    version tallies on the host as it solves.  A kernel solve's tallies are
-    copied behind it into pinned host memory, with an event; they are read
-    when the event has passed (checked without waiting at the next kernel
-    solve) or when a count is read (waiting then), so the solve itself does
-    not sync and no device memory is kept."""
+    """The device solver's work: per call, each image's outer rounds and
+    push sweeps; in all, the global relabel's relaxation steps (each over
+    the call's whole working set) and the host syncs.  A solve is recorded
+    after `reset()` (which clears what was recorded and records every
+    solve from then on) and, without it, while a torch profiler records
+    (`utils.tracing()`), so a traced window holds the solves launched in
+    it.  Otherwise nothing is kept, and a kernel solve takes no pinned
+    copy and no event.  `syncs`, the plain version's host syncs, is a
+    plain counter.  The plain version tallies on the host as it solves.  A
+    kernel solve's tallies are copied behind it into pinned host memory,
+    with an event; they are read when the event has passed (checked
+    without waiting at the next kernel solve) or when a count is read
+    (waiting then), so the solve itself does not sync and no device
+    memory is kept."""
 
     def __init__(self):
         self.recording = False
@@ -110,15 +114,24 @@ class SolverCounts:
         self._clear()
         self.recording = True
 
+    def clear(self) -> None:
+        """Clear the counts; whether solves are recorded stays as it was."""
+        self._clear()
+
+    @property
+    def active(self) -> bool:
+        """Whether a solve launched now is recorded."""
+        return self.recording or tracing()
+
     def _record(self, rounds, n_sweeps: int, relabel_steps: int) -> None:
-        if self.recording:
+        if self.active:
             self._calls.append([rounds, n_sweeps, relabel_steps, None])
 
     def _record_kernel(self, ctrl, done, n_sweeps: int, grid: dict) -> None:
         """A kernel solve: `ctrl` a host int32 tensor that holds the
         kernel's tallies once `done` (a CUDA event, or anything with
         query() and synchronize()) has passed; `grid` the launch's grid."""
-        if not self.recording:
+        if not self.active:
             return
         self._read(wait=False)
         call = [None, n_sweeps, None, dict(grid)]
@@ -164,8 +177,23 @@ class SolverCounts:
         and dynamic shared memory)."""
         return [c[3] for c in self._settled() if c[3] is not None]
 
+    def totals(self) -> dict:
+        """The recorded solves summed: solves, each image's outer rounds,
+        relabel steps; the kernel solves' grid barriers, sweep tiles swept
+        and relax tiles relaxed (a plain solve has none); host syncs."""
+        calls = self._settled()
+        kernel = [c[3] for c in calls if c[3] is not None]
+        return dict(solves=len(calls),
+                    rounds=sum(int(np.sum(c[0])) for c in calls),
+                    relabel_steps=sum(int(c[2]) for c in calls),
+                    barriers=sum(t["barriers"] for t in kernel),
+                    swept_tiles=sum(t["swept_tiles"] for t in kernel),
+                    relax_tiles=sum(t["relax_tiles"] for t in kernel),
+                    syncs=self.syncs)
 
-#: Tallies of the solves since ``counts.reset()`` (nothing before it).
+
+#: Tallies of the solves since ``counts.reset()``, and of those launched
+#: while a profiler records.
 counts = SolverCounts()
 
 # The kernel's ctrl words: relabel steps, grid barriers, relabel
@@ -551,23 +579,25 @@ def grid_mincut_batch(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple,
     alone (the solver's docstring); the caller's tensors stay unchanged.
     CUDA tensors go through the kernel (one launch, no host sync), CPU
     tensors through `grid_mincut_plain`."""
-    if excess.device.type == "cpu":
-        return grid_mincut_plain(excess, r_fwd, r_bwd, connectivity,
-                                 max_outer, sweeps_per_round, relabel_iters,
-                                 unroll)
-    e, rf, rb = working_copies(excess, r_fwd, r_bwd)
-    n_sweeps = _n_sweeps(sweeps_per_round, unroll)
-    fg, ctrl, grid = grid_mincut_cuda(e, rf, rb, connectivity, max_outer,
-                                      n_sweeps, relabel_iters, unroll)
-    if counts.recording:
-        # The tallies go to pinned host memory behind the solve: no sync,
-        # and `counts` keeps no device memory.
-        host = torch.empty(ctrl.shape, dtype=ctrl.dtype, pin_memory=True)
-        host.copy_(ctrl, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(ctrl.device))
-        counts._record_kernel(host, done, n_sweeps, grid)
-    return fg, e, rf, rb
+    with trace_span("layer.mincut"):
+        if excess.device.type == "cpu":
+            return grid_mincut_plain(excess, r_fwd, r_bwd, connectivity,
+                                     max_outer, sweeps_per_round,
+                                     relabel_iters, unroll)
+        e, rf, rb = working_copies(excess, r_fwd, r_bwd)
+        n_sweeps = _n_sweeps(sweeps_per_round, unroll)
+        fg, ctrl, grid = grid_mincut_cuda(e, rf, rb, connectivity, max_outer,
+                                          n_sweeps, relabel_iters, unroll)
+        if counts.active:
+            # The tallies go to pinned host memory behind the solve: no
+            # sync, and `counts` keeps no device memory.
+            host = torch.empty(ctrl.shape, dtype=ctrl.dtype,
+                               pin_memory=True)
+            host.copy_(ctrl, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(ctrl.device))
+            counts._record_kernel(host, done, n_sweeps, grid)
+        return fg, e, rf, rb
 
 
 def working_copies(excess: torch.Tensor, r_fwd: tuple, r_bwd: tuple):

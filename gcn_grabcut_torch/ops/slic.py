@@ -73,7 +73,19 @@ def _gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
 def slic(lab: torch.Tensor, n_segments: int = 300, compactness: float = 10.0,
          n_iter: int = 10, smooth_sigma: float = 1.0) -> torch.Tensor:
     """Segment each image of `lab` (B, H, W, 3) into K = gh*gw
-    superpixels; (B, H, W) int64 labels in [0, K)."""
+    superpixels; (B, H, W) int64 labels in [0, K), each label's region
+    connected (`slic_labels`, then `repair_connectivity`)."""
+    _, H, W, _ = lab.shape
+    return repair_connectivity(
+        slic_labels(lab, n_segments, compactness, n_iter, smooth_sigma),
+        slic_num_labels(H, W, n_segments))
+
+
+def slic_labels(lab: torch.Tensor, n_segments: int = 300,
+                compactness: float = 10.0, n_iter: int = 10,
+                smooth_sigma: float = 1.0) -> torch.Tensor:
+    """SLIC's iterations on (B, H, W, 3) Lab images: (B, H, W) int64
+    labels in [0, K) before the connectivity repair."""
     B, H, W, _ = lab.shape
     dev = lab.device
     gh, gw = grid_shape(H, W, n_segments)
@@ -132,7 +144,7 @@ def slic(lab: torch.Tensor, n_segments: int = 300, compactness: float = 10.0,
         cnts = total[..., 5]
         means = total[..., :5] / cnts.clamp_min(1.0)[..., None]
         centers = torch.where((cnts > 0)[..., None], means, centers)
-    return repair_connectivity(assign(centers), K)
+    return assign(centers)
 
 
 def _edge_neighbours(lb: torch.Tensor):

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.device import resolve_device, synchronize
+from .core.device import resolve_device
 from .core.graph import (CLASS_BG, CLASS_FG, TRIMAP_BG, TRIMAP_FG,
                          TRIMAP_PROB_BG, TRIMAP_PROB_FG, GraphBatch,
                          make_graph_batch)
@@ -52,6 +52,7 @@ from .models.factory import (apply_model, probs_to_node_trimap,
 from .models.large import apply_large
 from .ops import image as im
 from .ops.connected import _clean_mask, _per_image, clean_mask
+from .utils import trace_span
 
 
 def _batch_budget() -> int:
@@ -256,12 +257,13 @@ def _project_probs_device(probs, segments, out_hw: tuple) -> torch.Tensor:
     """(B, K, 3) probs + (B, h, w) segments -> (B, H, W, 2) pixel planes
     [P(BG), P(FG)], bilinearly resized to `out_hw` when the graph was
     built at another scale (the multi-scale path)."""
-    px = _project_batch(torch.stack([probs[..., CLASS_BG],
-                                     probs[..., CLASS_FG]], dim=-1).float(),
-                        segments)
-    if tuple(px.shape[1:3]) != tuple(out_hw):
-        px = im.resize_bilinear(px, out_hw)
-    return px
+    with trace_span("layer.project"):
+        px = _project_batch(torch.stack([probs[..., CLASS_BG],
+                                         probs[..., CLASS_FG]],
+                                        dim=-1).float(), segments)
+        if tuple(px.shape[1:3]) != tuple(out_hw):
+            px = im.resize_bilinear(px, out_hw)
+        return px
 
 
 def _trimap_stage_device(px_probs, segments, grays, priors, node_masks,
@@ -283,25 +285,54 @@ def _post_stage_device(masks, trimaps, segments, min_area: float,
     the label map at 2 bytes/px, in the JAX package's planar layout.  The
     clean-up runs on the batch (one components kernel launch on the card),
     with no host sync."""
-    cleaned = _clean_mask(masks, min_area, keep_largest, pfg)
-    B, H, W = masks.shape
-    hw = H * W
+    with trace_span("layer.cleanup"):
+        cleaned = _clean_mask(masks, min_area, keep_largest, pfg)
+        B, H, W = masks.shape
+        hw = H * W
 
-    def pack_planar(a, n_planes, bits):
-        flat = torch.nn.functional.pad(a.reshape(B, hw).int(),
-                                       (0, (-hw) % n_planes))
-        planes = flat.reshape(B, n_planes, -1)
-        byte = planes[:, 0, :]
-        for i in range(1, n_planes):
-            byte = byte | (planes[:, i, :] << (i * bits))
-        return byte.to(torch.uint8)
+        def pack_planar(a, n_planes, bits):
+            flat = torch.nn.functional.pad(a.reshape(B, hw).int(),
+                                           (0, (-hw) % n_planes))
+            planes = flat.reshape(B, n_planes, -1)
+            byte = planes[:, 0, :]
+            for i in range(1, n_planes):
+                byte = byte | (planes[:, i, :] << (i * bits))
+            return byte.to(torch.uint8)
 
-    parts = [pack_planar(cleaned, 8, 1), pack_planar(trimaps, 4, 2)]
-    if want_segments:
-        seg16 = segments.int().reshape(B, hw) & 0xFFFF
-        parts += [(seg16 & 0xFF).to(torch.uint8),
-                  (seg16 >> 8).to(torch.uint8)]
-    return torch.cat(parts, dim=-1)
+        parts = [pack_planar(cleaned, 8, 1), pack_planar(trimaps, 4, 2)]
+        if want_segments:
+            seg16 = segments.int().reshape(B, hw) & 0xFFFF
+            parts += [(seg16 & 0xFF).to(torch.uint8),
+                      (seg16 >> 8).to(torch.uint8)]
+        return torch.cat(parts, dim=-1)
+
+
+class _StageClock:
+    """The stage boundaries of one batch: CUDA events on the card, recorded
+    on the current stream and read once they have passed; the host clock
+    elsewhere."""
+
+    def __init__(self, dev: torch.device):
+        self._card = dev.type == "cuda"
+        self._stream = torch.cuda.current_stream(dev) if self._card else None
+        self._marks = []
+        self.mark(None)
+
+    def mark(self, name) -> None:
+        """End the stage `name` (None: the start)."""
+        if self._card:
+            t = torch.cuda.Event(enable_timing=True)
+            t.record(self._stream)
+        else:
+            t = time.perf_counter()
+        self._marks.append((name, t))
+
+    def seconds(self) -> dict:
+        """Seconds of each stage, in order."""
+        out = {}
+        for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
+            out[name] = a.elapsed_time(b) / 1e3 if self._card else b - a
+        return out
 
 
 def _unpack_post_host(packed: np.ndarray, H: int, W: int,
@@ -366,14 +397,15 @@ class GCNGrabCutPipeline:
         """(G, N, 3) softmax class probabilities: one stacked dense forward,
         or above LARGE_NODE_THRESHOLD one large-graph forward per graph
         (banded SpMM or banded attention) for a model that has one."""
-        if graph.max_nodes > self.LARGE_NODE_THRESHOLD \
-                and self._has_large_path():
-            logits = torch.cat([apply_large(self.model, graph.graph(b),
-                                            device=self.device)
-                                for b in range(graph.n_graphs)])
-        else:
-            logits = apply_model(self.model, graph)
-        return torch.softmax(logits.float(), dim=-1)
+        with trace_span("layer.forward"):
+            if graph.max_nodes > self.LARGE_NODE_THRESHOLD \
+                    and self._has_large_path():
+                logits = torch.cat([apply_large(self.model, graph.graph(b),
+                                                device=self.device)
+                                    for b in range(graph.n_graphs)])
+            else:
+                logits = apply_model(self.model, graph)
+            return torch.softmax(logits.float(), dim=-1)
 
     def _graph(self, rgbs):
         """(graph-build outputs, GraphBatch) of a (B, H, W, 3) batch."""
@@ -449,18 +481,21 @@ class GCNGrabCutPipeline:
                       min_area_ratio: float = 0.002,
                       keep_largest: bool = False, filter_radius: int = 8,
                       want_segments: bool = True,
-                      ms_scales: tuple | None = None,
-                      sync_timing: bool = False) -> list[SegmentationResult]:
+                      ms_scales: tuple | None = None
+                      ) -> list[SegmentationResult]:
         """Segment a batch of same-size images, device-resident end to end.
 
-        `sync_timing=True` synchronises the device at each stage boundary,
-        so the per-stage times in `timing` are device times rather than
-        enqueue times."""
+        Each result's `timing` holds the batch's seconds per stage
+        (graph_build, gcn_inference, grabcut, postprocess): on the card the
+        device timeline between CUDA events recorded at the stage
+        boundaries (read after the pull, so reading never waits; idle
+        time while the host enqueues counts), elsewhere the host clock;
+        postprocess adds the host's pull and unpack."""
         handle = self._dispatch_batch(
             images, threshold_fg=threshold_fg, threshold_bg=threshold_bg,
             min_area_ratio=min_area_ratio, keep_largest=keep_largest,
             filter_radius=filter_radius, want_segments=want_segments,
-            sync_timing=sync_timing, ms_scales=ms_scales)
+            ms_scales=ms_scales)
         return self._finalize_batch(handle)
 
     def segment_stream(self, images, batch_size: int = 8,
@@ -481,8 +516,7 @@ class GCNGrabCutPipeline:
                 images[start:start + batch_size], threshold_fg=threshold_fg,
                 threshold_bg=threshold_bg, min_area_ratio=min_area_ratio,
                 keep_largest=keep_largest, filter_radius=filter_radius,
-                want_segments=want_segments, sync_timing=False,
-                ms_scales=ms_scales)
+                want_segments=want_segments, ms_scales=ms_scales)
             if pending is not None:
                 yield from self._finalize_batch(pending)
             pending = handle
@@ -491,7 +525,7 @@ class GCNGrabCutPipeline:
 
     def _dispatch_batch(self, images, threshold_fg, threshold_bg,
                         min_area_ratio, keep_largest, filter_radius,
-                        want_segments, sync_timing, ms_scales=None):
+                        want_segments, ms_scales=None):
         """Run every device stage; the packed output stays on the device."""
         if not images:
             raise ValueError("empty batch")
@@ -507,19 +541,13 @@ class GCNGrabCutPipeline:
         if multi_scale and ms_scales[0] != 1.0:
             raise ValueError("ms_scales[0] must be 1.0")
         dev = self.device
-        timing: dict = {}
+        clock = _StageClock(dev)
 
-        def stage_done(name, t):
-            if sync_timing:
-                synchronize(dev)
-            timing[name] = time.perf_counter() - t
-
-        t = time.perf_counter()
-        rgbs = torch.as_tensor(np.stack(images), device=dev).float()
+        with trace_span("layer.upload"):
+            rgbs = torch.as_tensor(np.stack(images), device=dev).float()
         out, batch = self._graph(rgbs)
-        stage_done("graph_build", t)
+        clock.mark("graph_build")
 
-        t = time.perf_counter()
         probs = self._predict_probs_batch(batch)
         segments = out["segments"]
         px = _project_probs_device(probs, segments, (H, W))
@@ -529,64 +557,74 @@ class GCNGrabCutPipeline:
             px_list = [px]
             for sc in ms_scales[1:]:
                 hw = (max(int(round(H * sc)), 64), max(int(round(W * sc)), 64))
-                out_s, batch_s = self._graph(im.resize_bilinear(rgbs, hw))
+                with trace_span("layer.project"):
+                    small = im.resize_bilinear(rgbs, hw)
+                out_s, batch_s = self._graph(small)
                 px_list.append(_project_probs_device(
                     self._predict_probs_batch(batch_s), out_s["segments"],
                     (H, W)))
-            px = torch.stack(px_list).mean(dim=0)
-        grays = im.rgb_to_gray(rgbs) / 255.0
-        trimaps = _trimap_stage_device(
-            px, segments, grays, out["prior"], out["node_mask"],
-            threshold_fg, threshold_bg, filter_radius)
+            with trace_span("layer.project"):
+                px = torch.stack(px_list).mean(dim=0)
+        with trace_span("layer.trimap"):
+            grays = im.rgb_to_gray(rgbs) / 255.0
+            trimaps = _trimap_stage_device(
+                px, segments, grays, out["prior"], out["node_mask"],
+                threshold_fg, threshold_bg, filter_radius)
         # keep_largest reads the same plane the thresholds see.
         pfg_px = px[..., 1] if keep_largest else None
-        stage_done("gcn_inference", t)
+        clock.mark("gcn_inference")
 
-        t = time.perf_counter()
         if len(images) * H * W <= _batch_budget():
             masks = grabcut_batch_device(rgbs, trimaps, self.gc_config)
         else:
-            masks = torch.as_tensor(run_batch_with_trimaps(
-                np.stack(images), trimaps.cpu().numpy(), self.gc_config,
-                device=dev), device=dev)
-        stage_done("grabcut", t)
+            with trace_span("layer.grabcut"):
+                masks = torch.as_tensor(run_batch_with_trimaps(
+                    np.stack(images), trimaps.cpu().numpy(), self.gc_config,
+                    device=dev), device=dev)
+        clock.mark("grabcut")
 
-        t = time.perf_counter()
         packed = _post_stage_device(masks, trimaps, segments,
                                     float(min_area_ratio * H * W),
                                     keep_largest, want_segments, pfg_px)
-        stage_done("postprocess", t)
+        clock.mark("postprocess")
         return {"packed": packed, "probs": probs, "images": images,
                 "H": H, "W": W, "want_segments": want_segments,
-                "timing": timing}
+                "clock": clock}
 
     def _finalize_batch(self, handle) -> list[SegmentationResult]:
         """Pull the packed buffer (the one device-to-host transfer) and
         assemble SegmentationResults."""
-        timing = dict(handle["timing"])
-        t = time.perf_counter()
-        packed = handle["packed"].cpu().numpy()
-        probs = handle["probs"].cpu().numpy()
-        masks_np, trimaps_np, segments_np = _unpack_post_host(
-            packed, handle["H"], handle["W"], handle["want_segments"])
-        timing["postprocess"] = timing.get("postprocess", 0.0) + (
-            time.perf_counter() - t)
+        with trace_span("layer.finalize"):
+            t = time.perf_counter()
+            with trace_span("layer.finalize.pull"):
+                packed = handle["packed"].cpu().numpy()
+                probs = handle["probs"].cpu().numpy()
+                # The batch's events have passed: reading them never waits.
+                timing = handle["clock"].seconds()
+            with trace_span("layer.finalize.unpack"):
+                masks_np, trimaps_np, segments_np = _unpack_post_host(
+                    packed, handle["H"], handle["W"],
+                    handle["want_segments"])
+            timing["postprocess"] += time.perf_counter() - t
 
-        results = []
-        tint = np.array([0, 220, 100], np.float32)
-        for b, image in enumerate(handle["images"]):
-            mask = masks_np[b]
-            binary = mask[..., None].astype(np.float32)
-            overlay = np.clip(image * (1 - 0.45 * binary)
-                              + tint * 0.45 * binary, 0, 255).astype(np.uint8)
-            rgba = np.concatenate([image, (mask * 255)[..., None]],
-                                  axis=-1).astype(np.uint8)
-            results.append(SegmentationResult(
-                image=image, binary_mask=mask, trimap=trimaps_np[b],
-                segments=None if segments_np is None else segments_np[b],
-                overlay=overlay, rgba=rgba, timing=dict(timing),
-                probs=probs[b]))
-        return results
+            with trace_span("layer.finalize.compose"):
+                results = []
+                tint = np.array([0, 220, 100], np.float32)
+                for b, image in enumerate(handle["images"]):
+                    mask = masks_np[b]
+                    binary = mask[..., None].astype(np.float32)
+                    overlay = np.clip(image * (1 - 0.45 * binary)
+                                      + tint * 0.45 * binary, 0, 255
+                                      ).astype(np.uint8)
+                    rgba = np.concatenate([image, (mask * 255)[..., None]],
+                                          axis=-1).astype(np.uint8)
+                    results.append(SegmentationResult(
+                        image=image, binary_mask=mask, trimap=trimaps_np[b],
+                        segments=(None if segments_np is None
+                                  else segments_np[b]),
+                        overlay=overlay, rgba=rgba, timing=dict(timing),
+                        probs=probs[b]))
+                return results
 
     def segment_bbox(self, image: np.ndarray,
                      bbox: tuple[int, int, int, int]) -> SegmentationResult:

@@ -1,10 +1,53 @@
-"""Shared utilities: stage timing and torch.profiler integration.
+"""Tracing: named spans on the profiler's clock, and a profiler wrapper.
 
-Counterpart of ``gcn_grabcut_tpu/utils.py`` (``StageTimer``,
-``profile_trace``, ``trace_span``): wrap any region in ``profile_trace``
-and open the Chrome-trace JSON it writes in Perfetto
-(https://ui.perfetto.dev) or ``chrome://tracing``, or annotate hot spans
-with ``trace_span`` so they show up in the timeline.
+Counterpart of ``gcn_grabcut_tpu/utils.py`` (``profile_trace``,
+``trace_span``): wrap any region in ``profile_trace`` and open the
+Chrome-trace JSON it writes in Perfetto (https://ui.perfetto.dev) or
+``chrome://tracing``.
+
+`trace_span(name)` is the program's one way to open a span.  While a
+torch profiler records (`tracing()`), it opens
+``torch.profiler.record_function(name)``: the span sits on the profiler's
+own clock, the device work launched inside it links to it by correlation
+id, and an idle gap of the card can be labelled by the innermost span
+open on the host.  Otherwise it returns one shared null context, so a
+span costs a flag read.  Tracing has no switch of its own: it is on
+exactly while a torch profiler records.
+
+The spans of the batched path (`GCNGrabCutPipeline._dispatch_batch`,
+`_finalize_batch` and what they call); indented names open inside the
+name above them, and spans under one parent do not overlap:
+
+    layer.upload               np.stack, the host-to-device copy and .float()
+                               of the batch
+    layer.build                graph_build.build_graph_batch_arrays
+      layer.build.slic         Lab conversion, blur, SLIC iterations
+      layer.build.connectivity kernel A (ops.slic.repair_connectivity)
+      layer.build.regions      HSV, gradient, region statistics, node
+                               features
+      layer.build.edges        adjacency, non-local pairs, pair features,
+                               symmetrise
+      layer.build.prior        compute_auto_prior (the geodesic relaxation)
+    layer.forward              GCNGrabCutPipeline._predict_probs_batch
+    layer.project              each _project_probs_device, the resize to a
+                               reduced scale, the average of the scales
+    layer.trimap               rgb_to_gray and _trimap_stage_device
+    layer.grabcut              grabcut.grabcut_batch_device (and the
+                               image-by-image solve above its budget)
+      layer.grabcut.kmeans     _initial_components
+      layer.grabcut.caps       _pairwise_caps and the fresh residuals
+      layer.grabcut.gmm        assign_components, fit_gmm, gmm_log_prob
+                               and the terminal capacities
+      layer.mincut             ops.maxflow.grid_mincut_batch
+    layer.cleanup              pipeline._post_stage_device
+    layer.finalize             GCNGrabCutPipeline._finalize_batch
+      layer.finalize.pull      the device-to-host copies: the batch's one
+                               wait for the card
+      layer.finalize.unpack    _unpack_post_host
+      layer.finalize.compose   the overlay, the RGBA and the results
+
+While a profiler records, ``ops.maxflow.counts`` also records every
+min-cut solve (its kernel's tallies copied behind it, with no sync).
 
 The JAX package's ``setup_compilation_cache`` is not ported: it points
 XLA's persistent compilation cache at a directory, and the port compiles
@@ -15,26 +58,30 @@ nothing at run time but its own kernels, which ``kernels.py`` and
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from pathlib import Path
 from typing import Iterator, Optional
 
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
-class StageTimer:
-    """Accumulates named wall-clock stage timings (pipeline-style dict)."""
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self) -> None:
-        self.timing: dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timing[name] = self.timing.get(name, 0.0) + (
-                time.perf_counter() - t0)
+def tracing() -> bool:
+    """Whether a torch profiler records now (torch's own flag, which
+    ``torch.profiler.profile`` sets while it runs)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def trace_span(name: str):
+    """A context that opens the span `name` while a profiler records, else
+    a shared null context (the span table: the module docstring)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -43,7 +90,11 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
 
     Records host activity, and the card's kernels and copies when CUDA is
     available; on exit writes ``<log_dir>/trace_<pid>_<ns>.pt.trace.json``
-    in the Chrome trace format, which Perfetto opens.
+    in the Chrome trace format, which Perfetto opens, and beside it
+    ``trace_<pid>_<ns>.mincut.json``: the min-cut solves launched in the
+    region, summed (``ops.maxflow.SolverCounts.totals``: solves, rounds,
+    relabel steps, grid barriers, tiles swept, tiles relaxed, host syncs).
+    The counts are cleared on entry.
     """
     if log_dir is None:
         yield
@@ -51,24 +102,20 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from .ops.maxflow import counts
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     prof = profile(activities=activities)
+    counts.clear()
     prof.start()
     try:
         yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(str(
-            log_dir / f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
-
-
-@contextlib.contextmanager
-def trace_span(name: str) -> Iterator[None]:
-    """Named span in the profiler timeline (record_function)."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+        stem = log_dir / f"trace_{os.getpid()}_{time.time_ns()}"
+        prof.export_chrome_trace(f"{stem}.pt.trace.json")
+        Path(f"{stem}.mincut.json").write_text(json.dumps(counts.totals()))

@@ -126,6 +126,38 @@ def test_segment_batch_on_card_matches_cpu(cuda):
     assert 0.0 < on_card[0].binary_mask.mean() < 1.0
 
 
+def test_segment_batch_times_its_stages_by_events(cuda, monkeypatch):
+    """On the card a batch's stage times come from CUDA events read after
+    the pull: `_dispatch_batch` calls no synchronize, and the four stages
+    fit inside the batch's wall time."""
+    import time
+    r = np.random.RandomState(3)
+    imgs = [(r.rand(96, 96, 3) * 255).astype(np.uint8) for _ in range(2)]
+    pipe = gt.GCNGrabCutPipeline(
+        gt.ResGCNNet(hidden_channels=16, n_layers=2,
+                     generator=torch.Generator().manual_seed(1)),
+        gt.SuperpixelGraphConfig(n_segments=100), device=cuda)
+    pipe.segment_batch(imgs)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host sync in _dispatch_batch")
+
+    t = time.perf_counter()
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "synchronize", refuse)
+        handle = pipe._dispatch_batch(
+            imgs, threshold_fg=0.55, threshold_bg=0.55,
+            min_area_ratio=0.002, keep_largest=False, filter_radius=8,
+            want_segments=True)
+    timing = pipe._finalize_batch(handle)[0].timing
+    wall = time.perf_counter() - t
+    assert list(timing) == ["graph_build", "gcn_inference", "grabcut",
+                            "postprocess"]
+    assert all(v > 0 for v in timing.values())
+    assert sum(timing.values()) <= wall
+
+
 def test_dense_ensemble_path_on_card_matches_cpu(cuda):
     """The recommended configuration (3-seed bgc ensemble, 500 superpixels,
     geodesic prior, ms_scales (1.0, 0.75)) at 128 px (K = 484) on the card

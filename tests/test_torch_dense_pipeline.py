@@ -85,7 +85,7 @@ def runs():
         tmodel, gt.SuperpixelGraphConfig(n_segments=500,
                                          bg_connectivity=True),
         device="cpu")
-    tres = pipe.segment_batch(images, sync_timing=True, **kw)
+    tres = pipe.segment_batch(images, **kw)
     # keep_largest gates components by the scale-averaged P(FG).
     jkeep = JaxPipeline(jmodel, jvars, jcfg).segment_batch(
         images, keep_largest=True, **kw)

@@ -52,7 +52,7 @@ def runs():
     pipe = gt.GCNGrabCutPipeline(
         gt.resgcn_from_jax(variables),
         gt.SuperpixelGraphConfig(n_segments=N_SEGMENTS), device="cpu")
-    tres = pipe.segment_batch([img], sync_timing=True)[0]
+    tres = pipe.segment_batch([img])[0]
     return img, graph, jres, jprobs, tres
 
 

@@ -1,6 +1,6 @@
 """Port parity for the tooling: gcn_grabcut_torch.config (the config
 tests of tests/test_config_hints.py against the port, and files written
-by either package read by the other), utils (StageTimer, profile_trace on
+by either package read by the other), utils (profile_trace on
 torch.profiler, trace_span) and visualise (the five plots, and the cv2
 report grid byte for byte against the JAX package's).  64 px arrays.
 """
@@ -93,18 +93,6 @@ def test_config_files_cross_packages(tmp_path, suffix, writer, reader):
     loaded = reader.load(tmp_path / f"cfg{suffix}")
     assert loaded.to_dict() == written.to_dict()
     assert loaded.train.class_weights == (1.0, 2.0, 3.0)
-
-
-def test_stage_timer_accumulates():
-    timer = utils.StageTimer()
-    for _ in range(2):
-        with timer.stage("a"):
-            pass
-    with pytest.raises(ValueError):
-        with timer.stage("b"):
-            raise ValueError
-    assert set(timer.timing) == {"a", "b"}
-    assert all(v >= 0.0 for v in timer.timing.values())
 
 
 def test_profile_trace_none_is_a_no_op(tmp_path, monkeypatch):
