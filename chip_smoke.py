@@ -214,6 +214,15 @@ Phases, each of which exits non-zero on failure:
      (torch.cuda.set_sync_debug_mode("error")); the dense B=8
      graph_build and images/s and serving's requests/s beside the
      per-image build's figures.
+ 18. GrabCut's colour models (csrc/gmm_passes.cu: the k-means, the fits,
+     the scores and the terminal energy as passes over the pixels) at the
+     main path's shapes, 8 x 512^2 and 1 x 1536^2 (RGB, k = 5): a solve's
+     k-means and five iterations against the plain steps on the card, bit
+     for bit; a whole solve's colour models timed both ways (the passes
+     counted: 27 launches); each pass kind's ms beside its bytes bound and
+     the plain steps' ms, and the float64 cuBLAS GEMM of one fit's x x^T
+     sums (the yardstick).  The main path's timed run (phase 6) counts the
+     passes GrabCut launched there: 27, one lock-step solve.
 The fp32 training steps on the card (phases 8 and 9) and the data-parallel
 and solo steps of phase 11 each run twice and fail unless the two are
 bit-identical.
@@ -226,8 +235,8 @@ import (information only; visualise draws with cv2 without matplotlib).
 Kernel times are device times: the launches run back to back behind a
 device sleep, so the host's launch cost is not counted.
 The last lines are the kernels' JSON record (K1, K2, K3, the segment sum,
-the min-cut, whose record adds its barrier floor, the connectivity kernel
-and the mask components kernel), the card's name and
+the min-cut, whose record adds its barrier floor, the connectivity kernel,
+the mask components kernel and the colour-model passes), the card's name and
 power limit, and {"ok": true, "device": {...}}.  Needs CUDA; imports nothing of
 JAX.
 """
@@ -1297,10 +1306,12 @@ def graph_on_card(imgs: list, cfg, dev):
 
 
 def run_main_path(dev, record: dict, seg_record: dict,
-                  cut_record: dict, build_records: dict) -> None:
+                  cut_record: dict, build_records: dict,
+                  gmm_record: dict) -> None:
     import gcn_grabcut_torch as gt
     from gcn_grabcut_torch.graph_build import num_nodes_for
     from gcn_grabcut_torch.models.large import apply_large
+    from gcn_grabcut_torch.ops import gmm
     from gcn_grabcut_torch.ops.connected import connected_components_cuda
     from gcn_grabcut_torch.ops.maxflow import grid_mincut_cuda
     from gcn_grabcut_torch.ops.slic import repair_connectivity_cuda
@@ -1325,9 +1336,11 @@ def run_main_path(dev, record: dict, seg_record: dict,
     grid_mincut_cuda.kernel_launches = 0
     repair_connectivity_cuda.kernel_launches = 0
     connected_components_cuda.kernel_launches = 0
+    gmm.CardPasses.kernel_launches = 0
     t = time.perf_counter()
     res = pipe.segment_batch([img])[0]
     wall = time.perf_counter() - t
+    gmm_launches = gmm.CardPasses.kernel_launches
     launches = banded_spmm.kernel_launches
     seg_launches = segment_sum.kernel_launches
     cut_launches = grid_mincut_cuda.kernel_launches
@@ -1338,6 +1351,7 @@ def run_main_path(dev, record: dict, seg_record: dict,
     cut_record["launches"] = cut_launches
     build_records["slic_connectivity"]["launches"] = repair_launches
     build_records["mask_components"]["launches"] = cc_launches
+    gmm_record["launches"] = gmm_launches
     stages = " ".join(f"{s}={v:.3f}s" for s, v in res.timing.items())
     fg = float(res.binary_mask.mean())
     tri = np.bincount(res.trimap.ravel(), minlength=4) / res.trimap.size
@@ -1346,7 +1360,8 @@ def run_main_path(dev, record: dict, seg_record: dict,
           f"banded_spmm launches={launches}, segment_sum launches="
           f"{seg_launches}, grid_mincut launches={cut_launches}, "
           f"slic_connectivity launches={repair_launches}, mask_components "
-          f"launches={cc_launches}; trimap "
+          f"launches={cc_launches}, gmm_passes launches={gmm_launches}; "
+          f"trimap "
           f"BG/FG/PR_BG/PR_FG="
           f"{'/'.join(f'{v:.3f}' for v in tri)}; FG fraction={fg:.4f}",
           flush=True)
@@ -1359,6 +1374,12 @@ def run_main_path(dev, record: dict, seg_record: dict,
     if cut_launches != n_iter:
         fail(f"the main path launched the min-cut kernel {cut_launches} "
              f"times, expected {n_iter} (one per GrabCut iteration)")
+    gc_cfg = gt.grabcut.GrabCutConfig()
+    solve_passes = gmm_solve_passes(gc_cfg.n_components, gc_cfg.n_iter)
+    if gmm_launches != sum(solve_passes.values()):
+        fail(f"the main path launched the colour-model passes "
+             f"{gmm_launches} times, expected {sum(solve_passes.values())} "
+             f"(one lock-step solve)")
     if (repair_launches, cc_launches) != (1, 1):
         fail(f"the main path launched the connectivity kernel "
              f"{repair_launches} times and the components kernel "
@@ -4192,6 +4213,214 @@ def run_build_kernels(dev, card: str, records: dict,
         "library_ms": None})
 
 
+# Bytes a pixel each colour-model pass must move (csrc/gmm_passes.cu): the
+# pixels (12) and the class plane (1); DRAW two noise planes (8), LABELS
+# and FIT the int64 labels (8), TERMINAL e_carry, E_prev, E_t and the
+# excess (16).  ASSIGN writes its labels (8 more) on the last iteration
+# only.
+GMM_PASS_BYTES = {"seed": 1, "draw": 21, "lloyd": 13, "labels": 21,
+                  "fit": 21, "assign": 13, "terminal": 29}
+
+
+def gmm_solve_passes(k: int, n_iter: int) -> dict:
+    """The colour-model passes of one lock-step solve by kind: the seeded
+    k-means (a seed pass, k - 1 draws, the Lloyd steps, the labels), the
+    first fit, and an assign and a terminal pass an iteration."""
+    from gcn_grabcut_torch.ops import gmm
+    return {"seed": 1, "draw": k - 1, "lloyd": gmm.KMEANS_STEPS,
+            "labels": 1, "fit": 1, "assign": n_iter, "terminal": n_iter}
+
+
+def gmm_case(B: int, hw: int, seed: int):
+    """B textured hw^2 images (RGB, float32 on the card) and trimaps round
+    each one's disc: FG inside, PR_FG round it, PR_BG beyond, BG at the
+    border."""
+    imgs = np.stack([textured_image(hw, seed + b) for b in range(B)])
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    d = np.hypot(yy - hw // 2, xx - int(hw * 0.47)) / (hw // 4)
+    tri = np.full((hw, hw), 2, np.uint8)
+    tri[d < 1.3] = 3
+    tri[d < 0.6] = 1
+    edge = hw // 16
+    tri[:edge] = tri[-edge:] = tri[:, :edge] = tri[:, -edge:] = 0
+    pix = torch.as_tensor(imgs, device="cuda").float()
+    return pix, torch.as_tensor(np.stack([tri] * B), device="cuda")
+
+
+def run_gmm_passes(dev, card: str, record: dict) -> None:
+    """The colour-model passes (csrc/gmm_passes.cu) at the main path's
+    shapes, 8 x 512^2 and 1 x 1536^2 (RGB, k = 5), into `record`: a
+    lock-step solve's k-means and five iterations against the plain steps
+    on the card, bit for bit (labels, every fit, the components and E_t
+    and the excess of each iteration, given the same carried excess); the
+    whole solve's colour models timed both ways, its passes counted; then
+    each pass kind's device ms, launched alone on the state a solve left,
+    beside its bytes bound at 3.35 TB/s and the plain steps' ms for the
+    same work, and the float64 cuBLAS GEMM of one fit's x x^T sums (the
+    yardstick the port no longer calls)."""
+    from gcn_grabcut_torch.ops import gmm
+    k, lam, n_iter = 5, 450.0, 5
+    solve_passes = gmm_solve_passes(k, n_iter)
+    record.update(kernel="gmm_passes", card=card, shapes={})
+    for B, hw in ((8, DENSE_HW), (1, IMAGE_HW)):
+        pix, tri = gmm_case(B, hw, seed=40)
+        fg = (tri == 1) | (tri == 3)
+        n = B * hw * hw
+        real_on_card = gmm._on_card
+        r = np.random.RandomState(3)
+        energies = [[torch.as_tensor(r.randn(B, hw, hw).astype(np.float32)
+                                     * 100, device=dev) for _ in range(2)]
+                    for _ in range(n_iter)]
+
+        def solve(keep: bool):
+            """class_components, the first fit and n_iter x (refit,
+            terminal), as _iterate runs them; with `keep` every output."""
+            comp = gmm.class_components(pix, fg, k)
+            models = gmm.ColourModels(pix, k)
+            models.fit(tri, comp)
+            out = [comp]
+            if keep:
+                out += [models.gmm(c)[name].clone() for c in (0, 1)
+                        for name in ("weights", "means", "inv_cov",
+                                     "log_norm")]
+            for it in range(n_iter):
+                assigned = models.refit(tri, want_comp=it == n_iter - 1)
+                terminal = models.terminal(tri, lam, *energies[it])
+                if keep:
+                    if it == n_iter - 1:
+                        out.append(assigned)
+                    out += list(terminal)
+                    out += [models.gmm(c)["log_norm"].clone()
+                            for c in (0, 1)]
+            return out
+
+        def plain_steps(fn):
+            gmm._on_card = lambda t: False
+            try:
+                return fn()
+            finally:
+                gmm._on_card = real_on_card
+
+        got = solve(True)
+        want = plain_steps(lambda: solve(True))
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not same_bits(a, b)]
+        n_out = len(got)
+        if bad or n_out != len(want):
+            fail(f"gmm passes at B={B} {hw}^2: outputs {bad} of {n_out} "
+                 f"differ from the plain steps")
+        del got, want
+
+        # The whole solve's colour models, timed and counted.
+        before = gmm.CardPasses.kernel_launches
+        solve(False)
+        solve_launches = gmm.CardPasses.kernel_launches - before
+        if solve_launches != sum(solve_passes.values()):
+            fail(f"a solve launched {solve_launches} colour-model passes, "
+                 f"expected {sum(solve_passes.values())}")
+        solve_ms = time_ms(lambda: solve(False), reps=10, warmup=2)
+        solve_plain = plain_steps(lambda: time_ms(lambda: solve(False),
+                                                  reps=3, warmup=1))
+
+        # Each pass kind alone on a state a solve left (each launch redoes
+        # its own work on the model it finds).
+        run = gmm.CardPasses(pix, k)
+        cls, mask = run._cls(fg), run._cls(tri)
+        noise = tuple(gmm.device_noise(s, hw * hw, k - 1, pix.device)
+                      for s in gmm.KMEANS_SEEDS)
+        labels = torch.empty((B, hw, hw), dtype=torch.int64, device=dev)
+        e = [torch.zeros((B, hw, hw), device=dev) for _ in range(4)]
+        run.launch(gmm.SEED, cls)
+        for i in range(k - 1):
+            run.launch(gmm.DRAW, cls, step=i, draws=k - 1, noise=noise)
+        for _ in range(gmm.KMEANS_STEPS):
+            run.launch(gmm.LLOYD, cls)
+        run.launch(gmm.LABELS, cls, comp_out=labels)
+        run.launch(gmm.FIT, mask, comp_in=labels)
+        launches = {
+            "seed": lambda: run.launch(gmm.SEED, cls),
+            "draw": lambda: run.launch(gmm.DRAW, cls, step=k - 2,
+                                       draws=k - 1, noise=noise),
+            "lloyd": lambda: run.launch(gmm.LLOYD, cls),
+            "labels": lambda: run.launch(gmm.LABELS, cls, comp_out=labels),
+            "fit": lambda: run.launch(gmm.FIT, mask, comp_in=labels),
+            "assign": lambda: run.launch(gmm.ASSIGN, mask),
+            "terminal": lambda: run.launch(gmm.TERMINAL, mask, e_carry=e[0],
+                                           e_prev=e[1], e_t=e[2],
+                                           excess=e[3], lam=lam)}
+
+        # The plain steps of the same work (both classes each).
+        flat = pix.reshape(B, -1, 3)
+        w = fg.reshape(B, -1).float()
+        ws = (w, 1.0 - w)
+        cen = [torch.rand((B, k, 3), device=dev) * 255 for _ in range(2)]
+        fit = gmm.fit_gmm(pix, fg.float(), labels, k)
+        xx = (flat[..., :, None] * flat[..., None, :]).reshape(B, -1, 9)
+        onehot = torch.nn.functional.one_hot(labels.reshape(B, -1), k
+                                             ).float() * w[..., None]
+
+        inactive = torch.where(torch.arange(k, device=dev) <= k - 2, 0.0,
+                               float("inf"))
+
+        def plain_draw():
+            for c in (0, 1):
+                d2 = (gmm._sq_dist(flat, cen[c]) + inactive).amin(dim=-1)
+                logits = torch.log((ws[c] * d2).clamp_min(1e-30))
+                gmm._rows(flat, torch.argmax(logits + noise[c][k - 2], 1))
+
+        def plain_lloyd():
+            for c in (0, 1):
+                lab = torch.argmin(gmm._sq_dist(flat, cen[c]), dim=-1)
+                oh = torch.nn.functional.one_hot(lab, k).float() \
+                    * ws[c][..., None]
+                tot, cnt = gmm._pixel_matmul(oh, flat), \
+                    gmm._pixel_sum(oh)[..., None]
+                torch.where(cnt > 0, tot / cnt.clamp_min(1e-6), cen[c])
+
+        plain = {
+            "seed": lambda: [gmm._rows(flat, torch.argmax(v, 1))
+                             for v in ws],
+            "draw": plain_draw,
+            "lloyd": plain_lloyd,
+            "labels": lambda: torch.where(fg.reshape(B, -1), *[
+                torch.argmin(gmm._sq_dist(flat, c), dim=-1) for c in cen]),
+            "fit": lambda: [gmm.fit_gmm(pix, v.reshape(B, hw, hw), labels,
+                                        k) for v in ws],
+            "assign": lambda: [gmm.fit_gmm(pix, v.reshape(B, hw, hw),
+                                           gmm.assign_components(pix, fit),
+                                           k) for v in ws],
+            "terminal": lambda: e[0] + (torch.where(
+                tri == 1, lam, torch.where(tri == 0, -lam, (
+                    gmm.gmm_log_prob(pix, fit) - gmm.gmm_log_prob(pix, fit)
+                ).clamp(-lam, lam))) - e[1])}
+        rows = {}
+        for kind in gmm.PASS_KINDS:
+            ms = time_ms(launches[kind])
+            bound = GMM_PASS_BYTES[kind] * n / PEAK_BYTES_S * 1e3
+            rows[kind] = {"ms": round(ms, 4), "bound_ms": round(bound, 4),
+                          "plain_ms": round(time_ms(plain[kind], reps=5,
+                                                    warmup=1), 4)}
+        library = time_ms(lambda: gmm._pixel_matmul(onehot, xx))
+        solve_bound = sum(solve_passes[kd] * rows[kd]["bound_ms"]
+                          for kd in rows)
+        record["shapes"][f"B{B}x{hw}"] = dict(
+            passes=rows, library_ms=round(library, 4),
+            solve_ms=round(solve_ms, 4), solve_bound_ms=round(solve_bound, 4),
+            solve_plain_ms=round(solve_plain, 4),
+            solve_launches=solve_launches,
+            chunks=dict(zip(gmm.PASS_KINDS, run.chunks)))
+        print(f"gmm passes B={B} {hw}^2 (k=5, RGB; {card}): bit for bit "
+              f"with the plain steps ({n_out} outputs); a "
+              f"solve's colour models {solve_ms:.4f} ms, {solve_launches} "
+              f"launches (bound {solve_bound:.4f}; plain steps "
+              f"{solve_plain:.4f}); each pass kind alone, ms (bound, plain): "
+              + ", ".join(f"{kd} {r['ms']} ({r['bound_ms']}, {r['plain_ms']})"
+                          for kd, r in rows.items())
+              + f"; float64 GEMM of one fit's x x^T sums {library:.4f}",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -4242,8 +4471,9 @@ def main() -> None:
     del seg_arrays
     cut_record = {}
     build_records = {"slic_connectivity": {}, "mask_components": {}}
+    gmm_record = {}
     main_image = timed("main path", run_main_path, dev, record, seg_record,
-                       cut_record, build_records)
+                       cut_record, build_records, gmm_record)
     timed("sharded", run_sharded_path, dev, rings, k)
     dense = timed("dense", run_dense_path, dev, card)
     timed("keep-largest", check_keep_largest_repeats, dev)
@@ -4267,6 +4497,7 @@ def main() -> None:
           main_image, dense)
     timed("build kernels", run_build_kernels, dev, card, build_records,
           serving_rps)
+    timed("gmm passes", run_gmm_passes, dev, card, gmm_record)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in phase_s.items()),
           flush=True)
@@ -4274,7 +4505,8 @@ def main() -> None:
     print(json.dumps({"kernels": [record, rings["K2"], rings["K3"],
                                   seg_record, cut_record,
                                   build_records["slic_connectivity"],
-                                  build_records["mask_components"]]}))
+                                  build_records["mask_components"],
+                                  gmm_record]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

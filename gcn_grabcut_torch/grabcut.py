@@ -7,7 +7,9 @@ every pixel its best component under the carried GMMs, re-fit both
 min-cut and relabel the probable pixels.  The device solver resumes each
 cut from the previous flow (flow recycling); the "native" backend keeps
 the GMM steps on the device and solves each cut on the host with the C++
-push-relabel (``native/``).
+push-relabel (``native/``).  The colour-model steps go through
+``ops.gmm``'s two wrappers, `class_components` and `ColourModels`: plain
+PyTorch on the CPU, the passes of ``csrc/gmm_passes.cu`` on the card.
 
 `grabcut_batch_device` is the batched core of ``segment_batch``: the
 batch's images iterate in lock step, as (B, H, W) tensors, each min-cut
@@ -91,11 +93,6 @@ def _pairwise_caps(pix: torch.Tensor, gamma: float):
     return caps, beta
 
 
-def _class_masks(m: torch.Tensor):
-    fg = (m == TRIMAP_FG) | (m == TRIMAP_PROB_FG)
-    return fg.float(), (~fg).float()
-
-
 def _iterate(pix: torch.Tensor, mask: torch.Tensor, comp0: torch.Tensor,
              gamma: float, n_iter: int, n_components: int,
              ml_levels: int = 0):
@@ -112,29 +109,22 @@ def _iterate(pix: torch.Tensor, mask: torch.Tensor, comp0: torch.Tensor,
     lam = 9.0 * gamma
 
     with trace_span("layer.grabcut.gmm"):
-        fg_sel, bg_sel = _class_masks(mask)
-        fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp0, n_components)
-        bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp0, n_components)
+        models = gmm_ops.ColourModels(pix, n_components)
+        models.fit(mask, comp0)
         e_carry = torch.zeros_like(pix[..., 0])
         E_prev = torch.zeros_like(pix[..., 0])
     comp = comp0
-    for _ in range(n_iter):
+    for it in range(n_iter):
         with trace_span("layer.grabcut.gmm"):
-            fg_sel, bg_sel = _class_masks(mask)
-            # cv2 order: assign under the carried GMMs, then one re-fit.
-            comp = torch.where(fg_sel > 0,
-                               gmm_ops.assign_components(pix, fg_gmm),
-                               gmm_ops.assign_components(pix, bg_gmm))
-            fg_gmm = gmm_ops.fit_gmm(pix, fg_sel, comp, n_components)
-            bg_gmm = gmm_ops.fit_gmm(pix, bg_sel, comp, n_components)
-
-            # Terminal capacities: excess = fromSource - toSink, source = FG.
-            unknown = (gmm_ops.gmm_log_prob(pix, fg_gmm)
-                       - gmm_ops.gmm_log_prob(pix, bg_gmm)).clamp(-lam, lam)
-            E_t = torch.where(mask == TRIMAP_FG, lam,
-                              torch.where(mask == TRIMAP_BG, -lam, unknown))
-            # Flow recycling: add the terminal delta to the carried excess.
-            excess = e_carry + (E_t - E_prev)
+            # cv2 order: assign under the carried GMMs, then one re-fit;
+            # only the last iteration's components are returned.
+            last = it == n_iter - 1
+            assigned = models.refit(mask, want_comp=last)
+            if last:
+                comp = assigned
+            # Terminal capacities: excess = fromSource - toSink, source = FG;
+            # flow recycling adds the terminal delta to the carried excess.
+            E_t, excess = models.terminal(mask, lam, e_carry, E_prev)
         if ml_levels > 0:
             fg_side = torch.stack([
                 grid_mincut_multilevel(E_t[b], tuple(c[b] for c in caps),
@@ -190,26 +180,20 @@ def _grabcut_solve_native(pix: torch.Tensor, mask: np.ndarray,
     lam = 9.0 * gamma
     mask = np.array(mask, np.uint8)
 
-    def fg_of(m):
-        return torch.as_tensor((m == TRIMAP_FG) | (m == TRIMAP_PROB_FG),
-                               device=pix.device).float()
+    def on_device(m):
+        return torch.as_tensor(m, device=pix.device)[None]
 
     comp = comp0
-    fg = fg_of(mask)
-    fg_gmm = gmm_ops.fit_gmm(pix, fg, comp, n_components)
-    bg_gmm = gmm_ops.fit_gmm(pix, 1.0 - fg, comp, n_components)
-    for _ in range(n_iter):
-        fg = fg_of(mask)
+    models = gmm_ops.ColourModels(pix[None], n_components)
+    models.fit(on_device(mask), comp[None])
+    for it in range(n_iter):
+        m = on_device(mask)
         # cv2 order: assign under the carried GMMs, then one re-fit.
-        comp = torch.where(fg > 0, gmm_ops.assign_components(pix, fg_gmm),
-                           gmm_ops.assign_components(pix, bg_gmm))
-        fg_gmm = gmm_ops.fit_gmm(pix, fg, comp, n_components)
-        bg_gmm = gmm_ops.fit_gmm(pix, 1.0 - fg, comp, n_components)
-        excess = (gmm_ops.gmm_log_prob(pix, fg_gmm)
-                  - gmm_ops.gmm_log_prob(pix, bg_gmm)).clamp(-lam, lam
-                                                             ).cpu().numpy()
-        excess[mask == TRIMAP_FG] = lam
-        excess[mask == TRIMAP_BG] = -lam
+        last = it == n_iter - 1
+        assigned = models.refit(m, want_comp=last)
+        if last:
+            comp = assigned[0]
+        excess = models.terminal(m, lam)[0][0].cpu().numpy()
         fg_side = native.grid_mincut_native(excess, caps_np, connectivity=8)
         probable = (mask == TRIMAP_PROB_BG) | (mask == TRIMAP_PROB_FG)
         mask[probable & fg_side] = TRIMAP_PROB_FG
@@ -250,9 +234,7 @@ def _initial_components(pix: torch.Tensor, fg_sel: torch.Tensor, k: int
                         ) -> torch.Tensor:
     """initGMMs: seeded k-means per class (seeds 0 / 1)."""
     with trace_span("layer.grabcut.kmeans"):
-        fg_comp = gmm_ops.kmeans(pix, fg_sel.float(), k, seed=0)
-        bg_comp = gmm_ops.kmeans(pix, (~fg_sel).float(), k, seed=1)
-        return torch.where(fg_sel, fg_comp, bg_comp)
+        return gmm_ops.class_components(pix, fg_sel, k)
 
 
 def grabcut_batch_device(rgb: torch.Tensor, trimaps: torch.Tensor,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import trace_span, tracing
+from ..utils import Recorder, trace_span
 
 # Undirected lattice directions: the offset (dy, dx) from p to the
 # neighbour "ahead" of it (cv2.grabCut's left / up / up-left / up-right).
@@ -81,14 +81,12 @@ def _resolve_params(H, W, connectivity, relabel_iters):
     return offsets, relabel_iters
 
 
-class SolverCounts:
+class SolverCounts(Recorder):
     """The device solver's work: per call, each image's outer rounds and
     push sweeps; in all, the global relabel's relaxation steps (each over
     the call's whole working set) and the host syncs.  A solve is recorded
-    after `reset()` (which clears what was recorded and records every
-    solve from then on) and, without it, while a torch profiler records
-    (`utils.tracing()`), so a traced window holds the solves launched in
-    it.  Otherwise nothing is kept, and a kernel solve takes no pinned
+    as `utils.Recorder` says: after `reset()` and while a torch profiler
+    records.  Otherwise nothing is kept, and a kernel solve takes no pinned
     copy and no event.  `syncs`, the plain version's host syncs, is a
     plain counter.  The plain version tallies on the host as it solves.  A
     kernel solve's tallies are copied behind it into pinned host memory,
@@ -97,10 +95,6 @@ class SolverCounts:
     (waiting then), so the solve itself does not sync and no device
     memory is kept."""
 
-    def __init__(self):
-        self.recording = False
-        self._clear()
-
     def _clear(self) -> None:
         # Per call: [rounds (B,) numpy, push sweeps per round, relabel
         # steps, the kernel's tally (`kernel_tally` and its grid) or None].
@@ -108,20 +102,6 @@ class SolverCounts:
         # Kernel solves not yet read: (call, host ctrl, event).
         self._pending: list = []
         self.syncs = 0
-
-    def reset(self) -> None:
-        """Clear the counts and record every solve from now on."""
-        self._clear()
-        self.recording = True
-
-    def clear(self) -> None:
-        """Clear the counts; whether solves are recorded stays as it was."""
-        self._clear()
-
-    @property
-    def active(self) -> bool:
-        """Whether a solve launched now is recorded."""
-        return self.recording or tracing()
 
     def _record(self, rounds, n_sweeps: int, relabel_steps: int) -> None:
         if self.active:

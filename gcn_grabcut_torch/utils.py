@@ -34,10 +34,12 @@ name above them, and spans under one parent do not overlap:
     layer.trimap               rgb_to_gray and _trimap_stage_device
     layer.grabcut              grabcut.grabcut_batch_device (and the
                                image-by-image solve above its budget)
-      layer.grabcut.kmeans     _initial_components
+      layer.grabcut.kmeans     _initial_components (ops.gmm's
+                               class_components)
       layer.grabcut.caps       _pairwise_caps and the fresh residuals
-      layer.grabcut.gmm        assign_components, fit_gmm, gmm_log_prob
-                               and the terminal capacities
+      layer.grabcut.gmm        ops.gmm.ColourModels: the fits, the
+                               component assignment and the terminal
+                               capacities
       layer.mincut             ops.maxflow.grid_mincut_batch
     layer.cleanup              pipeline._post_stage_device
     layer.finalize             GCNGrabCutPipeline._finalize_batch
@@ -47,7 +49,9 @@ name above them, and spans under one parent do not overlap:
       layer.finalize.compose   the overlay, the RGBA and the results
 
 While a profiler records, ``ops.maxflow.counts`` also records every
-min-cut solve (its kernel's tallies copied behind it, with no sync).
+min-cut solve (its kernel's tallies copied behind it, with no sync), and
+``ops.gmm.counts`` every colour-model pass launched (its kind and the
+images it served).
 
 The JAX package's ``setup_compilation_cache`` is not ported: it points
 XLA's persistent compilation cache at a directory, and the port compiles
@@ -84,6 +88,36 @@ def trace_span(name: str):
     return _NO_SPAN
 
 
+class Recorder:
+    """The recording policy of the program's counters
+    (``ops.maxflow.counts``, ``ops.gmm.counts``): what they count is kept
+    after `reset()` (which clears what was kept and records from then on)
+    and, without it, while a torch profiler records (`tracing()`), so a
+    traced window holds what was launched in it.  Otherwise nothing is
+    kept.  A subclass says in `_clear` what it keeps."""
+
+    def __init__(self):
+        self.recording = False
+        self._clear()
+
+    def _clear(self) -> None:
+        raise NotImplementedError
+
+    def reset(self) -> None:
+        """Clear the counts and record from now on."""
+        self._clear()
+        self.recording = True
+
+    def clear(self) -> None:
+        """Clear the counts; whether they record stays as it was."""
+        self._clear()
+
+    @property
+    def active(self) -> bool:
+        """Whether what is launched now is recorded."""
+        return self.recording or tracing()
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     """torch.profiler trace over the wrapped region (no-op when dir is None).
@@ -93,8 +127,10 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     in the Chrome trace format, which Perfetto opens, and beside it
     ``trace_<pid>_<ns>.mincut.json``: the min-cut solves launched in the
     region, summed (``ops.maxflow.SolverCounts.totals``: solves, rounds,
-    relabel steps, grid barriers, tiles swept, tiles relaxed, host syncs).
-    The counts are cleared on entry.
+    relabel steps, grid barriers, tiles swept, tiles relaxed, host syncs),
+    and ``trace_<pid>_<ns>.gmm.json``: the colour-model passes launched in
+    it (``ops.gmm.PassCounts.totals``: passes, images served, passes by
+    kind).  Both counts are cleared on entry.
     """
     if log_dir is None:
         yield
@@ -102,7 +138,7 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .ops.maxflow import counts
+    from .ops import gmm, maxflow
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -110,7 +146,8 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     prof = profile(activities=activities)
-    counts.clear()
+    maxflow.counts.clear()
+    gmm.counts.clear()
     prof.start()
     try:
         yield
@@ -118,4 +155,6 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
         prof.stop()
         stem = log_dir / f"trace_{os.getpid()}_{time.time_ns()}"
         prof.export_chrome_trace(f"{stem}.pt.trace.json")
-        Path(f"{stem}.mincut.json").write_text(json.dumps(counts.totals()))
+        Path(f"{stem}.mincut.json").write_text(
+            json.dumps(maxflow.counts.totals()))
+        Path(f"{stem}.gmm.json").write_text(json.dumps(gmm.counts.totals()))
