@@ -12,7 +12,9 @@ compiled into two `SpmmPlan`s:
 A ResGCNNet forward runs n_layers + 1 SpMMs (n_layers GCN + 1 SAGE), a
 GCNTrimapNet forward n_layers.  GATTrimapNet gets a `GatPlan` instead
 (``ops/sddmm.py``): the graph's structure in band slots, its attention
-computed banded in every layer.
+computed banded in every layer.  While a profiler records, the plan's
+build opens the span ``layer.forward.plan`` and ``ops.sddmm.counts``
+keeps the plan's edge counts.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.graph import GraphBatch
+from ..ops import sddmm
 from ..ops.region import segment_sum
 from ..ops.sddmm import GatPlan, gat_plan_device
 from ..ops.spmm import SpmmPlan, banded_spmm, spmm_plan, spmm_plan_device
+from ..utils import trace_span
 
 #: band dtype per precision: "default" contracts in bf16 (the JAX default
 #: precision), "highest" in exact float32.
@@ -44,11 +48,12 @@ def build_gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
     attention edges, so the plan's `fb_overflow` is read here (one host
     sync per plan) and an overflowing plan is rebuilt at the exact
     capacity E with a RuntimeWarning.  `check_overflow=False` skips the
-    read."""
+    read.  ``ops.sddmm.counts`` records the plan."""
     e_budget = int(edge_src.shape[-1])
     plan = gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
                            n_nodes, window=window,
                            fb_capacity=min(e_budget, e_budget // 2 + 4096))
+    first_dropped, rebuilt = plan.fb_overflow, False
     if check_overflow:
         dropped = int(plan.fb_overflow[0])
         if dropped > 0:
@@ -61,6 +66,8 @@ def build_gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
             plan = gat_plan_device(edge_src, edge_dst, edge_attr, edge_mask,
                                    n_nodes, window=window,
                                    fb_capacity=e_budget)
+            rebuilt = True
+    sddmm.counts.record_plan(plan, n_nodes, first_dropped, rebuilt)
     return plan
 
 
@@ -150,9 +157,10 @@ def apply_large(model, g: GraphBatch, window: int = 512, plans=None,
         raise ValueError("the large-graph path operates on one graph")
     if getattr(model, "supports_banded_attention", False):
         if plans is None:
-            plans = build_gat_plan_device(
-                g.edge_src[0], g.edge_dst[0], g.edge_attr[0],
-                g.edge_mask[0], g.max_nodes, window=window)
+            with trace_span("layer.forward.plan"):
+                plans = build_gat_plan_device(
+                    g.edge_src[0], g.edge_dst[0], g.edge_attr[0],
+                    g.edge_mask[0], g.max_nodes, window=window)
         return model(g, gat_plan=plans, gat_precision=precision)
     if not getattr(model, "supports_spmm_aggregators", False):
         raise ValueError(

@@ -30,6 +30,10 @@ banded softmax counts exp(score(2·attr))·2 where the edge list counts
 takes the slot and every repeat goes to the fallback list, so the banded
 form computes the edge list's function on any graph; on a deduplicated
 graph the plan is the JAX package's, array for array.
+
+While a profiler records, each attention call opens the span
+``layer.forward.attention`` and `counts` keeps each plan's edge counts
+(``models.large.build_gat_plan_device``) and each call's shape.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.scatter import NEG_INF
+from ..utils import Recorder, trace_span
 from .region import Segments, segment_sum
+
+#: What `AttentionCounts.plans` holds of each plan, beside `rebuilt`.
+PLAN_COUNTS = ("in_window", "fallback", "dropped")
 
 
 @dataclasses.dataclass
@@ -65,6 +73,48 @@ class GatPlan:
     @property
     def window(self) -> int:
         return self.k_blocks * self.block_rows
+
+
+class AttentionCounts(Recorder):
+    """The banded attention's plans and calls, recorded as
+    `utils.Recorder` says: after `reset()` and while a torch profiler
+    records.  A plan is kept as its node slots, a small device tensor of
+    its `PLAN_COUNTS` (no sync when recorded) and whether it was rebuilt
+    at the exact capacity; a call as its (Np, K, R, H, F, FB)."""
+
+    def _clear(self) -> None:
+        self._plans: list = []
+        self.calls: list = []
+
+    def record_plan(self, plan: GatPlan, n_nodes: int, dropped,
+                    rebuilt: bool) -> None:
+        """`plan` built for `n_nodes` node slots; `dropped` the fallback
+        edges the first build dropped (a (1,) tensor)."""
+        if self.active:
+            counts = torch.stack([plan.mask_band.sum(), plan.fb_mask.sum(),
+                                  dropped.reshape(()).float()])
+            self._plans.append((n_nodes, counts, rebuilt))
+
+    @property
+    def plans(self) -> list:
+        """One dict a plan: nodes, in_window, fallback, dropped, rebuilt
+        (a host read)."""
+        return [dict(nodes=n, rebuilt=r,
+                     **dict(zip(PLAN_COUNTS, map(int, c.tolist()))))
+                for n, c, r in self._plans]
+
+    def totals(self) -> dict:
+        """Plans and rebuilt plans recorded, their edge counts summed, and
+        the attention calls."""
+        plans = self.plans
+        out = dict(plans=len(plans), rebuilt=sum(p["rebuilt"] for p in plans))
+        out.update({k: sum(p[k] for p in plans) for k in PLAN_COUNTS})
+        return dict(out, calls=len(self.calls))
+
+
+#: The plans and attention calls recorded since ``counts.reset()``, and
+#: those made while a profiler records.
+counts = AttentionCounts()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -174,6 +224,19 @@ def banded_gat_attention(xl: torch.Tensor, xr: torch.Tensor, plan: GatPlan,
     if precision not in ("default", "highest"):
         raise ValueError(f"precision must be 'default' or 'highest', "
                          f"got {precision!r}")
+    if counts.active:
+        counts.calls.append((plan.n_nodes, plan.k_blocks, plan.block_rows,
+                             *xl.shape[1:], plan.fb_src.shape[0]))
+    with trace_span("layer.forward.attention"):
+        return _attend(xl, xr, plan, project_edge, att, node_mask,
+                       negative_slope,
+                       torch.float32 if precision == "highest"
+                       else torch.bfloat16)
+
+
+def _attend(xl, xr, plan: GatPlan, project_edge, att, node_mask,
+            negative_slope: float, cdt: torch.dtype) -> torch.Tensor:
+    """`banded_gat_attention` with its window dtype `cdt`."""
     N, H, Fh = xl.shape
     R, K, Np = plan.block_rows, plan.k_blocks, plan.n_nodes
     nb = Np // R
@@ -181,7 +244,6 @@ def banded_gat_attention(xl: torch.Tensor, xr: torch.Tensor, plan: GatPlan,
         xl = F.pad(xl, (0, 0, 0, 0, 0, Np - N))
         xr = F.pad(xr, (0, 0, 0, 0, 0, Np - N))
         node_mask = F.pad(node_mask, (0, Np - N))
-    cdt = torch.float32 if precision == "highest" else torch.bfloat16
     out_dtype = xl.dtype
     xl, xr = xl.to(cdt), xr.to(cdt)
     xl_flat = xl.reshape(Np, H * Fh)

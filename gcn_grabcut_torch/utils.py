@@ -29,6 +29,11 @@ name above them, and spans under one parent do not overlap:
                                symmetrise
       layer.build.prior        compute_auto_prior (the geodesic relaxation)
     layer.forward              GCNGrabCutPipeline._predict_probs_batch
+      layer.forward.plan       GATTrimapNet on the large path only:
+                               models.large.build_gat_plan_device, its
+                               overflow read included
+      layer.forward.attention  GATTrimapNet on the large path only: each
+                               ops.sddmm.banded_gat_attention call
     layer.project              each _project_probs_device, the resize to a
                                reduced scale, the average of the scales
     layer.trimap               rgb_to_gray and _trimap_stage_device
@@ -49,9 +54,11 @@ name above them, and spans under one parent do not overlap:
       layer.finalize.compose   the overlay, the RGBA and the results
 
 While a profiler records, ``ops.maxflow.counts`` also records every
-min-cut solve (its kernel's tallies copied behind it, with no sync), and
+min-cut solve (its kernel's tallies copied behind it, with no sync),
 ``ops.gmm.counts`` every colour-model pass launched (its kind and the
-images it served).
+images it served), and ``ops.sddmm.counts`` every banded-attention plan
+(its node slots, in-window, fallback and dropped edges, kept on the
+device until read, and whether it was rebuilt) and call (its shape).
 
 The JAX package's ``setup_compilation_cache`` is not ported: it points
 XLA's persistent compilation cache at a directory, and the port compiles
@@ -90,11 +97,12 @@ def trace_span(name: str):
 
 class Recorder:
     """The recording policy of the program's counters
-    (``ops.maxflow.counts``, ``ops.gmm.counts``): what they count is kept
-    after `reset()` (which clears what was kept and records from then on)
-    and, without it, while a torch profiler records (`tracing()`), so a
-    traced window holds what was launched in it.  Otherwise nothing is
-    kept.  A subclass says in `_clear` what it keeps."""
+    (``ops.maxflow.counts``, ``ops.gmm.counts``, ``ops.sddmm.counts``):
+    what they count is kept after `reset()` (which clears what was kept
+    and records from then on) and, without it, while a torch profiler
+    records (`tracing()`), so a traced window holds what was launched in
+    it.  Otherwise nothing is kept.  A subclass says in `_clear` what it
+    keeps."""
 
     def __init__(self):
         self.recording = False
@@ -128,9 +136,11 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     ``trace_<pid>_<ns>.mincut.json``: the min-cut solves launched in the
     region, summed (``ops.maxflow.SolverCounts.totals``: solves, rounds,
     relabel steps, grid barriers, tiles swept, tiles relaxed, host syncs),
-    and ``trace_<pid>_<ns>.gmm.json``: the colour-model passes launched in
+    ``trace_<pid>_<ns>.gmm.json``: the colour-model passes launched in
     it (``ops.gmm.PassCounts.totals``: passes, images served, passes by
-    kind).  Both counts are cleared on entry.
+    kind), and ``trace_<pid>_<ns>.attention.json``: the banded-attention
+    plans and calls (``ops.sddmm.AttentionCounts.totals``).  The counts are
+    cleared on entry.
     """
     if log_dir is None:
         yield
@@ -138,7 +148,7 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .ops import gmm, maxflow
+    from .ops import gmm, maxflow, sddmm
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -146,8 +156,8 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     prof = profile(activities=activities)
-    maxflow.counts.clear()
-    gmm.counts.clear()
+    for counts in (maxflow.counts, gmm.counts, sddmm.counts):
+        counts.clear()
     prof.start()
     try:
         yield
@@ -158,3 +168,5 @@ def profile_trace(log_dir: Optional[str | Path]) -> Iterator[None]:
         Path(f"{stem}.mincut.json").write_text(
             json.dumps(maxflow.counts.totals()))
         Path(f"{stem}.gmm.json").write_text(json.dumps(gmm.counts.totals()))
+        Path(f"{stem}.attention.json").write_text(
+            json.dumps(sddmm.counts.totals()))
